@@ -1,0 +1,208 @@
+"""Sensor evaluation (mj_sensorPos/Vel/Acc), batched.
+
+Counterpart of ``dm_control_tpu/physics/sensors.py`` for the sensor types
+humanoid declares: touch, accelerometer, velocimeter, gyro, force, torque
+and subtree linear velocity.  Sensors of one type are evaluated together
+and written into ``sensordata`` at their static addresses.  A model with
+any other sensor type raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dm_control_torch.physics import mathx as mx
+from dm_control_torch.physics.model import (
+    Data, Model, ObjType, SensorType, body_ancestor_mask, body_dof_mask,
+    body_subtree_mask,
+)
+
+_S = SensorType
+_PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
+           _S.TORQUE, _S.SUBTREELINVEL}
+
+
+def _by_type(m: Model):
+    """sensor type -> list of sensor ids; checks every type is ported."""
+    groups = {}
+    for s in range(m.nsensor):
+        stype = _S(m.sensor_type[s])
+        if stype not in _PORTED:
+            raise NotImplementedError(
+                f"sensor type {stype.name} is not ported yet "
+                f"(ROADMAP A: the other 18 domains)")
+        if stype != _S.SUBTREELINVEL and \
+                m.sensor_objtype[s] != int(ObjType.SITE):
+            raise NotImplementedError(
+                f"sensor {s}: only site-attached {stype.name} is ported")
+        groups.setdefault(stype, []).append(s)
+    return groups
+
+
+def _groups(m: Model):
+    return m.cached("sensors", lambda: _by_type(m))
+
+
+def _put(m: Model, out, sensors, val):
+    """Writes val (B, S, dim) at the addresses of ``sensors``."""
+    dim = val.shape[-1]
+    cols = m.idx([[m.sensor_adr[s] + k for k in range(dim)]
+                  for s in sensors])
+    out[:, cols] = val.reshape(val.shape[0], -1)
+
+
+def _site_frame(m: Model, d: Data, sensors):
+    """Site position and frame of each sensor, its body, and the offset
+    from that body's root subtree CoM."""
+    sites = [m.sensor_objid[s] for s in sensors]
+    bodies = [m.site_bodyid[i] for i in sites]
+    pos = d.site_xpos[:, m.idx(sites)]
+    mat = d.site_xmat[:, m.idx(sites)]
+    offset = pos - d.subtree_com[:, m.idx([m.body_rootid[b]
+                                           for b in bodies])]
+    return bodies, mat, offset
+
+
+def sensor_pos(m: Model, d: Data) -> Data:
+    """Position-stage sensors: none of the ported types is one."""
+    _groups(m)
+    return d
+
+
+def sensor_vel(m: Model, d: Data) -> Data:
+    if m.nsensor == 0:
+        return d
+    out = d.sensordata.clone()
+    for stype, sensors in _groups(m).items():
+        if stype in (_S.GYRO, _S.VELOCIMETER):
+            bodies, mat, offset = _site_frame(m, d, sensors)
+            vel = mx.transform_motion(d.cvel[:, m.idx(bodies)], offset)
+            part = vel[..., :3] if stype == _S.GYRO else vel[..., 3:]
+            _put(m, out, sensors, mx.mat_t_vec(mat, part))
+        elif stype == _S.SUBTREELINVEL:
+            linvel = _subtree_linvel(m, d)
+            _put(m, out, sensors,
+                 linvel[:, m.idx([m.sensor_objid[s] for s in sensors])])
+    return d.replace(sensordata=out)
+
+
+def sensor_acc(m: Model, d: Data) -> Data:
+    """Acceleration/force sensors; needs the post-constraint qacc."""
+    groups = _groups(m) if m.nsensor else {}
+    if not any(t in groups for t in (_S.TOUCH, _S.ACCELEROMETER, _S.FORCE,
+                                     _S.TORQUE)):
+        return d
+    cacc, cfrc_int = _rne_postconstraint(m, d)
+    out = d.sensordata.clone()
+    for stype, sensors in groups.items():
+        if stype == _S.TOUCH:
+            _put(m, out, sensors, _touch(m, d, sensors).unsqueeze(-1))
+        elif stype == _S.ACCELEROMETER:
+            bodies, mat, offset = _site_frame(m, d, sensors)
+            b = m.idx(bodies)
+            acc6 = mx.transform_motion(cacc[:, b], offset)
+            vel6 = mx.transform_motion(d.cvel[:, b], offset)
+            lin = acc6[..., 3:] + mx.cross(vel6[..., :3], vel6[..., 3:])
+            _put(m, out, sensors, mx.mat_t_vec(mat, lin))
+        elif stype in (_S.FORCE, _S.TORQUE):
+            bodies, mat, offset = _site_frame(m, d, sensors)
+            fr = mx.transform_force(cfrc_int[:, m.idx(bodies)], offset)
+            part = fr[..., 3:] if stype == _S.FORCE else fr[..., :3]
+            _put(m, out, sensors, mx.mat_t_vec(mat, part))
+    return d.replace(sensordata=out)
+
+
+def _touch(m: Model, d: Data, sensors):
+    """Touch values (B, S): normal force of the contacts whose position
+    lies inside the sensor's site volume and that involve its body."""
+    con = d.contact
+    if not con.dim:
+        return d.qpos.new_zeros(d.qpos.shape[0], len(sensors))
+    sids = [m.sensor_objid[s] for s in sensors]
+
+    def touches_body():  # (S, C): the contact involves the site's body
+        sb = np.array([m.site_bodyid[i] for i in sids])[:, None]
+        cb1 = np.array([m.geom_bodyid[g] for g in con.geom1])[None]
+        cb2 = np.array([m.geom_bodyid[g] for g in con.geom2])[None]
+        return torch.as_tensor((sb == cb1) | (sb == cb2), device=m.device)
+
+    body_mask = m.cached(("touch_body", tuple(sensors)), touches_body)
+    sidx = m.idx(sids)
+    smat = d.site_xmat[:, sidx]  # (B, S, 3, 3)
+    rel = con.pos[:, None] - d.site_xpos[:, sidx, None]  # (B, S, C, 3)
+    p = torch.einsum("bsij,bsci->bscj", smat, rel)
+    size = m.site_size[sidx][:, None, :]  # (S, 1, 3)
+    st = m.cached(("touch_type", tuple(sensors)), lambda: torch.tensor(
+        [m.site_type[i] for i in sids], device=m.device)[:, None])
+
+    r2 = size[..., 0] ** 2
+    sphere = torch.sum(p * p, -1) <= r2
+    z = torch.clamp(p[..., 2], -size[..., 1], size[..., 1])
+    capsule = (p[..., 0] ** 2 + p[..., 1] ** 2 + (p[..., 2] - z) ** 2) <= r2
+    ellipsoid = torch.sum((p / torch.clamp(size, min=1e-15)) ** 2, -1) <= 1.0
+    cylinder = ((p[..., 0] ** 2 + p[..., 1] ** 2 <= r2)
+                & (torch.abs(p[..., 2]) <= size[..., 1]))
+    box = torch.all(torch.abs(p) <= size, -1)
+    inside = torch.where(st == 2, sphere, torch.where(
+        st == 3, capsule, torch.where(st == 4, ellipsoid, torch.where(
+            st == 5, cylinder, box))))
+    force = torch.clamp(d.contact_force, min=0.0)[:, None, :]  # (B, 1, C)
+    return torch.sum(torch.where(body_mask & inside, force,
+                                 torch.zeros_like(force)), dim=-1)
+
+
+def _subtree_linvel(m: Model, d: Data):
+    """mj_subtreeVel's linear part: subtree CoM velocity per body."""
+    root = m.idx(m.body_rootid)
+    vel6 = mx.transform_motion(d.cvel, d.xipos - d.subtree_com[:, root])
+    mom = m.body_mass.unsqueeze(-1) * vel6[..., 3:]
+    return (body_subtree_mask(m) @ mom) / torch.clamp(
+        m.body_subtreemass.unsqueeze(-1), min=1e-15)
+
+
+def _rne_postconstraint(m: Model, d: Data):
+    """mj_rnePostConstraint: cacc and cfrc_int with the final qacc and
+    the contact and applied forces."""
+    cacc0 = torch.cat([torch.zeros_like(m.opt.gravity), -m.opt.gravity])
+    per_dof = (d.cdof_dot * d.qvel.unsqueeze(-1)
+               + d.cdof * d.qacc.unsqueeze(-1))
+    cacc = cacc0 + body_ancestor_mask(m) @ (body_dof_mask(m) @ per_dof)
+    cfrc_body = mx.inert_mul(d.cinert, cacc) + mx.force_cross(
+        d.cvel, mx.inert_mul(d.cinert, d.cvel))
+    cfrc_int = body_subtree_mask(m) @ (cfrc_body - _cfrc_ext(m, d))
+    return cacc, cfrc_int
+
+
+def _contact_incidence(m: Model, con):
+    """(nbody, ncon) signed incidence: +1 where the contact's second geom
+    is on the body, -1 where its first is."""
+    inc = torch.zeros(m.nbody, len(con.dim), dtype=m.dtype)
+    for c, (g1, g2) in enumerate(zip(con.geom1, con.geom2)):
+        inc[m.geom_bodyid[g2], c] += 1.0
+        inc[m.geom_bodyid[g1], c] -= 1.0
+    return inc.to(m.device)
+
+
+def _cfrc_ext(m: Model, d: Data):
+    """External (contact + xfrc_applied) wrench per body at its root's
+    subtree CoM, world axes."""
+    root_com = d.subtree_com[:, m.idx(m.body_rootid)]
+    con = d.contact
+    cfrc_ext = torch.zeros_like(d.cinert[..., :6])
+    if con.dim:
+        wrench = d.contact_force_vec
+        f_w = torch.einsum("bkij,bki->bkj", con.frame, wrench[..., :3])
+        t_w = torch.einsum("bkij,bki->bkj", con.frame, wrench[..., 3:])
+        inc = m.cached("contact_incidence",
+                       lambda: _contact_incidence(m, con)).to(f_w.dtype)
+        # torque about the world origin, then moved to each body's root
+        # CoM: t + (pos - com) x f = (t + pos x f) - com x f
+        trq0 = t_w + mx.cross(con.pos, f_w)
+        frc = inc @ f_w  # (B, nbody, 3)
+        trq = inc @ trq0 - mx.cross(root_com, frc)
+        cfrc_ext = torch.cat([trq, frc], dim=-1)
+    off = d.xipos - root_com
+    xf = d.xfrc_applied
+    trq = xf[..., 3:] + mx.cross(off, xf[..., :3])
+    return cfrc_ext + torch.cat([trq, xf[..., :3]], dim=-1)

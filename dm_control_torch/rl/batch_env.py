@@ -1,0 +1,233 @@
+"""Batched environment runtime: B environments stepped in lockstep.
+
+Counterpart of ``dm_control_tpu/rl/batch_env.py``.  The batch is one
+``EnvState`` whose tensors have the environments first; autoreset and
+divergence are per-environment masks.  JAX's control flow becomes host
+loops: the substep ``fori_loop`` a Python loop, the reset rejection
+``while_loop`` a loop over a mask that ends when no environment is
+rejected, and the autoreset ``cond`` a branch on ``needs_reset.any()``.
+
+The JAX package routes small scalar-joint models (cartpole, cheetah,
+walker) through ``physics/fastpath.py::build_step``, a fused step that
+matches ``engine.step``.  That fast path is not ported: every model here
+runs ``engine.step``, which gives the same dynamics.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from dm_control_torch.physics import actuation as act_mod
+from dm_control_torch.physics import engine
+from dm_control_torch.physics import kinematics as kin
+from dm_control_torch.physics import sensors as sens
+from dm_control_torch.physics.model import Data, Model, make_data
+from dm_control_torch.rl.control import (
+    FIRST, LAST, MID, EnvState, RandomContext, Task, TimeStepData,
+    apply_model_diff, compute_n_steps,
+)
+
+_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "time")
+_INT32_MAX = 2 ** 31 - 1
+
+
+class BatchEnv:
+    """Batched environment over one model and task.
+
+        env = BatchEnv(model, task, time_limit=..., control_timestep=...)
+        state, ts = env.reset(batch, generator)
+        state, ts = env.step(state, actions)     # actions (B, nu)
+
+    ``step`` resets the environments whose previous step was LAST (or
+    diverged), drawing their new episodes from ``state.rng``.
+    """
+
+    def __init__(self, model: Model, task: Task,
+                 time_limit: float = float("inf"),
+                 control_timestep: Optional[float] = None,
+                 autoreset: bool = True):
+        self.model = model
+        self.task = task
+        self.autoreset = autoreset
+        physics_timestep = float(model.opt.timestep)
+        control_timestep = control_timestep or physics_timestep
+        self.n_sub_steps = compute_n_steps(control_timestep,
+                                           physics_timestep, tolerance=1e-4)
+        if time_limit == float("inf"):
+            self.step_limit = _INT32_MAX
+        else:
+            self.step_limit = int(round(time_limit / control_timestep))
+        # Between steps only the true physics state is carried; every
+        # derived field is recomputed by the next forward().  Empty state
+        # fields (act when na == 0) are not carried either.
+        one = make_data(model, 1)
+        self._state_fields = tuple(f for f in _STATE_FIELDS
+                                   if getattr(one, f)[0].numel() > 0)
+        self._templates: Dict[int, Data] = {}
+
+    # -- stripped-carry helpers ---------------------------------------------
+
+    def _template(self, batch: int) -> Data:
+        if batch not in self._templates:
+            self._templates[batch] = make_data(self.model, batch)
+        return self._templates[batch]
+
+    def _strip(self, d: Data) -> Data:
+        return Data(**{f.name: getattr(d, f.name)
+                       if f.name in self._state_fields else None
+                       for f in dataclasses.fields(Data)})
+
+    def _unstrip(self, d: Data) -> Data:
+        return self._template(d.qpos.shape[0]).replace(
+            **{f: getattr(d, f) for f in self._state_fields})
+
+    def from_state(self, qpos, qvel, qacc_warmstart, time,
+                   generator: torch.Generator) -> EnvState:
+        """An EnvState at a given physics state (e.g. one taken from
+        another implementation), with step_count 0."""
+        B = qpos.shape[0]
+        d = self._template(B).replace(qpos=qpos, qvel=qvel,
+                                      qacc_warmstart=qacc_warmstart,
+                                      time=time)
+        dev = qpos.device
+        return EnvState(data=self._strip(d),
+                        model_diff=self.task.initial_model_diff(self.model),
+                        rng=generator,
+                        step_count=torch.zeros(B, dtype=torch.int32,
+                                               device=dev),
+                        needs_reset=torch.zeros(B, dtype=torch.bool,
+                                                device=dev))
+
+    # -- episode start ------------------------------------------------------
+
+    def _init_state(self, batch: int, generator: torch.Generator
+                    ) -> EnvState:
+        m, task = self.model, self.task
+        d = make_data(m, batch)
+        diff = task.initial_model_diff(m)
+        rc = RandomContext(generator, batch, d.qpos.dtype)
+        qpos, qvel, diff = task.init(m, d.qpos, torch.zeros_like(d.qvel), rc,
+                                     diff)
+        d = d.replace(qpos=qpos, qvel=qvel)
+        mm = apply_model_diff(m, diff)
+        if task.max_reset_rejections:
+            tries = torch.zeros(batch, dtype=torch.int32, device=m.device)
+            while True:
+                redo = task.reject(mm, d) & (tries < task.max_reset_rejections)
+                if not bool(redo.any()):
+                    break
+                qp, qv, _ = task.init(m, m.qpos0.expand(batch, m.nq).clone(),
+                                      torch.zeros_like(d.qvel), rc, diff)
+                r1 = redo.unsqueeze(-1)
+                d = d.replace(qpos=torch.where(r1, qp, d.qpos),
+                              qvel=torch.where(r1, qv, d.qvel))
+                tries = tries + redo.to(torch.int32)
+        if task.settle_steps:
+            raise NotImplementedError("settle steps after reset are not "
+                                      "ported yet (ROADMAP A: the other 18 "
+                                      "domains)")
+        return EnvState(data=d, model_diff=diff, rng=generator,
+                        step_count=torch.zeros(batch, dtype=torch.int32,
+                                               device=m.device),
+                        needs_reset=torch.zeros(batch, dtype=torch.bool,
+                                                device=m.device))
+
+    def _observe(self, state: EnvState):
+        m = apply_model_diff(self.model, state.model_diff)
+        if self.task.observation_stages != "vel":
+            raise NotImplementedError("observations of acceleration-stage "
+                                      "values are not ported yet (ROADMAP A: "
+                                      "the other 18 domains)")
+        # position/velocity-stage observables only: skip CRB, collision,
+        # RNE and the acceleration-stage sensors
+        d = kin.kinematics(m, state.data)
+        d = kin.com_pos(m, d)
+        d = kin.tendon(m, d)
+        d = act_mod.transmission(m, d)
+        d = sens.sensor_pos(m, d)
+        d = act_mod.actuator_velocity(m, d)
+        d = kin.com_vel(m, d)
+        d = sens.sensor_vel(m, d)
+        return state.replace(data=d), self.task.observation(m, d)
+
+    def reset(self, batch: int, generator: torch.Generator):
+        """New episodes for ``batch`` environments, drawn from
+        ``generator`` (which also serves later autoresets)."""
+        state, obs = self._observe(self._init_state(batch, generator))
+        d = state.data
+        ts = TimeStepData(
+            step_type=torch.full((batch,), FIRST, dtype=torch.int32,
+                                 device=d.qpos.device),
+            reward=torch.zeros(batch, dtype=d.qpos.dtype,
+                               device=d.qpos.device),
+            discount=torch.ones(batch, dtype=d.qpos.dtype,
+                                device=d.qpos.device),
+            observation=obs)
+        return state.replace(data=self._strip(d)), ts
+
+    # -- stepping -----------------------------------------------------------
+
+    def _plain_step(self, state: EnvState, action):
+        m = apply_model_diff(self.model, state.model_diff)
+        task = self.task
+        d = task.before_step(m, self._unstrip(state.data), action)
+        for _ in range(self.n_sub_steps):
+            d = engine.step(m, d)
+        state = state.replace(data=d, step_count=state.step_count + 1)
+        state, obs = self._observe(state)
+        d = state.data
+        reward = task.reward(m, d)
+        terminate, term_discount = task.termination(m, d)
+        # divergence is a termination with discount 0
+        diverged = engine.check_divergence(m, d)
+        last = terminate | diverged | (state.step_count >= self.step_limit)
+        zero = torch.zeros_like(reward)
+        discount = torch.where(diverged, zero, torch.where(
+            terminate, term_discount.to(reward.dtype), torch.ones_like(
+                reward)))
+        ts = TimeStepData(
+            step_type=torch.where(last, LAST, MID).to(torch.int32),
+            reward=torch.where(diverged, zero, reward), discount=discount,
+            observation=obs)
+        return state.replace(data=self._strip(d), needs_reset=last), ts
+
+    def step(self, state: EnvState, action):
+        """One control step of every environment, with amortized
+        autoreset: the batch resets only on steps where some environment
+        finished, and a mask merges the new episodes in."""
+        stepped_state, stepped_ts = self._plain_step(state, action)
+        if not self.autoreset or not bool(state.needs_reset.any()):
+            return stepped_state, stepped_ts
+        B = state.needs_reset.shape[0]
+        new_state, new_ts = self.reset(B, state.rng)
+        need = state.needs_reset
+
+        def sel(a, b):
+            if a is None:
+                return None
+            mask = need.reshape(need.shape + (1,) * (a.ndim - 1))
+            return torch.where(mask, a, b)
+
+        data = Data(**{f.name: sel(getattr(new_state.data, f.name),
+                                   getattr(stepped_state.data, f.name))
+                       for f in dataclasses.fields(Data)
+                       if f.name != "contact"}, contact=None)
+        state = stepped_state.replace(
+            data=data,
+            model_diff={k: sel(new_state.model_diff[k], v)
+                        for k, v in stepped_state.model_diff.items()},
+            step_count=sel(new_state.step_count, stepped_state.step_count),
+            needs_reset=sel(new_state.needs_reset,
+                            stepped_state.needs_reset))
+        ts = TimeStepData(
+            step_type=sel(new_ts.step_type, stepped_ts.step_type),
+            reward=sel(new_ts.reward, stepped_ts.reward),
+            discount=sel(new_ts.discount, stepped_ts.discount),
+            observation=collections.OrderedDict(
+                (k, sel(new_ts.observation[k], v))
+                for k, v in stepped_ts.observation.items()))
+        return state, ts
