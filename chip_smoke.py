@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, checks one float64 control step of
+against its plain PyTorch version (sizes on both sides of every boundary
+of the launcher's rule, both types, a shared matrix, a matrix given by its
+lower triangle alone, a non-SPD system),
+times it beside its bound, the plain version and PyTorch's library calls
+for the same function, checks one float64 control step of
 humanoid:run against the JAX package's golden result, drives the main
 path (``suite.load_batch("humanoid", "run")`` -> ``BatchEnv.reset`` and
 ``BatchEnv.step`` at B = 1024, float32) and checks that every dense solve
@@ -50,10 +54,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def spd(rng, b, n, dtype):
-    q = rng.standard_normal((b, n, n))
-    a = q @ np.swapaxes(q, -1, -2) + n * np.eye(n)
-    return torch.as_tensor(a, dtype=dtype, device="cuda")
+KERNEL_NS = (1, 2, 7, 27, 31, 32, 33, 40, 62, 63, 64, 65, 79, 160)
+KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
+SHARED_NS = (27, 32, 33, 64, 65)
+LOWER_NS = (27, 32, 33, 64, 65)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FLOAT32_FLOPS = 67e12      # H100 SXM, outside the tensor cores
+
+
+def spd(gen, b, n, dtype):
+    q = torch.randn(b, n, n, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    a = q @ q.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64,
+                                                device="cuda")
+    return a.to(dtype)
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                       device="cuda").to(dtype)
 
 
 def time_ms(fn, reps=30):
@@ -72,57 +91,130 @@ def time_ms(fn, reps=30):
     return float(np.median(times))
 
 
+def device_ms(fn, calls=50):
+    """Device milliseconds per call from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    total_us = sum(getattr(e, "device_time", None) or e.cuda_time
+                   for e in events)
+    check(total_us > 0, "torch.profiler saw no kernel on the device")
+    return total_us / 1e3 / calls
+
+
+def check_close(x, ref, dtype, what):
+    err = (x - ref).abs() - TOL[dtype] * ref.abs()
+    check(bool(torch.isfinite(x).all()), f"non-finite x at {what}")
+    check(bool((err <= TOL[dtype]).all()),
+          f"kernel != plain at {what}: max |dx| "
+          f"{float((x - ref).abs().max()):.3e}")
+    return float((x - ref).abs().max())
+
+
 def phase_kernel(linalg):
-    """Kernel against plain version over sizes, types and one non-SPD
-    system; returns the main-path shape's error and times."""
-    rng = np.random.default_rng(0)
+    """Kernel against plain version over sizes on both sides of every
+    boundary of the launcher's rule, both types, a shared matrix, a matrix
+    given by its lower triangle alone and one non-SPD system; then the main-path shape's error, times and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
-        for n in (2, 7, 27, 40, 62, 79):
-            for b in (1, 1000, 1024):
-                a = spd(rng, b, n, dtype)
-                rhs = torch.as_tensor(rng.standard_normal((b, n)),
-                                      dtype=dtype, device="cuda")
+        for n in KERNEL_NS:
+            a_all = spd(gen, max(KERNEL_BS), n, dtype)
+            rhs_all = randn(gen, (max(KERNEL_BS), n), dtype)
+            for b in KERNEL_BS:
+                a, rhs = a_all[:b], rhs_all[:b]
                 x = linalg.chol_solve_cuda(a, rhs)
-                ref = linalg.chol_solve_reference(a, rhs)
                 torch.cuda.synchronize()
-                err = (x - ref).abs() - TOL[dtype] * ref.abs()
-                check(bool(torch.isfinite(x).all()),
-                      f"non-finite x at n={n} B={b} {dtype}")
-                check(bool((err <= TOL[dtype]).all()),
-                      f"kernel != plain at n={n} B={b} {dtype}: "
-                      f"max |dx| {float((x - ref).abs().max()):.3e}")
-                worst[dtype] = max(worst[dtype],
-                                   float((x - ref).abs().max()))
+                worst[dtype] = max(worst[dtype], check_close(
+                    x, linalg.chol_solve_reference(a, rhs), dtype,
+                    f"n={n} B={b} {dtype}"))
+        # one (n, n) matrix shared by the batch: read with a batch stride
+        # of 0, directly and as an expanded view through the dispatcher
+        for n in SHARED_NS:
+            a = spd(gen, 1, n, dtype)[0]
+            rhs = randn(gen, (1001, n), dtype)
+            ref = linalg.chol_solve_reference(a.expand(1001, n, n), rhs)
+            worst[dtype] = max(worst[dtype], check_close(
+                linalg.chol_solve_cuda(a, rhs), ref, dtype,
+                f"shared matrix n={n} {dtype}"))
+            check_close(linalg.chol_solve(a.expand(1001, n, n), rhs), ref,
+                        dtype, f"expanded shared matrix n={n} {dtype}")
+        # only the lower triangle is the input, as for the plain version:
+        # what stands above the diagonal must not reach x
+        for n in LOWER_NS:
+            a = spd(gen, 1001, n, dtype)
+            rhs = randn(gen, (1001, n), dtype)
+            ref = linalg.chol_solve_reference(a, rhs)
+            junk = a.tril() + randn(gen, (1001, n, n), dtype).triu(1)
+            check_close(linalg.chol_solve_reference(junk, rhs), ref, dtype,
+                        f"plain version, lower triangle only n={n} {dtype}")
+            worst[dtype] = max(worst[dtype], check_close(
+                linalg.chol_solve_cuda(junk, rhs), ref, dtype,
+                f"lower triangle only n={n} {dtype}"))
         # one system that is not SPD inside a batch: NaN in that row only
-        a = spd(rng, 1000, 27, dtype)
-        a[17] = -a[17]
-        rhs = torch.ones(1000, 27, dtype=dtype, device="cuda")
-        x = linalg.chol_solve_cuda(a, rhs)
-        ref = linalg.chol_solve_reference(a, rhs)
-        torch.cuda.synchronize()
-        nan_rows = torch.isnan(x).any(-1).nonzero().flatten().tolist()
-        check(nan_rows == [17] and bool(torch.isnan(x[17]).all()),
-              f"non-SPD system: NaN rows {nan_rows}, expected [17]")
-        check(torch.isnan(ref[17]).all(), "plain version lost the NaN row")
-        keep = torch.arange(1000, device="cuda") != 17
-        check(bool(torch.allclose(x[keep], ref[keep], rtol=TOL[dtype],
-                                  atol=TOL[dtype])),
-              "non-SPD system disturbed other rows")
+        for n in (27, 62, 79):
+            a = spd(gen, 1001, n, dtype)
+            a[17] = -a[17]
+            rhs = torch.ones(1001, n, dtype=dtype, device="cuda")
+            x = linalg.chol_solve_cuda(a, rhs)
+            ref = linalg.chol_solve_reference(a, rhs)
+            torch.cuda.synchronize()
+            nan_rows = torch.isnan(x).any(-1).nonzero().flatten().tolist()
+            check(nan_rows == [17] and bool(torch.isnan(x[17]).all()),
+                  f"non-SPD system n={n} {dtype}: NaN rows {nan_rows}, "
+                  f"expected [17]")
+            check(torch.isnan(ref[17]).all(),
+                  "plain version lost the NaN row")
+            keep = torch.arange(1001, device="cuda") != 17
+            check(bool(torch.allclose(x[keep], ref[keep], rtol=TOL[dtype],
+                                      atol=TOL[dtype])),
+                  f"non-SPD system disturbed other rows (n={n} {dtype})")
 
-    a = spd(rng, MAIN_BATCH, 27, torch.float32)
-    rhs = torch.as_tensor(rng.standard_normal((MAIN_BATCH, 27)),
-                          dtype=torch.float32, device="cuda")
+    # the main path's shape; A stays warm in L2 between calls, as on the
+    # main path, where the product that writes H runs just before
+    n = 27
+    a = spd(gen, MAIN_BATCH, n, torch.float32)
+    rhs = randn(gen, (MAIN_BATCH, n), torch.float32)
     err = float((linalg.chol_solve_cuda(a, rhs)
                  - linalg.chol_solve_reference(a, rhs)).abs().max())
-    plain_ms = time_ms(lambda: linalg.chol_solve_reference(a, rhs))
-    ms = time_ms(lambda: linalg.chol_solve_cuda(a, rhs))
-    plain_ms2 = time_ms(lambda: linalg.chol_solve_reference(a, rhs))
-    ms2 = time_ms(lambda: linalg.chol_solve_cuda(a, rhs))
-    return dict(max_abs_err=err, ms=min(ms, ms2),
-                plain_ms=min(plain_ms, plain_ms2), worst_f32=worst[
-                    torch.float32], worst_f64=worst[torch.float64],
-                ms_runs=(ms, ms2), plain_runs=(plain_ms, plain_ms2))
+
+    def library(a, rhs):
+        return torch.linalg.solve(a, rhs)
+
+    def library_cholesky(a, rhs):
+        factor, _ = torch.linalg.cholesky_ex(a)
+        return torch.cholesky_solve(rhs.unsqueeze(-1), factor).squeeze(-1)
+
+    lib_err = float((library(a, rhs)
+                     - linalg.chol_solve_reference(a, rhs)).abs().max())
+    check(lib_err <= TOL[torch.float32], f"library call != plain: {lib_err}")
+    fns = {"ms": linalg.chol_solve_cuda, "plain_ms":
+           linalg.chol_solve_reference, "library_ms": library,
+           "library_cholesky_ms": library_cholesky}
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(reversed(fns))):  # in turns
+        for k in order:
+            runs[k].append(time_ms(lambda: fns[k](a, rhs)))
+    dev_ms = device_ms(lambda: linalg.chol_solve_cuda(a, rhs))
+    # the bound counts the dense a at the rate of device memory; the lower
+    # triangle, which is all the kernel reads, is fewer bytes, and an a that
+    # is warm in L2 comes at a higher rate: the true floor is lower
+    byte_ms = 1e3 * 4 * MAIN_BATCH * (n * n + 2 * n) / HBM_BYTES_PER_S
+    triangle_ms = (1e3 * 4 * MAIN_BATCH * (n * (n + 1) // 2 + 2 * n)
+                   / HBM_BYTES_PER_S)
+    flop_ms = 1e3 * MAIN_BATCH * (n ** 3 / 3 + 2 * n * n) / FLOAT32_FLOPS
+    out = {k: min(v) for k, v in runs.items()}
+    out.update(max_abs_err=err, device_ms=dev_ms,
+               bound_ms=max(byte_ms, flop_ms), triangle_bound_ms=triangle_ms,
+               bound_by="bytes" if byte_ms >= flop_ms else "operations",
+               worst_f32=worst[torch.float32],
+               worst_f64=worst[torch.float64], runs=runs)
+    return out
 
 
 def phase_golden(suite):
@@ -251,13 +343,20 @@ def main() -> int:
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
     k = phase_kernel(linalg)
-    print(f"phase 3 kernel vs plain: ok over n in (2,7,27,40,62,79), "
-          f"B in (1,1000,1024), max |dx| f32 {k['worst_f32']:.3e} "
-          f"f64 {k['worst_f64']:.3e}, non-SPD row NaN only; B=1024 n=27 "
-          f"f32 kernel {k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms "
-          f"(runs {k['ms_runs'][0]:.4f}/{k['ms_runs'][1]:.4f} vs "
-          f"{k['plain_runs'][0]:.4f}/{k['plain_runs'][1]:.4f}) | {card}",
-          flush=True)
+    print(f"phase 3 kernel vs plain: ok over n in {KERNEL_NS}, B in "
+          f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower triangle only n "
+          f"in {LOWER_NS}, max "
+          f"|dx| f32 {k['worst_f32']:.3e} f64 {k['worst_f64']:.3e}, non-SPD "
+          f"row NaN only; B={MAIN_BATCH} n=27 f32 A warm in L2: kernel "
+          f"{k['ms']:.4f} ms per call (device {k['device_ms']:.4f} ms by "
+          f"torch.profiler), bound {k['bound_ms']:.5f} ms by "
+          f"{k['bound_by']} ({k['triangle_bound_ms']:.5f} ms for the lower "
+          f"triangle alone), plain {k['plain_ms']:.4f} ms, "
+          f"torch.linalg.solve {k['library_ms']:.4f} ms, cholesky_ex + "
+          f"cholesky_solve {k['library_cholesky_ms']:.4f} ms (runs "
+          + " ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}"
+                     for name, v in k["runs"].items())
+          + f") | {card}", flush=True)
 
     gerr, gworst = phase_golden(suite)
     print(f"phase 4 golden: float64 humanoid:run step on the card vs JAX "
@@ -284,7 +383,11 @@ def main() -> int:
         "replaces": "dm_control_tpu/ops/linalg.py:69",
         "launches": main_run["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}))
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        "library_call": "torch.linalg.solve",
+        "library_cholesky_ms": k["library_cholesky_ms"],
+        "device_ms": k["device_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,7 +10,8 @@ environment and solve one right-hand side:
   (``physics/engine.py::euler``).
 
 ``chol_solve(a, b)`` takes a (B, n, n) and b (B, n) (a may also be one
-(n, n) matrix shared by the batch) and dispatches on the device of its
+(n, n) matrix shared by the batch, which is never copied B times) and
+dispatches on the device of its
 inputs: a CUDA tensor launches the fused factor+solve kernel in
 ``csrc/chol_solve.cu`` or raises; a CPU tensor uses
 ``chol_solve_reference``, the plain PyTorch version of the same function.
@@ -45,59 +46,87 @@ def chol_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
-def _lib():
+_DTYPES = (torch.float32, torch.float64)
+_ENTRY = None  # {dtype: C entry point}, filled by the first _load()
+_MAX_N = 0
+_ERROR_STRING = None
+
+
+def _load() -> None:
+    """Builds (or loads) the library and resolves its entry points once."""
+    global _ENTRY, _MAX_N, _ERROR_STRING
     from dm_control_torch.ops import _cuda_build
 
     lib = _cuda_build.load_library("chol_solve.cu")
-    if not hasattr(lib, "max_n"):
-        ptr = ctypes.c_void_p
-        for fn in (lib.chol_solve_f32, lib.chol_solve_f64):
-            fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        lib.chol_solve_max_n.argtypes = []
-        lib.chol_solve_max_n.restype = ctypes.c_int
-        lib.chol_solve_error_string.argtypes = [ctypes.c_int]
-        lib.chol_solve_error_string.restype = ctypes.c_char_p
-        lib.max_n = lib.chol_solve_max_n()
-    return lib
+    ptr = ctypes.c_void_p
+    for fn in (lib.chol_solve_f32, lib.chol_solve_f64):
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ptr]
+        fn.restype = ctypes.c_int
+    lib.chol_solve_max_n.argtypes = []
+    lib.chol_solve_max_n.restype = ctypes.c_int
+    lib.chol_solve_error_string.argtypes = [ctypes.c_int]
+    lib.chol_solve_error_string.restype = ctypes.c_char_p
+    _ERROR_STRING = lib.chol_solve_error_string
+    _MAX_N = lib.chol_solve_max_n()
+    _ENTRY = {torch.float32: lib.chol_solve_f32,
+              torch.float64: lib.chol_solve_f64}
 
 
 def build() -> None:
     """Builds (or loads) the CUDA library now rather than on first use."""
-    _lib()
+    if _ENTRY is None:
+        _load()
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The kernel's conditions, each tested once; returns n."""
+    if not a.is_cuda or b.device != a.device:
+        raise ValueError(f"chol_solve_cuda needs a and b on one CUDA device, "
+                         f"got {a.device} and {b.device}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"chol_solve_cuda takes float32 or float64, got "
+                        f"{a.dtype} and {b.dtype}")
+    if (b.ndim != 2 or a.ndim not in (2, 3)
+            or a.shape[-2:] != (b.shape[1], b.shape[1])
+            or (a.ndim == 3 and a.shape[0] != b.shape[0])):
+        raise ValueError(f"chol_solve_cuda needs a (B, n, n) or (n, n) and "
+                         f"b (B, n), got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("chol_solve_cuda needs contiguous inputs")
+    if _ENTRY is None:
+        _load()
+    n = b.shape[1]
+    if not 1 <= n <= _MAX_N:
+        raise ValueError(f"chol_solve_cuda supports 1 <= n <= {_MAX_N}, got "
+                         f"n = {n}")
+    return n
 
 
 def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launches the fused factor+solve kernel on the current stream.
 
-    a: (B, n, n) and b: (B, n), contiguous, float32 or float64, on one
-    CUDA device.  Returns x (B, n).  Raises on anything else.
+    a: (B, n, n), or one (n, n) matrix shared by the batch (the kernel
+    reads it with a batch stride of 0, nothing is copied); b: (B, n);
+    both contiguous, float32 or float64, on one CUDA device.  Only the
+    lower triangle of a is read, as by ``chol_solve_reference``.  Returns
+    x (B, n).  Raises on anything else.
     """
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"chol_solve_cuda needs a and b on one CUDA device, "
-                         f"got {a.device} and {b.device}")
-    if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
-        raise TypeError(f"chol_solve_cuda takes float32 or float64, got "
-                        f"{a.dtype} and {b.dtype}")
-    if a.ndim != 3 or a.shape[1] != a.shape[2] or b.shape != a.shape[:2]:
-        raise ValueError(f"chol_solve_cuda needs a (B, n, n) and b (B, n), "
-                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("chol_solve_cuda needs contiguous inputs")
-    lib = _lib()
-    batch, n = b.shape
-    if n < 1 or n > lib.max_n:
-        raise ValueError(f"chol_solve_cuda supports 1 <= n <= {lib.max_n}, "
-                         f"got n = {n}")
+    n = _check(a, b)
     x = torch.empty_like(b)
-    fn = lib.chol_solve_f32 if a.dtype == torch.float32 else \
-        lib.chol_solve_f64
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n, stream)
+    device = a.device
+    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0], n,
+            0 if a.ndim == 2 else n * n,
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = _ENTRY[a.dtype](*args)
+    else:  # a launch goes to the current device: make it a's
+        with torch.cuda.device(device):
+            err = _ENTRY[a.dtype](*args)
     if err != 0:
         raise RuntimeError("chol_solve kernel launch failed: "
-                           + lib.chol_solve_error_string(err).decode())
+                           + _ERROR_STRING(err).decode())
     chol_solve.launches += 1
     return x
 
@@ -112,8 +141,8 @@ def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_solve: unsupported device {a.device}")
     if _USE_REFERENCE_ON_CUDA:
         return chol_solve_reference(a, b)
-    if a.ndim == 2:
-        a = a.expand(b.shape[0], *a.shape)
+    if a.ndim == 3 and a.stride(0) == 0:
+        a = a[0]  # an expanded shared matrix: hand over the one copy
     return chol_solve_cuda(a.contiguous(), b.contiguous())
 
 

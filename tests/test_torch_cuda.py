@@ -38,8 +38,12 @@ def _spd(rng, b, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (27, 1024), (79, 1000),
-                                 (160, 3)])
+# n on both sides of every boundary of the launcher's rule (32 and, in
+# float32, 64); 1001 fills no block of 4 warps evenly
+@pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (27, 1024), (31, 1001),
+                                 (32, 1001), (33, 1001), (62, 1024),
+                                 (63, 1001), (64, 1001), (65, 1001),
+                                 (79, 1000), (160, 3)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -52,11 +56,49 @@ def test_kernel_matches_plain_version(cuda, n, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_non_spd_system_gives_nan_in_its_row_only(cuda, dtype):
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65])
+def test_shared_matrix_is_read_with_stride_0(cuda, n, dtype):
+    """One (n, n) matrix for the batch: directly, and as an expanded view
+    through the dispatcher, which hands over the one copy."""
+    rng = np.random.default_rng(n)
+    a = _spd(rng, 1, n, dtype, cuda)[0]
+    rhs = torch.as_tensor(rng.standard_normal((1001, n)), dtype=dtype,
+                          device=cuda)
+    ref = linalg.chol_solve_reference(a.expand(1001, n, n), rhs)
+    before = linalg.chol_solve.launches
+    x = linalg.chol_solve_cuda(a, rhs)
+    x_view = linalg.chol_solve(a.expand(1001, n, n), rhs)
+    torch.cuda.synchronize()
+    assert linalg.chol_solve.launches == before + 2
+    torch.testing.assert_close(x, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(x_view, x, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65])
+def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
+    """What stands above the diagonal of a is no input, for the kernel as
+    for the plain version, on both sides of the launcher's boundaries."""
+    rng = np.random.default_rng(n)
+    a = _spd(rng, 1001, n, dtype, cuda)
+    rhs = torch.as_tensor(rng.standard_normal((1001, n)), dtype=dtype,
+                          device=cuda)
+    junk = a.tril() + torch.as_tensor(rng.standard_normal((1001, n, n)),
+                                      dtype=dtype, device=cuda).triu(1)
+    ref = linalg.chol_solve_reference(a, rhs)
+    torch.testing.assert_close(linalg.chol_solve_reference(junk, rhs), ref,
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(linalg.chol_solve_cuda(junk, rhs), ref,
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [27, 62, 79])
+def test_non_spd_system_gives_nan_in_its_row_only(cuda, n, dtype):
     rng = np.random.default_rng(0)
-    a = _spd(rng, 64, 27, dtype, cuda)
+    a = _spd(rng, 64, n, dtype, cuda)
     a[5] = -a[5]
-    rhs = torch.ones(64, 27, dtype=dtype, device=cuda)
+    rhs = torch.ones(64, n, dtype=dtype, device=cuda)
     x = linalg.chol_solve_cuda(a, rhs)
     ref = linalg.chol_solve_reference(a, rhs)
     assert torch.isnan(x).any(-1).nonzero().flatten().tolist() == [5]

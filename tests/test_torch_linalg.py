@@ -8,6 +8,11 @@ Tolerances are those of tests/test_ops_linalg.py: 2e-4 between float32
 solvers, 2e-3 against the float64 solve, 1e-10 in float64.
 
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py.
+What can be tested here is its algorithm: ``_register_algorithm`` below
+is a numpy transcription of the kernel's register path (square-root-free
+factor with reciprocal pivots, b carried as row n of the matrix, back
+substitution from the lane's own column), in the working type, and is
+held to the same three references at the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -107,6 +112,125 @@ def test_non_spd_env_is_nan_in_its_own_row(dtype):
     assert np.isfinite(x[good]).all()
     tol = 2e-4 if dtype == np.float32 else 1e-10
     np.testing.assert_allclose(x[good], x_xla[good], rtol=tol, atol=tol)
+
+
+def _register_algorithm(a, rhs):
+    """The register kernel of csrc/chol_solve.cu, lanes as an array axis.
+
+    col[s, k, i] is register i of lane k of system s: entry (i, k) of the
+    symmetric matrix, the whole column, loaded from the lower triangle of
+    a alone (an entry above the diagonal from its mirror image).  Every
+    operation stays in the type of the inputs.
+    """
+    batch, n = rhs.shape
+    lower = np.tril(a)
+    col = lower + np.swapaxes(np.tril(a, -1), 1, 2)
+    z = rhs.copy()  # b as row n: one more register per lane
+    rd = np.zeros_like(rhs)  # each lane's reciprocal pivot
+    bad = np.zeros(batch, bool)
+    one = np.ones((), a.dtype)
+    with np.errstate(all="ignore"):
+        for j in range(n):
+            p = col[:, j, j]  # broadcast from lane j
+            bad |= ~(p > 0) | ~(p - p == 0)
+            rp = one / p
+            rd[:, j] = rp
+            f = col[:, :, j] * rp[:, None]  # each lane's own register j
+            f[:, :j + 1] = 0  # lanes <= j are frozen
+            v = col[:, j, j + 1:].copy()  # column j, shuffled from lane j
+            col[:, :, j + 1:] -= v[:, None, :] * f[:, :, None]
+            z -= z[:, j:j + 1] * f
+        for j in reversed(range(n)):
+            xj = z[:, j] * rd[:, j]  # broadcast from lane j
+            z[:, :j] -= col[:, :j, j] * xj[:, None]  # lanes k < j
+        x = z * rd
+    x[bad] = np.nan
+    assert x.dtype == a.dtype
+    return x
+
+
+def _algorithm_case(n, dtype):
+    """A seeded batch with one system that is not positive definite."""
+    rng = np.random.default_rng(100 + n)
+    b, bad = 64, 5
+    a = _spd(rng, b, n, dtype)
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    a[bad] = -a[bad]
+    rhs = rng.standard_normal((b, n)).astype(dtype)
+    x = _register_algorithm(a, rhs)
+    assert np.isnan(x[bad]).all()
+    good = np.arange(b) != bad
+    assert np.isfinite(x[good]).all()
+    return a, rhs, x, bad, good
+
+
+_ALGORITHM_NS = [1, 2, 27, 32, 33, 64]
+_TOL = {np.float32: 2e-4, np.float64: 1e-10}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", _ALGORITHM_NS)
+def test_register_algorithm_matches_plain_version(n, dtype):
+    a, rhs, x, bad, good = _algorithm_case(n, dtype)
+    ref = _torch(a, rhs)
+    assert np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", _ALGORITHM_NS)
+def test_register_algorithm_matches_xla(n, dtype):
+    a, rhs, x, bad, good = _algorithm_case(n, dtype)
+    ref = np.asarray(jlinalg._xla_chol_solve(jnp.asarray(a),
+                                             jnp.asarray(rhs)))
+    assert ref.dtype == dtype and np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 2, 27])
+def test_register_algorithm_matches_pallas_interpret(n):
+    """The Pallas kernel is float32 only; its NaN for a pivot that is not
+    > 0 stays in that system's lane.  Interpret mode unrolls n * n tiles
+    and takes 9 to 21 s to trace at n = 32 to 64, so it is held at the
+    sizes whose trace the cases above share."""
+    a, rhs, x, bad, good = _algorithm_case(n, np.float32)
+    ref = np.asarray(jlinalg.chol_solve_batched(
+        jnp.asarray(a), jnp.asarray(rhs), interpret=True))
+    assert np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65])
+def test_register_algorithm_reads_the_lower_triangle_only(n, dtype):
+    """What stands above the diagonal of a is no input, for the kernel's
+    algorithm as for the plain version."""
+    rng = np.random.default_rng(200 + n)
+    b = 16
+    a = _spd(rng, b, n, dtype)
+    rhs = rng.standard_normal((b, n)).astype(dtype)
+    junk = np.tril(a) + np.triu(rng.standard_normal((b, n, n)), 1).astype(
+        dtype)
+    ref = _torch(a, rhs)
+    np.testing.assert_allclose(_torch(junk, rhs), ref, rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+    np.testing.assert_allclose(_register_algorithm(junk, rhs), ref,
+                               rtol=_TOL[dtype], atol=_TOL[dtype])
+
+
+def test_register_algorithm_shared_matrix():
+    """One matrix for the whole batch, as the kernel reads it with a batch
+    stride of 0."""
+    rng = np.random.default_rng(7)
+    n, b = 27, 9
+    a = _spd(rng, 1, n, np.float64)
+    rhs = rng.standard_normal((b, n))
+    x = _register_algorithm(np.broadcast_to(a, (b, n, n)), rhs)
+    ref = tlinalg.chol_solve(torch.as_tensor(a[0]),
+                             torch.as_tensor(rhs)).numpy()
+    np.testing.assert_allclose(x, ref, rtol=1e-10, atol=1e-10)
 
 
 def test_cpu_dispatch_takes_the_reference_and_counts_no_launch():
