@@ -4,17 +4,19 @@
 
 Builds the port's CUDA kernel from the sources in this checkout, holds it
 against its plain PyTorch version (sizes on both sides of every boundary
-of the launcher's rule, both types, a shared matrix, a matrix given by its
-lower triangle alone, a non-SPD system),
-times it beside its bound, the plain version and PyTorch's library calls
-for the same function, checks one float64 control step of
-humanoid:run against the JAX package's golden result, drives the main
-path (``suite.load_batch("humanoid", "run")`` -> ``BatchEnv.reset`` and
-``BatchEnv.step`` at B = 1024, float32) and checks that every dense solve
-on it went through the kernel, then compares a short rollout with and
-without the kernel.  Each phase prints one line; any failure exits with a
-non-zero code.  The last line is a JSON object naming the device.  Needs
-one CUDA device; exits with code 1 and prints no result without one.
+of the launcher's rule and every nv of the ported models, both types, a
+shared matrix, a matrix given by its lower triangle alone, a non-SPD
+system), times it at the main paths' shapes beside its bound, the plain
+version and PyTorch's library calls for the same function, checks one
+float64 control step of every ported domain against the JAX package's
+golden result, drives each main path (``suite.load_batch(domain, task)``
+-> ``BatchEnv.reset`` and ``BatchEnv.step`` in float32: humanoid:run and
+seven more at B = 1024, cartpole:swingup at B = 8192, cheetah:run at
+B = 4096) and checks that every dense solve on it went through the
+kernel, then compares a short rollout with and without the kernel.  Each
+phase prints one line; any failure exits with a non-zero code.  The last
+line is a JSON object naming the device.  Needs one CUDA device; exits
+with code 1 and prints no result without one.
 """
 
 from __future__ import annotations
@@ -29,10 +31,20 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "data", "torch_humanoid_golden_f64.npz")
-STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
 MAIN_BATCH = 1024
-MAIN_STEPS = 8
+MAIN_STEPS = 4
+#: the main paths: (domain, task, batch); cartpole and cheetah at the sizes
+#: of the JAX package's bench rungs.  Each domain's golden file steps the
+#: same task.
+MAIN_PATHS = (
+    ("humanoid", "run", MAIN_BATCH), ("pendulum", "swingup", MAIN_BATCH),
+    ("acrobot", "swingup", MAIN_BATCH), ("cartpole", "swingup", 8192),
+    ("reacher", "easy", MAIN_BATCH), ("walker", "run", MAIN_BATCH),
+    ("cheetah", "run", 4096), ("hopper", "hop", MAIN_BATCH),
+    ("point_mass", "hard", MAIN_BATCH), ("ball_in_cup", "catch", MAIN_BATCH),
+)
+#: (B, n) the kernel is timed at: humanoid's, cartpole's and cheetah's
+TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 
 
@@ -54,7 +66,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_NS = (1, 2, 7, 27, 31, 32, 33, 40, 62, 63, 64, 65, 79, 160)
+KERNEL_NS = (1, 2, 3, 4, 7, 9, 27, 31, 32, 33, 40, 62, 63, 64, 65, 79, 160)
 KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
 SHARED_NS = (27, 32, 33, 64, 65)
 LOWER_NS = (27, 32, 33, 64, 65)
@@ -119,7 +131,8 @@ def check_close(x, ref, dtype, what):
 def phase_kernel(linalg):
     """Kernel against plain version over sizes on both sides of every
     boundary of the launcher's rule, both types, a shared matrix, a matrix
-    given by its lower triangle alone and one non-SPD system; then the main-path shape's error, times and bound."""
+    given by its lower triangle alone and one non-SPD system; returns
+    the largest |dx| per type."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -175,13 +188,20 @@ def phase_kernel(linalg):
                                       atol=TOL[dtype])),
                   f"non-SPD system disturbed other rows (n={n} {dtype})")
 
-    # the main path's shape; A stays warm in L2 between calls, as on the
-    # main path, where the product that writes H runs just before
-    n = 27
-    a = spd(gen, MAIN_BATCH, n, torch.float32)
-    rhs = randn(gen, (MAIN_BATCH, n), torch.float32)
-    err = float((linalg.chol_solve_cuda(a, rhs)
-                 - linalg.chol_solve_reference(a, rhs)).abs().max())
+    return worst
+
+
+def time_shape(linalg, batch, n):
+    """The kernel at one main-path shape in float32: its error, and its
+    time beside the bound, the plain version and the library calls.  A
+    stays warm in L2 between calls, as on the main path, where the
+    product that writes H runs just before the solve."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    a = spd(gen, batch, n, torch.float32)
+    rhs = randn(gen, (batch, n), torch.float32)
+    err = check_close(linalg.chol_solve_cuda(a, rhs),
+                      linalg.chol_solve_reference(a, rhs), torch.float32,
+                      f"timed shape B={batch} n={n}")
 
     def library(a, rhs):
         return torch.linalg.solve(a, rhs)
@@ -201,66 +221,84 @@ def phase_kernel(linalg):
         for k in order:
             runs[k].append(time_ms(lambda: fns[k](a, rhs)))
     dev_ms = device_ms(lambda: linalg.chol_solve_cuda(a, rhs))
-    # the bound counts the dense a at the rate of device memory; the lower
-    # triangle, which is all the kernel reads, is fewer bytes, and an a that
-    # is warm in L2 comes at a higher rate: the true floor is lower
-    byte_ms = 1e3 * 4 * MAIN_BATCH * (n * n + 2 * n) / HBM_BYTES_PER_S
-    triangle_ms = (1e3 * 4 * MAIN_BATCH * (n * (n + 1) // 2 + 2 * n)
-                   / HBM_BYTES_PER_S)
-    flop_ms = 1e3 * MAIN_BATCH * (n ** 3 / 3 + 2 * n * n) / FLOAT32_FLOPS
+    # the function's input is the lower triangle of a (as for the plain
+    # version), so the bound counts its bytes, b and x at the rate of device
+    # memory; an a that is warm in L2 comes at a higher rate, so the true
+    # floor is lower still.  The dense a is kept beside it.
+    byte_ms = (1e3 * 4 * batch * (n * (n + 1) // 2 + 2 * n)
+               / HBM_BYTES_PER_S)
+    dense_ms = 1e3 * 4 * batch * (n * n + 2 * n) / HBM_BYTES_PER_S
+    flop_ms = 1e3 * batch * (n ** 3 / 3 + 2 * n * n) / FLOAT32_FLOPS
     out = {k: min(v) for k, v in runs.items()}
-    out.update(max_abs_err=err, device_ms=dev_ms,
-               bound_ms=max(byte_ms, flop_ms), triangle_bound_ms=triangle_ms,
+    out.update(B=batch, n=n, max_abs_err=err, device_ms=dev_ms,
+               bound_ms=max(byte_ms, flop_ms),
+               dense_bound_ms=max(dense_ms, flop_ms),
                bound_by="bytes" if byte_ms >= flop_ms else "operations",
-               worst_f32=worst[torch.float32],
-               worst_f64=worst[torch.float64], runs=runs)
+               runs=runs)
     return out
 
 
-def phase_golden(suite):
-    """One float64 control step from the golden's start states (after a
-    reset, and on the floor with contacts active) against JAX."""
-    g = np.load(GOLDEN, allow_pickle=False)
-    env = suite.load_batch("humanoid", "run", device="cuda",
-                           dtype=torch.float64, autoreset=False)
-    errs = {}
-    for p in ("reset", "contact"):
-        state = env.from_state(
-            *(torch.as_tensor(g[f"{p}_{f}"], device="cuda")
-              for f in STATE_FIELDS),
-            generator=torch.Generator(device="cuda").manual_seed(0))
-        state, ts = env.step(state, torch.as_tensor(g[f"{p}_actions"],
-                                                    device="cuda"))
-        errs.update({f"{p}_{f}": float(np.abs(
-            getattr(state.data, f).cpu().numpy() - g[f"{p}_step_{f}"]).max())
-            for f in STATE_FIELDS})
-        errs.update({f"{p}_obs_{k}": float(np.abs(
-            v.cpu().numpy() - g[f"{p}_obs_{k}"]).max())
-            for k, v in ts.observation.items()})
-        errs[f"{p}_reward"] = float(np.abs(ts.reward.cpu().numpy()
-                                           - g[f"{p}_reward"]).max())
-        check(np.array_equal(ts.step_type.cpu().numpy(),
-                             g[f"{p}_step_type"]),
-              f"golden step_type mismatch ({p})")
+def phase_golden(suite, domain, task):
+    """One float64 control step from the domain's golden start states
+    (after a reset, and some steps later: on the floor, the string taut)
+    with the golden's per-episode model overrides, against JAX."""
+    from dm_control_torch.rl import golden
+
+    with np.load(os.path.join(ROOT, "tests", "data",
+                              f"torch_{domain}_golden_f64.npz"),
+                 allow_pickle=False) as z:
+        gold = {k: z[k] for k in z.files}
+    env = suite.load_batch(domain, task, device="cuda", dtype=torch.float64,
+                           autoreset=False)
+    errs = {f"{p}_{k}": v for p in golden.PREFIXES
+            for k, v in golden.step_errors(env, gold, p).items()}
     worst = max(errs, key=errs.get)
-    check(errs[worst] <= 1e-8, f"golden mismatch: {worst} {errs[worst]:.3e}")
+    check(errs[worst] <= 1e-8,
+          f"golden mismatch in {domain}: {worst} {errs[worst]:.3e}")
+    check(all(errs[f"{p}_{k}"] == 0 for p in golden.PREFIXES
+              for k in ("discount", "step_type")),
+          f"golden discount or step type mismatch in {domain}")
     return errs[worst], worst
 
 
-def phase_main(suite, linalg):
-    env = suite.load_batch("humanoid", "run", device="cuda",
-                           dtype=torch.float32)
+def min_solves_per_substep(env):
+    """The fewest dense solves one substep of this model makes: per
+    ``forward`` (four under RK4) one ``solve_m`` and, where the model has
+    constraint rows, at least one Newton direction; under Euler with joint
+    damping one more for the implicit step."""
+    from dm_control_torch.physics import constraints, engine
+    from dm_control_torch.physics.model import make_data
+
+    m = env.model
+    d = engine.fwd_velocity(m, engine.fwd_position(m, make_data(m, 1)))
+    rows = constraints.make_constraint(m, d).nefc
+    rk4 = m.opt.integrator == 1
+    per_forward = 1 + (1 if rows else 0)
+    if rk4:
+        return 4 * per_forward
+    return per_forward + (1 if bool((m.dof_damping != 0).any()) else 0)
+
+
+def phase_main(suite, linalg, domain, task, batch):
+    """``reset`` and MAIN_STEPS control steps of one main path in float32,
+    with the kernel's launch count set to 0 just before and read just
+    after."""
+    env = suite.load_batch(domain, task, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     act_gen = torch.Generator(device="cuda").manual_seed(1)
     nu = env.model.nu
+    min_solves = min_solves_per_substep(env)
 
     def actions():
-        return 2.0 * torch.rand(MAIN_BATCH, nu, generator=act_gen,
+        return 2.0 * torch.rand(batch, nu, generator=act_gen,
                                 device="cuda") - 1.0
 
     linalg.chol_solve.launches = 0
-    state, ts = env.reset(MAIN_BATCH, gen)
+    t0 = time.perf_counter()
+    state, ts = env.reset(batch, gen)
     torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    reset_launches = linalg.chol_solve.launches
     step_times = []
     diverged = 0
     rewards = []
@@ -269,25 +307,33 @@ def phase_main(suite, linalg):
         state, ts = env.step(state, actions())
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
-        diverged += int(((ts.step_type == 2) & (ts.discount == 0)).sum())
+        bad = (ts.step_type == 2) & (ts.discount == 0)
+        diverged += int(bad.sum())
         rewards.append(ts.reward)
         check(all(bool(torch.isfinite(v).all())
                   for v in ts.observation.values()),
-              f"non-finite observation at step {i}")
+              f"{domain}: non-finite observation at step {i}")
     launches = linalg.chol_solve.launches
+    what = f"{domain}:{task} B={batch}"
     check(all(v.device.type == "cuda" for v in ts.observation.values()),
-          "observation left the card")
+          f"{what}: observation left the card")
     r = torch.stack(rewards)
-    check(bool(torch.isfinite(r).all()), "non-finite reward")
-    check(bool(((r >= 0) & (r <= 1)).all()), "reward outside [0, 1]")
+    check(bool(torch.isfinite(r).all()), f"{what}: non-finite reward")
+    check(bool(((r >= 0) & (r <= 1)).all()), f"{what}: reward outside [0, 1]")
+    share = diverged / (batch * MAIN_STEPS)
     substeps = MAIN_STEPS * env.n_sub_steps
-    check(launches >= 3 * substeps,
-          f"chol_solve launched {launches} times in {substeps} substeps "
-          f"(expected >= 3 per substep)")
+    check(reset_launches >= min_solves * env.task.settle_steps,
+          f"{what}: chol_solve launched {reset_launches} times in a reset "
+          f"of {env.task.settle_steps} settle steps")
+    check(launches - reset_launches >= max(1, min_solves * substeps),
+          f"{what}: chol_solve launched {launches - reset_launches} times "
+          f"in {substeps} substeps (expected >= {min_solves} per substep)")
     warm = step_times[1:]  # first step is the warm-up
-    sps = MAIN_BATCH * len(warm) / sum(warm)
-    return dict(launches=launches, substeps=substeps, env_steps_per_s=sps,
-                diverged_share=diverged / (MAIN_BATCH * MAIN_STEPS),
+    sps = batch * len(warm) / sum(warm)
+    return dict(domain=domain, task=task, batch=batch, launches=launches,
+                reset_launches=reset_launches, substeps=substeps,
+                min_solves=min_solves, env_steps_per_s=sps,
+                diverged_share=share, reset_s=reset_s,
                 step_ms=[1e3 * t for t in step_times],
                 mean_reward=float(r.mean()))
 
@@ -318,6 +364,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     sys.path.insert(0, ROOT)
     from dm_control_torch import suite
     from dm_control_torch.ops import _cuda_build, linalg
@@ -342,52 +389,72 @@ def main() -> int:
           f"{_cuda_build.build_seconds.get('chol_solve.cu', 0.0):.2f} s); "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
-    k = phase_kernel(linalg)
+    worst = phase_kernel(linalg)
+    shapes = [time_shape(linalg, b, n) for b, n in TIMED_SHAPES]
     print(f"phase 3 kernel vs plain: ok over n in {KERNEL_NS}, B in "
-          f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower triangle only n "
-          f"in {LOWER_NS}, max "
-          f"|dx| f32 {k['worst_f32']:.3e} f64 {k['worst_f64']:.3e}, non-SPD "
-          f"row NaN only; B={MAIN_BATCH} n=27 f32 A warm in L2: kernel "
-          f"{k['ms']:.4f} ms per call (device {k['device_ms']:.4f} ms by "
-          f"torch.profiler), bound {k['bound_ms']:.5f} ms by "
-          f"{k['bound_by']} ({k['triangle_bound_ms']:.5f} ms for the lower "
-          f"triangle alone), plain {k['plain_ms']:.4f} ms, "
-          f"torch.linalg.solve {k['library_ms']:.4f} ms, cholesky_ex + "
-          f"cholesky_solve {k['library_cholesky_ms']:.4f} ms (runs "
-          + " ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}"
-                     for name, v in k["runs"].items())
-          + f") | {card}", flush=True)
+          f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower "
+          f"triangle only n in {LOWER_NS}, max |dx| f32 "
+          f"{worst[torch.float32]:.3e} f64 {worst[torch.float64]:.3e}, "
+          f"non-SPD row NaN only | {card}", flush=True)
+    for k in shapes:
+        print(f"phase 3 timing B={k['B']} n={k['n']} f32 A warm in L2: "
+              f"kernel {k['ms']:.4f} ms per call (device "
+              f"{k['device_ms']:.5f} ms by torch.profiler), bound "
+              f"{k['bound_ms']:.5f} ms by {k['bound_by']} "
+              f"({k['dense_bound_ms']:.5f} ms were the dense a counted), "
+              f"plain {k['plain_ms']:.4f} ms, torch.linalg.solve "
+              f"{k['library_ms']:.4f} ms, cholesky_ex + cholesky_solve "
+              f"{k['library_cholesky_ms']:.4f} ms, max |dx| "
+              f"{k['max_abs_err']:.3e} (runs "
+              + " ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}"
+                         for name, v in k["runs"].items())
+              + f") | {card}", flush=True)
 
-    gerr, gworst = phase_golden(suite)
-    print(f"phase 4 golden: float64 humanoid:run step on the card vs JAX "
-          f"golden (reset and contact states), max |d| {gerr:.3e} "
-          f"({gworst}) <= 1e-8", flush=True)
+    for domain, task, _ in MAIN_PATHS:
+        gerr, gworst = phase_golden(suite, domain, task)
+        print(f"phase 4 golden: float64 {domain}:{task} step on the card vs "
+              f"JAX golden (reset and later states), max |d| {gerr:.3e} "
+              f"({gworst}) <= 1e-8", flush=True)
 
-    main_run = phase_main(suite, linalg)
-    print(f"phase 5 main path: humanoid:run B={MAIN_BATCH} float32, "
-          f"{MAIN_STEPS} steps ({main_run['substeps']} substeps), "
-          f"chol_solve launches {main_run['launches']}, "
-          f"{main_run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
-          f"diverged share {main_run['diverged_share']:.4f}, mean reward "
-          f"{main_run['mean_reward']:.4f}, step ms "
-          f"{[round(t, 1) for t in main_run['step_ms']]} | {card}",
-          flush=True)
+    runs = []
+    for domain, task, batch in MAIN_PATHS:
+        run = phase_main(suite, linalg, domain, task, batch)
+        runs.append(run)
+        print(f"phase 5 main path: {domain}:{task} B={batch} float32, reset "
+              f"{run['reset_s']:.2f} s ({run['reset_launches']} chol_solve "
+              f"launches), {MAIN_STEPS} steps ({run['substeps']} substeps), "
+              f"chol_solve launches {run['launches']} (>= "
+              f"{run['min_solves']} a substep), "
+              f"{run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
+              f"diverged share {run['diverged_share']:.4f}, mean reward "
+              f"{run['mean_reward']:.4f}, step ms "
+              f"{[round(t, 1) for t in run['step_ms']]} | {card}",
+              flush=True)
 
     dq = phase_selfcheck(suite, linalg, engine, make_data)
     print(f"phase 6 selfcheck: humanoid B=256, 5 engine.steps, kernel vs "
-          f"plain max |dqpos| {dq:.3e} <= 1e-4", flush=True)
+          f"plain max |dqpos| {dq:.3e} <= 1e-4; all phases in "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
 
+    k = shapes[0]  # humanoid's shape heads the line; the others follow
+    shape_keys = ("B", "n", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                  "dense_bound_ms", "bound_by", "library_ms", "library_cholesky_ms",
+                  "device_ms")
     print(json.dumps({"kernels": [{
         "name": "chol_solve", "route": "cuda",
         "source": "dm_control_torch/csrc/chol_solve.cu",
         "replaces": "dm_control_tpu/ops/linalg.py:69",
-        "launches": main_run["launches"],
+        "launches": runs[0]["launches"],
+        "launches_by_path": {f"{r['domain']}:{r['task']}": r["launches"]
+                             for r in runs},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "dense_bound_ms": k["dense_bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         "library_call": "torch.linalg.solve",
         "library_cholesky_ms": k["library_cholesky_ms"],
-        "device_ms": k["device_ms"]}]}))
+        "device_ms": k["device_ms"],
+        "shapes": [{key: x[key] for key in shape_keys} for x in shapes]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

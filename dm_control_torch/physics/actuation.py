@@ -1,6 +1,7 @@
 """Actuator transmission and force generation, batched.
 Counterpart of ``dm_control_tpu/physics/actuation.py`` for actuators with
-a joint transmission on scalar joints and no activation dynamics."""
+a transmission on a scalar joint or on a tendon and no activation
+dynamics."""
 
 from __future__ import annotations
 
@@ -11,40 +12,57 @@ from dm_control_torch.physics.model import (
 )
 
 
-def _scalar_joint_plan(m: Model):
+def _transmission_plan(m: Model):
+    """Static split of the actuators into those on a hinge/slide joint
+    (ids, qpos and dof addresses) and those on a tendon (ids, tendons)."""
+    joint, tendon = [], []
     for u in range(m.nu):
         trn = m.actuator_trntype[u]
-        jid = m.actuator_trnid[u][0]
-        if trn not in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)) or \
-                m.jnt_type[jid] not in (int(JointType.SLIDE),
-                                        int(JointType.HINGE)):
+        tid = m.actuator_trnid[u][0]
+        if trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)) and \
+                m.jnt_type[tid] in (int(JointType.SLIDE),
+                                    int(JointType.HINGE)):
+            joint.append(u)
+        elif trn == int(TrnType.TENDON):
+            tendon.append(u)
+        else:
             raise NotImplementedError(
-                f"actuator {u}: only joint transmissions on hinge/slide "
-                f"joints are ported (ROADMAP A: the other 18 domains)")
+                f"actuator {u}: only transmissions on hinge/slide joints "
+                f"and on tendons are ported (ROADMAP A1: quadruped and the "
+                f"domains after it)")
         if m.actuator_dyntype[u] != int(DynType.NONE):
             raise NotImplementedError(
                 f"actuator {u}: activation dynamics are not ported yet "
-                f"(ROADMAP A: the other 18 domains)")
-    jids = [m.actuator_trnid[u][0] for u in range(m.nu)]
-    return ([m.jnt_qposadr[j] for j in jids], [m.jnt_dofadr[j] for j in jids])
+                f"(ROADMAP A1: quadruped)")
+    jids = [m.actuator_trnid[u][0] for u in joint]
+    dadr = [m.jnt_dofadr[j] for j in jids]
+    # the joint actuators' rows of the moment never change
+    moment = torch.zeros(m.nu, m.nv, dtype=m.dtype, device=m.device)
+    moment[m.idx(joint), m.idx(dadr)] = m.actuator_gear[m.idx(joint), 0]
+    return dict(joint=joint, qadr=[m.jnt_qposadr[j] for j in jids],
+                tendon=tendon, moment=moment,
+                tendon_id=[m.actuator_trnid[u][0] for u in tendon])
 
 
 def transmission(m: Model, d: Data) -> Data:
     """mj_transmission: actuator lengths and moment arms."""
     if m.nu == 0:
         return d
-    qadr, dadr = m.cached("trn", lambda: _scalar_joint_plan(m))
+    plan = m.cached("trn", lambda: _transmission_plan(m))
+    B = d.qpos.shape[0]
     gear0 = m.actuator_gear[:, 0]
-    lengths = gear0 * d.qpos[:, m.idx(qadr)]
-
-    def moment():
-        mom = torch.zeros(m.nu, m.nv, dtype=m.dtype, device=m.device)
-        mom[torch.arange(m.nu, device=m.device), m.idx(dadr)] = gear0
-        return mom
-
-    mom = m.cached("trn_moment", moment).to(d.qpos.dtype)
-    return d.replace(actuator_length=lengths,
-                     actuator_moment=mom.expand(d.qpos.shape[0], m.nu, m.nv))
+    moment = plan["moment"].expand(B, m.nu, m.nv)
+    if not plan["tendon"]:
+        return d.replace(
+            actuator_length=gear0 * d.qpos[:, m.idx(plan["qadr"])],
+            actuator_moment=moment)
+    ju, tu, tid = (m.idx(plan[k]) for k in ("joint", "tendon", "tendon_id"))
+    lengths = d.qpos.new_zeros(B, m.nu)
+    lengths[:, ju] = gear0[ju] * d.qpos[:, m.idx(plan["qadr"])]
+    lengths[:, tu] = gear0[tu] * d.ten_length[:, tid]
+    moment = moment.clone()
+    moment[:, tu] = gear0[tu, None] * d.ten_moment[:, tid]
+    return d.replace(actuator_length=lengths, actuator_moment=moment)
 
 
 def actuator_velocity(m: Model, d: Data) -> Data:
@@ -59,7 +77,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if m.nu == 0 or (m.opt.disableflags & DisableBit.ACTUATION):
         return d.replace(qfrc_actuator=torch.zeros_like(d.qvel),
                          actuator_force=torch.zeros_like(d.ctrl))
-    m.cached("trn", lambda: _scalar_joint_plan(m))
+    m.cached("trn", lambda: _transmission_plan(m))
     ctrl = d.ctrl
     if not (m.opt.disableflags & DisableBit.CLAMPCTRL):
         limited = m.cached("ctrllimited", lambda: torch.tensor(

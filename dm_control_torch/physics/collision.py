@@ -8,8 +8,12 @@ beyond their margin stay in the arrays with zero force in the solver, so
 shapes never depend on the state.
 
 Ported colliders: plane-sphere, plane-capsule, sphere-sphere,
-sphere-capsule and capsule-capsule (all that humanoid needs).  A model
-with any other pair raises ``NotImplementedError``.
+sphere-capsule and capsule-capsule.  A model with any other pair raises
+``NotImplementedError``, unless its contacts or all its constraints are
+disabled: then no pair is collided at all.  (The JAX package tests only
+the CONTACT bit and still collides a model whose CONSTRAINT bit is set,
+such as acrobot with its plane-cylinder pair; nothing reads those
+contacts, since no constraint row and no force comes of them.)
 
 Contact normals point from geom1 into geom2; frame rows are
 [normal, tangent1, tangent2].
@@ -137,7 +141,8 @@ def contact_groups(m: Model):
     """Static grouping of candidate pairs by collider type: a list of
     (key, nrows, pairs) with pairs [(g1, g2, condim)]; the row order is
     group-major, pair-major, row-major, as in the JAX package."""
-    if m.opt is not None and m.opt.disableflags & DisableBit.CONTACT:
+    if m.opt is not None and m.opt.disableflags & (
+            DisableBit.CONTACT | DisableBit.CONSTRAINT):
         return []
     groups = {}
     for g1, g2 in m.collision_pairs:
@@ -145,8 +150,8 @@ def contact_groups(m: Model):
         if key not in _DISPATCH:
             raise NotImplementedError(
                 f"collision {key[0].name}-{key[1].name} (geoms {g1},{g2}) "
-                f"is not ported yet (ROADMAP A: the other colliders and "
-                f"the hfield)")
+                f"is not ported yet (ROADMAP A1: quadruped and the domains "
+                f"after it)")
         p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
         if p1 != p2:
             condim = m.geom_condim[g1 if p1 > p2 else g2]

@@ -1,11 +1,12 @@
 """Soft-constraint row assembly (mj_makeConstraint), batched.
 
-Counterpart of ``dm_control_tpu/physics/constraints.py`` for joint limits
-on hinge/slide joints and contact rows with condim 1 or pyramidal
-condim 3.  The row structure is static per model; rows MuJoCo would not
-instantiate (dist >= margin) are carried with D = 0.  Equality rows,
-friction loss, ball and tendon limits, elliptic cones and other condims
-raise ``NotImplementedError``.
+Counterpart of ``dm_control_tpu/physics/constraints.py`` for limits on
+hinge/slide joints and on tendons, and contact rows with condim 1 or
+pyramidal condim 3.  The row structure is static per model; rows MuJoCo
+would not instantiate (dist >= margin) are carried with D = 0.  A model
+with constraints disabled, or with nothing to limit and contacts off, gets
+zero rows.  Equality rows, friction loss, ball-joint limits, elliptic
+cones and other condims raise ``NotImplementedError``.
 
 MuJoCo's soft-constraint model: each row has impedance d(pos) from solimp,
 reference acceleration aref from solref, and regularization
@@ -119,29 +120,25 @@ def _check_ported(m: Model):
         return
     if m.neq and not dis & DisableBit.EQUALITY:
         raise NotImplementedError("equality constraints are not ported yet "
-                                  "(ROADMAP A: equality, frictionloss and "
-                                  "contact compaction)")
+                                  "(ROADMAP A1: quadruped)")
     if not dis & DisableBit.FRICTIONLOSS and bool(
             (m.dof_frictionloss > 0).any()):
         raise NotImplementedError("friction loss is not ported yet "
-                                  "(ROADMAP A: equality, frictionloss and "
-                                  "contact compaction)")
+                                  "(ROADMAP A3: finger, manipulator and "
+                                  "stacker)")
     if not dis & DisableBit.LIMIT:
         for j in range(m.njnt):
             if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL):
                 raise NotImplementedError("ball-joint limits are not ported "
-                                          "yet (ROADMAP A: the other 18 "
-                                          "domains)")
-    if m.ntendon:
-        raise NotImplementedError("tendons are not ported yet "
-                                  "(ROADMAP A: tendons)")
+                                          "yet (ROADMAP A5: humanoid_CMU, "
+                                          "dog and lqr)")
     if m.opt.contact_cap:
         raise NotImplementedError("contact compaction is not ported yet "
-                                  "(ROADMAP A: equality, frictionloss and "
-                                  "contact compaction)")
+                                  "(ROADMAP A5: humanoid_CMU, dog and lqr)")
     if m.opt.cone != 0:
         raise NotImplementedError("elliptic cones are not ported yet "
-                                  "(ROADMAP A: elliptic cones and noslip)")
+                                  "(ROADMAP A3: finger, manipulator and "
+                                  "stacker)")
     return True
 
 
@@ -180,7 +177,30 @@ def _limit_plan(m: Model):
 
 
 def _limit_rows(m: Model, d: Data, blocks: _Blocks):
-    """Two rows per limited hinge/slide joint: lower (+1), upper (-1)."""
+    """Two rows per limited hinge/slide joint, then two per limited
+    tendon: lower (+1), upper (-1)."""
+    _joint_limit_rows(m, d, blocks)
+    limited = [t for t in range(m.ntendon) if m.tendon_limited[t]]
+    if not limited:
+        return
+    B = d.qpos.shape[0]
+    tidx = m.idx(limited)
+    signs = m.cached("tendon_limit_signs", lambda: torch.tensor(
+        [1.0, -1.0] * len(limited), dtype=m.dtype, device=m.device))
+    rep2 = lambda x: torch.repeat_interleave(x, 2, dim=0)  # noqa: E731
+    ln = d.ten_length[:, tidx]
+    tr = m.tendon_range[tidx]
+    dist = torch.stack([ln - tr[:, 0], tr[:, 1] - ln], dim=-1).reshape(B, -1)
+    pos = dist - rep2(m.tendon_margin[tidx])
+    J = torch.repeat_interleave(d.ten_moment[:, tidx], 2, dim=1) \
+        * signs.unsqueeze(-1)
+    blocks.add(J, pos, rep2(m.tendon_solref_lim[tidx]),
+               rep2(m.tendon_solimp_lim[tidx]),
+               rep2(m.tendon_invweight0[tidx]),
+               torch.einsum("bkv,bv->bk", J, d.qvel), active=pos < 0)
+
+
+def _joint_limit_rows(m: Model, d: Data, blocks: _Blocks):
     plan = m.cached("limit_plan", lambda: _limit_plan(m))
     if plan is None:
         return
@@ -253,7 +273,7 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
         else:
             raise NotImplementedError(
                 f"contacts with condim {condim} are not ported yet "
-                f"(ROADMAP A: elliptic cones and noslip)")
+                f"(ROADMAP A3: finger, manipulator and stacker)")
         spans.append((tuple(int(c) for c in idx), row_base, nrows))
         row_base += k * nrows
     return tuple(spans)

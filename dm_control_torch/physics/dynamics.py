@@ -38,21 +38,19 @@ def _passive_plan(m: Model):
            if m.jnt_type[j] in (int(JointType.FREE), int(JointType.BALL))):
         raise NotImplementedError(
             "springs on free/ball joints are not ported yet "
-            "(ROADMAP A: the other 18 domains)")
+            "(ROADMAP A5: humanoid_CMU, dog and lqr)")
     fluid = bool(float(m.opt.density) != 0.0 or float(m.opt.viscosity) != 0.0
                  or np.any(m.opt.wind.cpu().numpy() != 0.0))
     if fluid:
         raise NotImplementedError(
-            "fluid forces are not ported yet (ROADMAP A: the other 18 "
-            "domains)")
-    if m.ntendon:
-        raise NotImplementedError("tendons are not ported yet "
-                                  "(ROADMAP A: tendons)")
+            "fluid forces are not ported yet (ROADMAP A4: fish and "
+            "swimmer)")
     return scalar
 
 
 def passive(m: Model, d: Data) -> Data:
-    """mj_passive: scalar-joint springs and joint dampers."""
+    """mj_passive: scalar-joint springs, joint dampers, and tendon springs
+    (active outside ``tendon_lengthspring``'s deadband) and dampers."""
     qfrc = torch.zeros_like(d.qvel)
     if m.opt.disableflags & DisableBit.PASSIVE:
         return d.replace(qfrc_passive=qfrc)
@@ -63,7 +61,17 @@ def passive(m: Model, d: Data) -> Data:
         k = m.jnt_stiffness[m.idx(scalar)]
         frc = -k * (d.qpos[:, qadr] - m.qpos_spring[qadr])
         qfrc = qfrc.index_add(1, dadr, frc)
-    return d.replace(qfrc_passive=qfrc - m.dof_damping * d.qvel)
+    qfrc = qfrc - m.dof_damping * d.qvel
+    if m.ntendon:
+        low, high = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+        ln = d.ten_length
+        spring = torch.where(
+            ln > high, m.tendon_stiffness * (high - ln), torch.where(
+                ln < low, m.tendon_stiffness * (low - ln),
+                torch.zeros_like(ln)))
+        frc = spring - m.tendon_damping * d.ten_velocity
+        qfrc = qfrc + torch.einsum("btv,bt->bv", d.ten_moment, frc)
+    return d.replace(qfrc_passive=qfrc)
 
 
 def xfrc_accumulate(m: Model, d: Data):

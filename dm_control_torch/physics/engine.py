@@ -1,4 +1,4 @@
-"""Forward dynamics pipeline and Euler integration (mj_forward/mj_step),
+"""Forward dynamics pipeline and Euler/RK4 integration (mj_forward/mj_step),
 batched.  Counterpart of ``dm_control_tpu/physics/engine.py``: a step is a
 function ``(Model, Data) -> Data`` over B environments at once."""
 
@@ -35,6 +35,7 @@ def fwd_position(m: Model, d: Data) -> Data:
 
 def fwd_velocity(m: Model, d: Data) -> Data:
     d = act_mod.actuator_velocity(m, d)
+    d = kin.tendon_velocity(m, d)
     d = kin.com_vel(m, d)
     d = dyn.rne(m, d)
     return dyn.passive(m, d)
@@ -88,7 +89,7 @@ def _integrate_plan(m: Model):
             other.append(jid)
     if other:
         raise NotImplementedError("ball joints are not ported yet "
-                                  "(ROADMAP A: the other 18 domains)")
+                                  "(ROADMAP A5: humanoid_CMU, dog and lqr)")
     return scalar_q, scalar_d, free
 
 
@@ -128,13 +129,44 @@ def euler(m: Model, d: Data) -> Data:
     return _advance(m, d, qacc, d.act_dot)
 
 
+_RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6)
+
+
+def _weighted(weights, terms):
+    return sum(w * t for w, t in zip(weights, terms) if w)
+
+
+def rungekutta4(m: Model, d: Data) -> Data:
+    """mj_RungeKutta with the classic 4th-order tableau.  ``d`` holds the
+    first stage (a ``forward`` at the current state); each of the other
+    three stages is a full ``forward``, warm-started from the first
+    stage's qacc.  No implicit damping."""
+    h = m.opt.timestep
+    qvels, qaccs, act_dots = [d.qvel], [d.qacc], [d.act_dot]
+    for arow in _RK4_A:
+        di = d.replace(
+            qpos=integrate_pos(m, d.qpos, _weighted(arow, qvels), h),
+            qvel=d.qvel + h * _weighted(arow, qaccs),
+            act=d.act + h * _weighted(arow, act_dots) if m.na else d.act)
+        di = forward(m, di)
+        qvels.append(di.qvel)
+        qaccs.append(di.qacc)
+        act_dots.append(di.act_dot)
+    return d.replace(
+        qpos=integrate_pos(m, d.qpos, _weighted(_RK4_B, qvels), h),
+        qvel=d.qvel + h * _weighted(_RK4_B, qaccs),
+        act=d.act + h * _weighted(_RK4_B, act_dots) if m.na else d.act,
+        time=d.time + h)
+
+
 def step(m: Model, d: Data) -> Data:
-    """mj_step: forward dynamics + Euler integration."""
-    if m.opt.integrator != int(IntegratorType.EULER):
-        raise NotImplementedError("only the Euler integrator is ported "
-                                  "(ROADMAP A: RK4)")
+    """mj_step: forward dynamics + integration (Euler or RK4)."""
     d = forward(m, d)
-    return euler(m, d.replace(qacc_warmstart=d.qacc))
+    d = d.replace(qacc_warmstart=d.qacc)
+    if m.opt.integrator == int(IntegratorType.RK4):
+        return rungekutta4(m, d)
+    return euler(m, d)
 
 
 def check_divergence(m: Model, d: Data):

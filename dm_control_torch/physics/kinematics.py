@@ -17,7 +17,7 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import (
-    Data, JointType, Model, body_subtree_mask, dof_before_mask,
+    Data, JointType, Model, WrapType, body_subtree_mask, dof_before_mask,
 )
 
 
@@ -109,6 +109,7 @@ def kinematics(m: Model, d: Data) -> Data:
     xipos = xpos + mx.mat_vec(xmat, m.body_ipos)
     ximat = xmat @ mx.quat_to_mat(m.body_iquat)
 
+    # geom_pos is (ngeom, 3), or (B, ngeom, 3) under a per-episode diff
     gb = m.idx(m.geom_bodyid)
     geom_xpos = xpos[:, gb] + mx.mat_vec(xmat[:, gb], m.geom_pos)
     geom_xmat = xmat[:, gb] @ mx.quat_to_mat(m.geom_quat)
@@ -203,9 +204,76 @@ def jac_points(m: Model, d: Data, points, bodyids):
     return jacp.transpose(-1, -2), jacr.transpose(-1, -2)
 
 
+def _tendon_plan(m: Model):
+    """Static tendon structure.  Fixed tendons (every wrap a joint): the
+    wrap ids with their qpos and dof addresses, and 0/1 matrices
+    wrap -> tendon and wrap -> dof.  Spatial tendons (every wrap a site):
+    the straight segments between consecutive sites, their bodies, and a
+    0/1 matrix segment -> tendon."""
+    wraps, wrap_tendon, seg_sites, seg_tendon = [], [], [], []
+    for t in range(m.ntendon):
+        adr, num = m.tendon_adr[t], m.tendon_num[t]
+        wtypes = set(m.wrap_type[adr:adr + num])
+        if wtypes == {int(WrapType.JOINT)}:
+            wraps += range(adr, adr + num)
+            wrap_tendon += [t] * num
+        elif wtypes == {int(WrapType.SITE)}:
+            sites = m.wrap_objid[adr:adr + num]
+            seg_sites += zip(sites[:-1], sites[1:])
+            seg_tendon += [t] * (num - 1)
+        else:
+            raise NotImplementedError(
+                f"tendon {t}: wrapping around geoms and pulleys is not "
+                f"ported (the JAX package has fixed tendons and straight "
+                f"site-to-site segments only)")
+
+    def onehot(cols, ncol):
+        mat = torch.zeros(len(cols), ncol, dtype=m.dtype, device=m.device)
+        mat[torch.arange(len(cols), device=m.device), m.idx(cols)] = 1
+        return mat
+
+    joints = [m.wrap_objid[k] for k in wraps]
+    dadr = [m.jnt_dofadr[j] for j in joints]
+    return dict(
+        wraps=wraps, qadr=[m.jnt_qposadr[j] for j in joints],
+        wrap_tendon=onehot(wrap_tendon, m.ntendon),
+        wrap_dof=onehot(dadr, m.nv),
+        site0=[s[0] for s in seg_sites], site1=[s[1] for s in seg_sites],
+        seg_tendon=onehot(seg_tendon, m.ntendon))
+
+
 def tendon(m: Model, d: Data) -> Data:
-    """mj_tendon: an identity for models without tendons."""
+    """mj_tendon: lengths (B, ntendon) and moment arms (B, ntendon, nv) of
+    fixed and spatial tendons.  ``m.wrap_prm`` is (nwrap,), or (B, nwrap)
+    under a per-episode diff."""
     if m.ntendon == 0:
         return d
-    raise NotImplementedError(
-        "tendons are not ported yet (ROADMAP A: tendons)")
+    plan = m.cached("tendon", lambda: _tendon_plan(m))
+    B = d.qpos.shape[0]
+    length = d.qpos.new_zeros(B, m.ntendon)
+    moment = d.qpos.new_zeros(B, m.ntendon, m.nv)
+    if plan["wraps"]:
+        coef = m.wrap_prm[..., m.idx(plan["wraps"])].expand(B, -1)
+        length = length + (coef * d.qpos[:, m.idx(plan["qadr"])]) \
+            @ plan["wrap_tendon"]
+        moment = moment + torch.einsum("bk,kt,kv->btv", coef,
+                                       plan["wrap_tendon"], plan["wrap_dof"])
+    if plan["site0"]:
+        s0, s1 = plan["site0"], plan["site1"]
+        p0, p1 = d.site_xpos[:, m.idx(s0)], d.site_xpos[:, m.idx(s1)]
+        diff = p1 - p0
+        seg = mx.norm(diff)
+        dirv = diff / torch.clamp(seg, min=1e-15).unsqueeze(-1)
+        jac0, _ = jac_points(m, d, p0, [m.site_bodyid[s] for s in s0])
+        jac1, _ = jac_points(m, d, p1, [m.site_bodyid[s] for s in s1])
+        length = length + seg @ plan["seg_tendon"]
+        moment = moment + torch.einsum(
+            "bki,bkiv,kt->btv", dirv, jac1 - jac0, plan["seg_tendon"])
+    return d.replace(ten_length=length, ten_moment=moment)
+
+
+def tendon_velocity(m: Model, d: Data) -> Data:
+    if m.ntendon == 0:
+        return d
+    return d.replace(ten_velocity=torch.einsum("btv,bv->bt", d.ten_moment,
+                                               d.qvel))

@@ -418,6 +418,13 @@ class Model(_Replace):
             value = self._cache[key] = build()
             return value
 
+    def replace_sharing_cache(self, **updates) -> "Model":
+        """``replace`` that keeps this model's cache: only for fields that
+        no cached constant derives from (``rl.control.DIFF_FIELDS``)."""
+        new = self.replace(**updates)
+        new._cache = self._cache
+        return new
+
     def idx(self, seq) -> torch.Tensor:
         """A long index tensor on the model's device (cached by value)."""
         seq = tuple(int(i) for i in np.asarray(seq).reshape(-1))

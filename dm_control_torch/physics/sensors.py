@@ -31,7 +31,7 @@ def _by_type(m: Model):
         if stype not in _PORTED:
             raise NotImplementedError(
                 f"sensor type {stype.name} is not ported yet "
-                f"(ROADMAP A: the other 18 domains)")
+                f"(ROADMAP A1: quadruped and the domains after it)")
         if stype != _S.SUBTREELINVEL and \
                 m.sensor_objtype[s] != int(ObjType.SITE):
             raise NotImplementedError(

@@ -7,10 +7,11 @@ loops: the substep ``fori_loop`` a Python loop, the reset rejection
 ``while_loop`` a loop over a mask that ends when no environment is
 rejected, and the autoreset ``cond`` a branch on ``needs_reset.any()``.
 
-The JAX package routes small scalar-joint models (cartpole, cheetah,
-walker) through ``physics/fastpath.py::build_step``, a fused step that
-matches ``engine.step``.  That fast path is not ported: every model here
-runs ``engine.step``, which gives the same dynamics.
+The JAX package routes small scalar-joint models (cartpole, acrobot,
+pendulum, reacher, walker, cheetah) through
+``physics/fastpath.py::build_step``, a fused step that matches
+``engine.step``.  That fast path is not ported: every model here runs
+``engine.step``, which gives the same dynamics.
 """
 
 from __future__ import annotations
@@ -86,16 +87,19 @@ class BatchEnv:
             **{f: getattr(d, f) for f in self._state_fields})
 
     def from_state(self, qpos, qvel, qacc_warmstart, time,
-                   generator: torch.Generator) -> EnvState:
+                   generator: torch.Generator,
+                   model_diff: Optional[Dict] = None) -> EnvState:
         """An EnvState at a given physics state (e.g. one taken from
-        another implementation), with step_count 0."""
+        another implementation), with step_count 0 and, unless given, the
+        task's initial model diff."""
         B = qpos.shape[0]
         d = self._template(B).replace(qpos=qpos, qvel=qvel,
                                       qacc_warmstart=qacc_warmstart,
                                       time=time)
         dev = qpos.device
-        return EnvState(data=self._strip(d),
-                        model_diff=self.task.initial_model_diff(self.model),
+        if model_diff is None:
+            model_diff = self.task.initial_model_diff(self.model)
+        return EnvState(data=self._strip(d), model_diff=model_diff,
                         rng=generator,
                         step_count=torch.zeros(B, dtype=torch.int32,
                                                device=dev),
@@ -127,9 +131,9 @@ class BatchEnv:
                               qvel=torch.where(r1, qv, d.qvel))
                 tries = tries + redo.to(torch.int32)
         if task.settle_steps:
-            raise NotImplementedError("settle steps after reset are not "
-                                      "ported yet (ROADMAP A: the other 18 "
-                                      "domains)")
+            for _ in range(task.settle_steps):
+                d = engine.step(mm, d)
+            d = d.replace(time=torch.zeros_like(d.time))
         return EnvState(data=d, model_diff=diff, rng=generator,
                         step_count=torch.zeros(batch, dtype=torch.int32,
                                                device=m.device),
@@ -138,20 +142,27 @@ class BatchEnv:
 
     def _observe(self, state: EnvState):
         m = apply_model_diff(self.model, state.model_diff)
-        if self.task.observation_stages != "vel":
-            raise NotImplementedError("observations of acceleration-stage "
-                                      "values are not ported yet (ROADMAP A: "
-                                      "the other 18 domains)")
-        # position/velocity-stage observables only: skip CRB, collision,
-        # RNE and the acceleration-stage sensors
-        d = kin.kinematics(m, state.data)
-        d = kin.com_pos(m, d)
-        d = kin.tendon(m, d)
-        d = act_mod.transmission(m, d)
-        d = sens.sensor_pos(m, d)
-        d = act_mod.actuator_velocity(m, d)
-        d = kin.com_vel(m, d)
-        d = sens.sensor_vel(m, d)
+        if self.task.observation_stages == "vel":
+            # position/velocity-stage observables only: skip CRB,
+            # collision, RNE and the acceleration-stage sensors
+            d = kin.kinematics(m, state.data)
+            d = kin.com_pos(m, d)
+            d = kin.tendon(m, d)
+            d = act_mod.transmission(m, d)
+            d = sens.sensor_pos(m, d)
+            d = act_mod.actuator_velocity(m, d)
+            d = kin.tendon_velocity(m, d)
+            d = kin.com_vel(m, d)
+            d = sens.sensor_vel(m, d)
+        else:
+            # "acc": the acceleration-stage sensors too, at the new
+            # position and velocity with the last substep's qacc and
+            # contact forces (no constraint solve here)
+            d = engine.fwd_position(m, state.data)
+            d = sens.sensor_pos(m, d)
+            d = engine.fwd_velocity(m, d)
+            d = sens.sensor_vel(m, d)
+            d = sens.sensor_acc(m, d)
         return state.replace(data=d), self.task.observation(m, d)
 
     def reset(self, batch: int, generator: torch.Generator):

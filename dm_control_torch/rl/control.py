@@ -61,9 +61,15 @@ class RandomContext:
         return torch.rand((self.batch, *size), generator=self.generator,
                           dtype=self.dtype, device=self.generator.device)
 
-    def uniform(self, low, high):
-        """U[low, high) of shape (B,)."""
-        return low + (high - low) * self.rand()
+    def randn(self, *size):
+        """N(0, 1) of shape (B, *size)."""
+        return torch.randn((self.batch, *size), generator=self.generator,
+                           dtype=self.dtype, device=self.generator.device)
+
+    def uniform(self, low, high, *size):
+        """U[low, high) of shape (B, *size); ``low`` and ``high`` are
+        numbers or tensors that broadcast against ``size``."""
+        return low + (high - low) * self.rand(*size)
 
 
 class Task:
@@ -105,6 +111,15 @@ class Task:
                                               device=d.ctrl.device))
 
 
+#: Model fields a per-episode diff may override.  Each may carry a leading
+#: batch axis (one value per environment), and the code that reads it
+#: broadcasts over either shape: ``geom_pos`` (ngeom, 3) or (B, ngeom, 3)
+#: in ``kinematics.kinematics``, ``wrap_prm`` (nwrap,) or (B, nwrap) in
+#: ``kinematics.tendon``.  No constant cached on the model derives from
+#: them, so the overridden model shares the cache of the one it came from.
+DIFF_FIELDS = frozenset({"geom_pos", "wrap_prm"})
+
+
 def apply_model_diff(m: Model, diff: Dict) -> Model:
     """Per-episode Model overrides; "_"-prefixed keys become
     ``m.task_state``."""
@@ -112,9 +127,12 @@ def apply_model_diff(m: Model, diff: Dict) -> Model:
         return m
     pub = {k: v for k, v in diff.items() if not k.startswith("_")}
     priv = {k: v for k, v in diff.items() if k.startswith("_")}
+    if not DIFF_FIELDS.issuperset(pub):
+        raise ValueError(f"model diff may override {sorted(DIFF_FIELDS)}, "
+                         f"got {sorted(pub)}")
     if priv:
         pub["task_state"] = priv
-    return m.replace(**pub) if pub else m
+    return m.replace_sharing_cache(**pub)
 
 
 def compute_n_steps(control_timestep, physics_timestep, tolerance=1e-8):

@@ -1,0 +1,63 @@
+"""Holds a ``BatchEnv`` against a recorded control step of another
+implementation of the same task.
+
+A recording is a dict of arrays (the golden files that
+``tools/export_torch_assets.py`` writes from the JAX package).  For each
+start state ``<prefix>`` in ``PREFIXES`` it has the physics state
+(``<prefix>_<field>`` for ``STATE_FIELDS``), the per-episode model
+overrides (``<prefix>_diff_<field>``), the actions (``<prefix>_actions``)
+and what one ``BatchEnv.step`` gave: ``<prefix>_step_<field>``,
+``<prefix>_obs_<name>``, ``<prefix>_reward``, ``<prefix>_discount`` and
+``<prefix>_step_type``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
+#: the recorded start states: after a reset, and some control steps later
+PREFIXES = ("reset", "contact")
+
+
+def model_diff(gold, prefix: str, rows=slice(None)) -> Dict[str, np.ndarray]:
+    """The recording's per-episode model overrides at ``prefix``."""
+    tag = f"{prefix}_diff_"
+    return {k[len(tag):]: gold[k][rows] for k in gold if k.startswith(tag)}
+
+
+def start_state(env, gold, prefix: str = "reset", rows=slice(None),
+                seed: int = 0):
+    """The EnvState of ``env`` at the recording's ``prefix`` start states,
+    with its model overrides, on the device of the env's model."""
+    dev = env.model.device
+    diff = {k: torch.as_tensor(v, device=dev)
+            for k, v in model_diff(gold, prefix, rows).items()}
+    return env.from_state(
+        *(torch.as_tensor(gold[f"{prefix}_{f}"][rows], device=dev)
+          for f in STATE_FIELDS),
+        generator=torch.Generator(device=dev).manual_seed(seed),
+        model_diff=diff or None)
+
+
+def step_errors(env, gold, prefix: str) -> Dict[str, float]:
+    """max |env - recording| of one ``env.step`` from the ``prefix`` start
+    states, by recorded key (without the prefix): every state field, every
+    observation, reward, discount and step type.  Raises ``ValueError``
+    where the observation names or their order differ."""
+    state, ts = env.step(start_state(env, gold, prefix), torch.as_tensor(
+        gold[f"{prefix}_actions"], device=env.model.device))
+    tag = f"{prefix}_obs_"
+    names = [k[len(tag):] for k in gold if k.startswith(tag)]
+    if list(ts.observation) != names:
+        raise ValueError(f"observation {list(ts.observation)}, recorded "
+                         f"{names}")
+    got = {f"step_{f}": getattr(state.data, f) for f in STATE_FIELDS}
+    got.update({f"obs_{k}": v for k, v in ts.observation.items()})
+    got.update(reward=ts.reward, discount=ts.discount,
+               step_type=ts.step_type)
+    return {k: float(np.abs(v.cpu().numpy() - gold[f"{prefix}_{k}"]).max())
+            for k, v in got.items()}

@@ -1,16 +1,40 @@
 """The control suite, batched on PyTorch.
 
-Only humanoid is ported so far; ``load_batch`` raises for every other
-domain (ROADMAP A lists what is still to port).
+Ten of the JAX package's 19 domains are ported (``DOMAINS``); ``load_batch``
+raises ``NotImplementedError`` naming the ROADMAP item for each of the
+others.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dm_control_torch.suite import humanoid
+from dm_control_torch.suite import (
+    acrobot, ball_in_cup, cartpole, cheetah, hopper, humanoid, pendulum,
+    point_mass, reacher, walker,
+)
+from dm_control_torch.suite import base
 
-_DOMAINS = {"humanoid": humanoid}
+DOMAINS = {
+    "acrobot": acrobot, "ball_in_cup": ball_in_cup, "cartpole": cartpole,
+    "cheetah": cheetah, "hopper": hopper, "humanoid": humanoid,
+    "pendulum": pendulum, "point_mass": point_mass, "reacher": reacher,
+    "walker": walker,
+}
+#: every (domain, task) the port serves
+ALL_TASKS = tuple((d, t) for d in sorted(DOMAINS) for t in DOMAINS[d].TASKS)
+
+#: the JAX package's other domains -> the ROADMAP item that ports them
+_NOT_PORTED = {
+    "quadruped": "A1: quadruped",
+    "finger": "A3: finger, manipulator and stacker",
+    "manipulator": "A3: finger, manipulator and stacker",
+    "stacker": "A3: finger, manipulator and stacker",
+    "fish": "A4: fish and swimmer", "swimmer": "A4: fish and swimmer",
+    "humanoid_CMU": "A5: humanoid_CMU, dog and lqr",
+    "dog": "A5: humanoid_CMU, dog and lqr",
+    "lqr": "A5: humanoid_CMU, dog and lqr",
+}
 
 
 def load_batch(domain_name, task_name, *, device, dtype: torch.dtype,
@@ -20,17 +44,18 @@ def load_batch(domain_name, task_name, *, device, dtype: torch.dtype,
     of the model and of the batch lives on the card."""
     from dm_control_torch.rl.batch_env import BatchEnv
 
-    if domain_name not in _DOMAINS:
+    if domain_name in _NOT_PORTED:
         raise NotImplementedError(
-            f"domain {domain_name!r} is not ported yet (ROADMAP A: the "
-            f"other 18 domains); ported: {sorted(_DOMAINS)}")
-    domain = _DOMAINS[domain_name]
+            f"domain {domain_name!r} is not ported yet (ROADMAP "
+            f"{_NOT_PORTED[domain_name]}); ported: {sorted(DOMAINS)}")
+    if domain_name not in DOMAINS:
+        raise ValueError(f"Domain {domain_name!r} does not exist.")
+    domain = DOMAINS[domain_name]
     if task_name not in domain.TASKS:
         raise ValueError(
             f"Level {task_name!r} does not exist in domain {domain_name!r}.")
-    move_speed, pure_state = domain.TASKS[task_name]
-    model = domain.get_model(device, dtype)
-    return BatchEnv(model, domain.Humanoid(move_speed, pure_state),
+    asset, task = domain.TASKS[task_name]()
+    return BatchEnv(base.load_model(asset, device, dtype), task,
                     time_limit=domain.TIME_LIMIT,
                     control_timestep=domain.CONTROL_TIMESTEP,
                     autoreset=autoreset)

@@ -1,17 +1,12 @@
-"""Humanoid domain, batched (reference: dm_control/suite/humanoid.py).
-
-The compiled model comes from ``assets/humanoid.npz``, written by
-``tools/export_torch_assets.py`` from the JAX package's compiler.
-"""
+"""Humanoid domain, batched (reference: dm_control/suite/humanoid.py)."""
 
 from __future__ import annotations
 
 import collections
-import os
 
 import torch
 
-from dm_control_torch.physics import engine, model_io
+from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import rewards
@@ -22,22 +17,8 @@ _STAND_HEIGHT = 1.4
 _WALK_SPEED = 1
 _RUN_SPEED = 10
 
-ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                     "humanoid.npz")
-
-#: task name -> (move_speed, pure_state)
-TASKS = {
-    "stand": (0, False),
-    "walk": (_WALK_SPEED, False),
-    "run": (_RUN_SPEED, False),
-    "run_pure_state": (_RUN_SPEED, True),
-}
 TIME_LIMIT = _DEFAULT_TIME_LIMIT
 CONTROL_TIMESTEP = _CONTROL_TIMESTEP
-
-
-def get_model(device, dtype: torch.dtype):
-    return model_io.load(ASSET, device, dtype)
 
 
 class Humanoid(base.Task):
@@ -112,3 +93,11 @@ class Humanoid(base.Task):
             margin=self._move_speed, value_at_margin=0, sigmoid="linear")
         move = (5 * move + 1) / 6
         return small_control * stand_reward * move
+
+
+TASKS = {
+    "stand": lambda: ("humanoid", Humanoid(0, False)),
+    "walk": lambda: ("humanoid", Humanoid(_WALK_SPEED, False)),
+    "run": lambda: ("humanoid", Humanoid(_RUN_SPEED, False)),
+    "run_pure_state": lambda: ("humanoid", Humanoid(_RUN_SPEED, True)),
+}

@@ -1,7 +1,7 @@
 """Shared set-up for the PyTorch port's parity tests (tests/test_torch_*).
 
-The compiled JAX humanoid model takes many seconds to build, so it is
-built once per test process and shared by every file that needs it.
+A compiled JAX model takes many seconds to build, so each is built once
+per test process and shared by every file that needs it.
 """
 
 import functools
@@ -11,21 +11,14 @@ import os
 import numpy as np
 import torch
 
+from dm_control_torch.rl.golden import PREFIXES, STATE_FIELDS  # noqa: F401
+from dm_control_torch.rl.golden import start_state as golden_state  # noqa: F401
+from dm_control_torch.rl.golden import step_errors
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(ROOT, "tests", "data", "torch_humanoid_golden_f64.npz")
-STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
-#: the golden's start states: after a reset, and on the floor
-PREFIXES = ("reset", "contact")
 
 # one thread per test process: the suite runs under several xdist workers
 torch.set_num_threads(1)
-
-
-@functools.lru_cache(maxsize=None)
-def jax_humanoid_model():
-    from dm_control_tpu.suite import humanoid
-
-    return humanoid.get_model()
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,6 +32,26 @@ def export_tool():
     return module
 
 
-def golden():
-    with np.load(GOLDEN, allow_pickle=False) as z:
+@functools.lru_cache(maxsize=None)
+def jax_model(asset):
+    """The JAX package's compiled model behind one of the port's asset
+    names (``export_tool().ASSETS``)."""
+    return export_tool().jax_model(asset)
+
+
+def golden(domain="humanoid"):
+    """The domain's golden file (tools/export_torch_assets.py) as a dict."""
+    with np.load(export_tool().golden_path(domain), allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+def assert_step_matches_golden(env, gold, prefix, atol=1e-8):
+    """One ``env.step`` from the golden's ``prefix`` start states equals the
+    JAX result within ``atol`` in state, every observation and reward, and
+    exactly in discount and step type.  Prints the largest deviation (shown
+    with ``pytest -s``)."""
+    errs = step_errors(env, gold, prefix)
+    worst = max(errs, key=errs.get)
+    print(f"\n{prefix}: max |port - JAX| {errs[worst]:.3e} ({worst})")
+    assert errs[worst] <= atol, (worst, errs[worst])
+    assert errs["discount"] == 0 and errs["step_type"] == 0, errs

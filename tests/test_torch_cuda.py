@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import PREFIXES, STATE_FIELDS, golden
+from _torch_helpers import PREFIXES, assert_step_matches_golden, golden
 from dm_control_torch import suite
 from dm_control_torch.ops import linalg
 
@@ -39,8 +39,11 @@ def _spd(rng, b, n, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # n on both sides of every boundary of the launcher's rule (32 and, in
-# float32, 64); 1001 fills no block of 4 warps evenly
-@pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (27, 1024), (31, 1001),
+# float32, 64) and the nv of every ported model; 1001 fills no block of 4
+# warps evenly
+@pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (2, 8192), (3, 1024),
+                                 (4, 1001), (7, 1024), (9, 4096),
+                                 (27, 1024), (31, 1001),
                                  (32, 1001), (33, 1001), (62, 1024),
                                  (63, 1001), (64, 1001), (65, 1001),
                                  (79, 1000), (160, 3)])
@@ -142,21 +145,6 @@ def test_float64_step_on_the_card_matches_the_jax_golden(cuda, prefix):
     g = golden()
     env = suite.load_batch("humanoid", "run", device=cuda,
                            dtype=torch.float64, autoreset=False)
-    state = env.from_state(
-        *(torch.as_tensor(g[f"{prefix}_{f}"], device=cuda)
-          for f in STATE_FIELDS),
-        generator=torch.Generator(device=cuda).manual_seed(0))
     before = linalg.chol_solve.launches
-    state, ts = env.step(state, torch.as_tensor(g[f"{prefix}_actions"],
-                                                device=cuda))
+    assert_step_matches_golden(env, g, prefix)
     assert linalg.chol_solve.launches - before >= 3 * env.n_sub_steps
-    for f in STATE_FIELDS:
-        np.testing.assert_allclose(getattr(state.data, f).cpu().numpy(),
-                                   g[f"{prefix}_step_{f}"], rtol=0,
-                                   atol=1e-8)
-    for k, v in ts.observation.items():
-        assert v.device.type == "cuda"
-        np.testing.assert_allclose(v.cpu().numpy(), g[f"{prefix}_obs_{k}"],
-                                   rtol=0, atol=1e-8, err_msg=k)
-    np.testing.assert_allclose(ts.reward.cpu().numpy(),
-                               g[f"{prefix}_reward"], rtol=0, atol=1e-8)

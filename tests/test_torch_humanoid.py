@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import PREFIXES, STATE_FIELDS, export_tool, golden, \
-    jax_humanoid_model
+from _torch_helpers import PREFIXES, assert_step_matches_golden, \
+    export_tool, golden, golden_state, jax_model
 from dm_control_torch import suite as tsuite
 from dm_control_torch.ops import linalg as tlinalg
 from dm_control_torch.physics import engine as tengine
@@ -32,12 +32,6 @@ def tenv():
                              dtype=torch.float64, autoreset=False)
 
 
-def _state(env, gold, prefix="reset", rows=slice(None), seed=0):
-    return env.from_state(
-        *(torch.as_tensor(gold[f"{prefix}_{f}"][rows]) for f in STATE_FIELDS),
-        generator=torch.Generator().manual_seed(seed))
-
-
 def test_engine_step_matches_jax(gold, tenv):
     import jax
     import jax.numpy as jnp
@@ -45,7 +39,7 @@ def test_engine_step_matches_jax(gold, tenv):
     from dm_control_tpu.physics import engine as jengine
     from dm_control_tpu.physics.model import make_data as jmake_data
 
-    jm = jax_humanoid_model()
+    jm = jax_model("humanoid")
     # one environment in the air, one on the floor with contacts active
     qpos, qvel, warm, ctrl = (
         np.stack([gold[f"reset_{f}"][0], gold[f"contact_{f}"][0]])
@@ -79,29 +73,12 @@ def test_engine_step_matches_jax(gold, tenv):
 
 @pytest.mark.parametrize("prefix", PREFIXES)
 def test_batch_env_step_matches_golden(gold, tenv, prefix):
-    state, ts = tenv.step(_state(tenv, gold, prefix), torch.as_tensor(
-        gold[f"{prefix}_actions"]))
-    for f in STATE_FIELDS:
-        np.testing.assert_allclose(getattr(state.data, f).numpy(),
-                                   gold[f"{prefix}_step_{f}"], rtol=0,
-                                   atol=1e-8, err_msg=f)
-    obs = f"{prefix}_obs_"
-    assert list(ts.observation) == [k[len(obs):] for k in gold
-                                    if k.startswith(obs)]
-    for k, v in ts.observation.items():
-        np.testing.assert_allclose(v.numpy(), gold[obs + k], rtol=0,
-                                   atol=1e-8, err_msg=k)
-    np.testing.assert_allclose(ts.reward.numpy(), gold[f"{prefix}_reward"],
-                               rtol=0, atol=1e-8)
-    np.testing.assert_array_equal(ts.discount.numpy(),
-                                  gold[f"{prefix}_discount"])
-    np.testing.assert_array_equal(ts.step_type.numpy(),
-                                  gold[f"{prefix}_step_type"])
+    assert_step_matches_golden(tenv, gold, prefix)
 
 
 @pytest.mark.slow
 def test_golden_file_equals_what_jax_gives_now(gold):
-    fresh = export_tool().make_golden()
+    fresh = export_tool().make_golden("humanoid")
     assert fresh.keys() == gold.keys()
     for k in gold:
         np.testing.assert_allclose(fresh[k], gold[k], rtol=0, atol=1e-12,
@@ -135,7 +112,7 @@ def test_reset_is_deterministic_per_seed(tenv):
 def test_autoreset_replaces_only_finished_envs(gold):
     env = tsuite.load_batch("humanoid", "run", device="cpu",
                             dtype=torch.float64)
-    state = _state(env, gold, rows=slice(0, 2))
+    state = golden_state(env, gold, rows=slice(0, 2))
     state = state.replace(needs_reset=torch.tensor([True, False]))
     action = torch.as_tensor(gold["reset_actions"][:2])
     new, ts = env.step(state, action)
@@ -147,7 +124,7 @@ def test_autoreset_replaces_only_finished_envs(gold):
 
 
 def test_divergence_terminates_only_its_env(gold, tenv):
-    state = _state(tenv, gold, "contact", slice(0, 2))
+    state = golden_state(tenv, gold, "contact", slice(0, 2))
     qvel = state.data.qvel.clone()
     qvel[0, 0] = float("nan")
     state = state.replace(data=state.data.replace(qvel=qvel))
@@ -163,12 +140,12 @@ def test_divergence_terminates_only_its_env(gold, tenv):
 
 def test_other_domains_are_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsuite.load_batch("cartpole", "swingup", device="cpu",
+        tsuite.load_batch("quadruped", "run", device="cpu",
                           dtype=torch.float32)
 
 
 def test_cpu_run_launches_no_kernel(gold, tenv):
     before = tlinalg.chol_solve.launches
-    tenv.step(_state(tenv, gold, "contact", slice(0, 1)),
+    tenv.step(golden_state(tenv, gold, "contact", slice(0, 1)),
               torch.as_tensor(gold["contact_actions"][:1]))
     assert tlinalg.chol_solve.launches == before

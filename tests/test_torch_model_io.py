@@ -1,5 +1,5 @@
-"""The port's model file: exact round trip, a fresh checked-in asset, and
-no JAX anywhere in the port."""
+"""The port's model files: exact round trip, every checked-in asset equal
+to a fresh export, and no JAX anywhere in the port."""
 
 import dataclasses
 import os
@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import ROOT, jax_humanoid_model
+from _torch_helpers import ROOT, export_tool, jax_model
 from dm_control_torch.physics import model_io
 from dm_control_torch.physics.model import Model
-from dm_control_torch.suite import humanoid as thumanoid
+from dm_control_torch.suite import base as tbase
+
+ASSETS = tuple(a for assets in export_tool().ASSETS.values() for a in assets)
 
 
 def _fields(model):
@@ -47,11 +49,11 @@ def _assert_same(a, b):
 
 @pytest.fixture(scope="module")
 def exported():
-    return model_io.from_jax_model(jax_humanoid_model())
+    return model_io.from_jax_model(jax_model("humanoid"))
 
 
 def test_from_jax_model_matches_the_jax_leaves(exported):
-    jm = jax_humanoid_model()
+    jm = jax_model("humanoid")
     np.testing.assert_array_equal(exported.qpos0.numpy(),
                                   np.asarray(jm.qpos0))
     np.testing.assert_array_equal(exported.opt.gravity.numpy(),
@@ -68,18 +70,30 @@ def test_save_load_round_trip_is_exact(exported, tmp_path):
     _assert_same(model_io.load(path, "cpu", torch.float64), exported)
 
 
-def test_checked_in_asset_equals_a_fresh_export(exported):
-    _assert_same(thumanoid.get_model("cpu", torch.float64), exported)
+@pytest.mark.parametrize("asset", ASSETS)
+def test_checked_in_asset_equals_a_fresh_export(asset):
+    _assert_same(tbase.load_model(asset, "cpu", torch.float64),
+                 model_io.from_jax_model(jax_model(asset)))
+
+
+def test_every_asset_file_belongs_to_a_task():
+    import dm_control_torch.suite as tsuite
+
+    used = {domain.TASKS[t]()[0] for domain in tsuite.DOMAINS.values()
+            for t in domain.TASKS}
+    on_disk = {f[:-len(".npz")] for f in os.listdir(os.path.dirname(
+        tbase.asset_path("humanoid")))}
+    assert used == on_disk == set(ASSETS)
 
 
 def test_load_casts_floating_leaves_and_keeps_static_fields():
-    m = thumanoid.get_model("cpu", torch.float32)
+    m = tbase.load_model("humanoid", "cpu", torch.float32)
     assert m.dtype == torch.float32 and m.device.type == "cpu"
     assert m.opt.timestep.dtype == torch.float32
     assert m.body_mass.dtype == torch.float32
     assert (m.nq, m.nv, m.nu, m.nbody) == (28, 27, 21, 17)
     with pytest.raises(ValueError, match="device"):
-        model_io.load(thumanoid.ASSET, None, torch.float32)
+        model_io.load(tbase.asset_path("humanoid"), None, torch.float32)
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"

@@ -1,0 +1,157 @@
+"""Every task of the port's nine classic-control and planar-locomotion
+domains against the JAX package's task of the same name, in float64 on the
+CPU: ``before_step``, the env layer's recompute after a step (the "vel"
+branch, and hopper's "acc" branch), ``observation``, ``reward`` and
+``termination`` on the same states.
+
+The golden files step one task per domain; this file holds the other
+tasks' branches (cartpole's sparse rewards and its two- and three-pole
+observations, hopper's and walker's stand rewards, reacher's small target,
+point_mass without its shuffled gains) to JAX numbers too.  The states of a
+task are the port's own reset states of every task of the domain that has
+the same model size, the model's ``qpos0`` (upright, for the poles) and the
+domain's golden states, every other one at rest and the others with
+velocities from a numpy seed; the model overrides are the task's own
+reset's, the controls come from a numpy seed.  Every task meets states that
+it rewards differently (a sparse reward shows both its values).
+Tolerance: 1e-10 absolute on observations and rewards (both sides compute
+the same float64 expressions; they differ by summation order only);
+termination flags are equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import golden
+from dm_control_torch import suite as tsuite
+
+TASKS = tuple(t for t in tsuite.ALL_TASKS if t[0] != "humanoid")
+ATOL = 1e-10
+
+
+def _env(domain, task):
+    return tsuite.load_batch(domain, task, device="cpu", dtype=torch.float64,
+                             autoreset=False)
+
+
+def _states(domain, task):
+    """(env, qpos, qvel, model_diff, ctrl) as float64 tensors."""
+    env = _env(domain, task)
+    m = env.model
+    qpos = [m.qpos0.reshape(1, m.nq)]
+    if not env.task.settle_steps:  # cheetah's reset is 200 steps: golden only
+        for i, other in enumerate(tsuite.DOMAINS[domain].TASKS):
+            oenv = _env(domain, other)
+            if oenv.model.nq == m.nq:
+                state, _ = oenv.reset(2, torch.Generator().manual_seed(i))
+                qpos.append(state.data.qpos)
+    gold = golden(domain)
+    if gold["reset_qpos"].shape[1] == m.nq:
+        qpos += [torch.as_tensor(gold["reset_step_qpos"]),
+                 torch.as_tensor(gold["contact_step_qpos"])]
+    qpos = torch.cat(qpos)
+    n = qpos.shape[0]
+    rng = np.random.default_rng(n)
+    qvel = torch.as_tensor(rng.normal(size=(n, m.nv)))
+    qvel[::2] = 0.0  # every other state is at rest
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (n, m.nu)))
+    if env.task.settle_steps:
+        diff = env.task.initial_model_diff(m)
+    else:
+        diff = env.reset(n, torch.Generator().manual_seed(9))[0].model_diff
+    _reward_state_0(domain, env, qpos, qvel, diff, ctrl)
+    return env, qpos, qvel, diff, ctrl
+
+
+def _data(env, qpos, qvel, diff, ctrl):
+    """The port's (model, Data) as ``BatchEnv`` hands them to the task's
+    reward after a step that ended at this state."""
+    from dm_control_torch.rl.control import apply_model_diff
+
+    n = qpos.shape[0]
+    state = env.from_state(qpos, qvel, torch.zeros_like(qvel),
+                           torch.zeros(n, dtype=qpos.dtype),
+                           generator=torch.Generator().manual_seed(0),
+                           model_diff=diff)
+    m = apply_model_diff(env.model, diff)
+    d = env.task.before_step(m, env._unstrip(state.data), ctrl)
+    state, obs = env._observe(state.replace(data=d))
+    return m, state.data, obs
+
+
+def _port(env, qpos, qvel, diff, ctrl):
+    m, d, obs = _data(env, qpos, qvel, diff, ctrl)
+    terminate, discount = env.task.termination(m, d)
+    return obs, env.task.reward(m, d), terminate, discount
+
+
+def _reward_state_0(domain, env, qpos, qvel, diff, ctrl):
+    """Makes state 0 (``qpos0``, at rest) one that the domain's otherwise
+    rarely met reward pays for: reacher's target under the finger,
+    ball_in_cup's ball at the target, hopper moving forward."""
+    m, d, _ = _data(env, qpos, qvel, diff, ctrl)
+    names = m.names
+    if domain == "reacher":
+        diff["geom_pos"][0, names.geom["target"], :2] = \
+            d.geom_xpos[0, names.geom["finger"], :2]
+    if domain == "ball_in_cup":
+        gap = d.site_xpos[0, names.site["target"]] \
+            - d.xpos[0, names.body["ball"]]
+        qpos[0, m.jnt_qposadr[names.joint["ball_x"]]] += gap[0]
+        qpos[0, m.jnt_qposadr[names.joint["ball_z"]]] += gap[2]
+    if domain == "hopper":
+        qvel[0, m.jnt_dofadr[names.joint["rootx"]]] = 3.0
+
+
+def _jax(domain, task, qpos, qvel, diff, ctrl):
+    import jax
+    import jax.numpy as jnp
+
+    from dm_control_tpu import suite as jsuite
+    from dm_control_tpu.physics.model import make_data
+    from dm_control_tpu.rl.control import EnvState, apply_model_diff
+
+    env = jsuite.load_batch(domain, task, autoreset=False)
+
+    def one(qpos, qvel, diff, ctrl):
+        m = apply_model_diff(env.model, diff)
+        d = env.task.before_step(m, make_data(env.model).replace(
+            qpos=qpos, qvel=qvel), ctrl)
+        state, obs = env._observe(EnvState(
+            data=d, model_diff=diff, rng=None,
+            step_count=jnp.zeros((), jnp.int32),
+            needs_reset=jnp.zeros((), bool)))
+        terminate, discount = env.task.termination(m, state.data)
+        return (obs, env.task.reward(m, state.data), jnp.asarray(terminate),
+                jnp.asarray(discount, qpos.dtype))
+
+    return jax.jit(jax.vmap(one))(
+        jnp.asarray(qpos.numpy()), jnp.asarray(qvel.numpy()),
+        {k: jnp.asarray(v.numpy()) for k, v in diff.items()},
+        jnp.asarray(ctrl.numpy()))
+
+
+@pytest.mark.parametrize("domain,task", TASKS)
+def test_task_functions_match_jax(domain, task):
+    env, qpos, qvel, diff, ctrl = _states(domain, task)
+    n = qpos.shape[0]
+    assert all(v.shape[0] == n for v in diff.values())  # one per environment
+    obs, reward, terminate, discount = _port(env, qpos, qvel, diff, ctrl)
+    jobs, jreward, jterminate, jdiscount = _jax(domain, task, qpos, qvel,
+                                                diff, ctrl)
+    assert list(obs) == list(jobs)
+    for k, v in obs.items():
+        assert v.shape[0] == n
+        np.testing.assert_allclose(
+            v.numpy().reshape(n, -1), np.asarray(jobs[k]).reshape(n, -1),
+            rtol=0, atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(reward.numpy(), np.asarray(jreward), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_array_equal(terminate.numpy(), np.asarray(jterminate))
+    np.testing.assert_allclose(discount.numpy(), np.asarray(jdiscount),
+                               rtol=0, atol=0)
+    if task.endswith("_sparse"):  # both values of a sparse reward were met
+        assert set(np.unique(reward.numpy())) == {0.0, 1.0}
+    else:
+        assert float(reward.max()) > float(reward.min())

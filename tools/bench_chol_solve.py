@@ -26,8 +26,9 @@ For every (n, B, type) and every implementation it prints, and with
 - ``host_us``: host clock over 2000 calls through the wrapper without a
   synchronise, per call: what a call costs the host (valid where the
   device keeps up, which the other columns show);
-- ``bound_us``: the bytes (A and b read once, x written once) over
-  3.35 TB/s, or the operations over the float32/float64 rate if larger.
+- ``bound_us``: the bytes (the lower triangle of A, which is the
+  function's input, and b read once, x written once) over 3.35 TB/s, or
+  the operations over the float32/float64 rate if larger.
 
 Implementations are timed in turns (old, new, variants, library, then
 the same backwards) and both readings are kept.
@@ -64,7 +65,8 @@ COLD_BYTES = 64 << 20
 
 def bound_us(batch, n, dtype):
     size = torch.empty((), dtype=dtype).element_size()
-    byte_us = 1e6 * size * batch * (n * n + 2 * n) / HBM_BYTES_PER_S
+    byte_us = (1e6 * size * batch * (n * (n + 1) // 2 + 2 * n)
+               / HBM_BYTES_PER_S)
     flop_us = 1e6 * batch * (n ** 3 / 3 + 2 * n * n) / FLOPS[dtype]
     by = "bytes" if byte_us >= flop_us else "operations"
     return max(byte_us, flop_us), by

@@ -1,17 +1,19 @@
-"""Where the time of one humanoid:run control step goes on the GPU.
+"""Where the time of one control step of a suite task goes on the GPU.
 
-    python3 tools/profile_torch_step.py [--batch 1024] [--out FILE.json]
+    python3 tools/profile_torch_step.py [--domain humanoid] [--task run]
+        [--batch 1024] [--out FILE.json]
 
 Runs the port (``dm_control_torch``) at float32 on one CUDA device and
 prints (and with ``--out`` also writes) one JSON object:
 
 - one profiled ``BatchEnv.step``: device kernels per step, device busy
   time and idle share (``torch.profiler``), the top operators by device
-  and by host time;
-- host milliseconds per pipeline stage over the 5 substeps of one step,
-  with a ``torch.cuda.synchronize()`` after each stage, and the Newton
-  iterations per substep (max and mean over the batch);
-- the chol_solve kernel against its plain version at (B, 27) float32:
+  and by host time, and the chol_solve launches of that step;
+- host milliseconds per pipeline stage over one control step (all its
+  substeps and, under RK4, all four ``forward``s of each), with a
+  ``torch.cuda.synchronize()`` around each stage, and the Newton
+  iterations per solve (max and mean over the batch);
+- the chol_solve kernel against its plain version at (B, nv) float32:
   device time per call from the profiler, and CUDA-event time per call
   over 200 back-to-back calls.
 
@@ -49,7 +51,8 @@ def _self_device_us(avg):
         or getattr(avg, "self_cuda_time_total", 0.0)
 
 
-def profile_step(env, state, act):
+def profile_step(env, state, act, linalg):
+    linalg.chol_solve.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -63,6 +66,7 @@ def profile_step(env, state, act):
     by_cpu = sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:15]
     return state, {
         "profiled_step_wall_ms": wall * 1e3,
+        "chol_solve_launches_per_step": linalg.chol_solve.launches,
         "device_kernels_per_step": len(kernels),
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / 1e6 / wall,
@@ -73,53 +77,91 @@ def profile_step(env, state, act):
     }
 
 
+#: the pipeline stages timed by ``stage_times``: (module, function)
+STAGES = (
+    ("kinematics", "kinematics"), ("kinematics", "com_pos"),
+    ("kinematics", "tendon"), ("inertia", "crb"),
+    ("collision", "collision"), ("actuation", "transmission"),
+    ("sensors", "sensor_pos"), ("engine", "fwd_velocity"),
+    ("sensors", "sensor_vel"), ("engine", "fwd_actuation"),
+    ("engine", "fwd_acceleration"), ("constraints", "make_constraint"),
+    ("solver", "solve"), ("sensors", "sensor_acc"), ("engine", "euler"),
+)
+
+
 def stage_times(env, state, act):
-    from dm_control_torch.physics import (
-        actuation, collision, constraints, engine, inertia, kinematics,
-        sensors, solver)
+    """Host ms per stage over one ``BatchEnv.step``: each stage function
+    is wrapped, for this one step, by a timer with a synchronize on both
+    sides.  ``observe`` is the step's closing recompute as a whole, and
+    ``other`` what no stage accounts for (integration, reward, RK4's
+    stage arithmetic)."""
+    import importlib
 
-    m = env.model
-    stages = {}
+    physics = {name: importlib.import_module(
+        f"dm_control_torch.physics.{name}") for name, _ in STAGES}
+    stages, niters, nefc = {}, [], [0]
+    in_observe = [False]
 
-    def timed(name, fn, *args):
+    def timed(name, fn):
+        def wrapper(*args):
+            if in_observe[0]:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) \
+                + (time.perf_counter() - t) * 1e3
+            if name == "solve":
+                niters.append(out.solver_niter.float().cpu().numpy())
+            if name == "make_constraint":
+                nefc[0] = out.nefc
+            return out
+        return wrapper
+
+    def observe(st):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn(*args)
+        in_observe[0] = True
+        try:
+            out = real_observe(st)
+        finally:
+            in_observe[0] = False
         torch.cuda.synchronize()
-        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+        stages["observe"] = (time.perf_counter() - t) * 1e3
         return out
 
-    niters = []
-    d = env.task.before_step(m, env._unstrip(state.data), act())
-    for _ in range(env.n_sub_steps):
-        d = timed("kinematics", kinematics.kinematics, m, d)
-        d = timed("com_pos", kinematics.com_pos, m, d)
-        d = timed("crb", inertia.crb, m, d)
-        d = timed("collision", collision.collision, m, d)
-        d = timed("transmission", actuation.transmission, m, d)
-        d = timed("sensor_pos", sensors.sensor_pos, m, d)
-        d = timed("fwd_velocity", engine.fwd_velocity, m, d)
-        d = timed("sensor_vel", sensors.sensor_vel, m, d)
-        d = timed("fwd_actuation", engine.fwd_actuation, m, d)
-        d = timed("fwd_acceleration", engine.fwd_acceleration, m, d)
-        efc = timed("make_constraint", constraints.make_constraint, m, d)
-        d = timed("solver", solver.solve, m, d, efc)
-        niters.append(d.solver_niter.float().cpu().numpy())
-        d = timed("sensor_acc", sensors.sensor_acc, m, d)
-        d = timed("euler", engine.euler, m, d.replace(qacc_warmstart=d.qacc))
-    timed("observe", env._observe, state.replace(data=d))
-    nit = np.stack(niters)
-    return {"stage_ms_one_step": stages, "nefc": efc.nefc,
-            "newton_iters_max_per_substep": nit.max(1).tolist(),
-            "newton_iters_mean_per_substep": nit.mean(1).tolist()}
+    real = {(mod, fn): getattr(physics[mod], fn) for mod, fn in STAGES}
+    real_observe = env._observe
+    try:
+        for (mod, fn), f in real.items():
+            setattr(physics[mod], fn, timed(fn, f))
+        env._observe = observe
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.step(state, act())
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, fn), f in real.items():
+            setattr(physics[mod], fn, f)
+        del env._observe
+    stages["other"] = total - sum(stages.values())
+    out = {"stage_ms_one_step": stages, "stage_ms_sum": total,
+           "nefc": nefc[0], "solves_per_step": len(niters)}
+    if niters:
+        nit = np.stack(niters)
+        out["newton_iters_max_per_solve"] = nit.max(1).tolist()
+        out["newton_iters_mean_per_solve"] = nit.mean(1).tolist()
+    return out
 
 
-def kernel_vs_plain(linalg, batch):
+def kernel_vs_plain(linalg, batch, n):
     rng = np.random.default_rng(0)
-    q = rng.standard_normal((batch, 27, 27))
-    a = torch.as_tensor(q @ q.transpose(0, 2, 1) + 27 * np.eye(27),
+    q = rng.standard_normal((batch, n, n))
+    a = torch.as_tensor(q @ q.transpose(0, 2, 1) + n * np.eye(n),
                         dtype=torch.float32, device="cuda")
-    rhs = torch.ones(batch, 27, device="cuda")
+    rhs = torch.ones(batch, n, device="cuda")
     out = {}
     for name, fn in (("kernel", linalg.chol_solve_cuda),
                      ("plain", linalg.chol_solve_reference)):
@@ -148,6 +190,8 @@ def kernel_vs_plain(linalg, batch):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--domain", default="humanoid")
+    parser.add_argument("--task", default="run")
     parser.add_argument("--batch", type=int, default=1024)
     parser.add_argument("--out", help="also write the JSON to this file")
     args = parser.parse_args()
@@ -163,7 +207,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     linalg.build()
-    env = suite.load_batch("humanoid", "run", device="cuda",
+    env = suite.load_batch(args.domain, args.task, device="cuda",
                            dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     act_gen = torch.Generator(device="cuda").manual_seed(1)
@@ -175,15 +219,21 @@ def main() -> int:
     t0 = time.perf_counter()
     state, _ = env.reset(args.batch, gen)
     torch.cuda.synchronize()
-    out = {"card": card, "batch": args.batch,
+    out = {"card": card, "domain": args.domain, "task": args.task,
+           "batch": args.batch, "substeps_per_step": env.n_sub_steps,
            "reset_s": time.perf_counter() - t0}
     for _ in range(2):  # warm-up
         state, _ = env.step(state, act())
     torch.cuda.synchronize()
-    state, prof = profile_step(env, state, act)
+    # an environment that just diverged must not pull a whole reset (for
+    # cheetah, 200 settle steps) into the one step that is measured
+    state = state.replace(needs_reset=torch.zeros_like(state.needs_reset))
+    state, prof = profile_step(env, state, act, linalg)
+    state = state.replace(needs_reset=torch.zeros_like(state.needs_reset))
     out.update(prof)
     out.update(stage_times(env, state, act))
-    out["chol_solve_n27_f32"] = kernel_vs_plain(linalg, args.batch)
+    out[f"chol_solve_n{env.model.nv}_f32"] = kernel_vs_plain(
+        linalg, args.batch, env.model.nv)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
