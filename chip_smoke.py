@@ -10,10 +10,10 @@ system), times it at the main paths' shapes beside its bound, the plain
 version and PyTorch's library calls for the same function, checks one
 float64 control step of every ported domain against the JAX package's
 golden result, drives each main path (``suite.load_batch(domain, task)``
--> ``BatchEnv.reset`` and ``BatchEnv.step`` in float32: humanoid:run and
-seven more at B = 1024, cartpole:swingup at B = 8192, cheetah:run at
-B = 4096) and checks that every dense solve on it went through the
-kernel, then compares a short rollout with and without the kernel.  Each
+-> ``BatchEnv.reset`` and ``BatchEnv.step`` in float32: humanoid:run,
+quadruped:walk, escape and fetch and nine more at B = 1024,
+cartpole:swingup at B = 8192, cheetah:run at B = 4096) and checks that
+every dense solve on it went through the kernel, then compares a short rollout with and without the kernel.  Each
 phase prints one line; any failure exits with a non-zero code.  The last
 line is a JSON object naming the device.  Needs one CUDA device; exits
 with code 1 and prints no result without one.
@@ -34,17 +34,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_BATCH = 1024
 MAIN_STEPS = 4
 #: the main paths: (domain, task, batch); cartpole and cheetah at the sizes
-#: of the JAX package's bench rungs.  Each domain's golden file steps the
-#: same task.
+#: of the JAX package's bench rungs, quadruped at its rung's size.
 MAIN_PATHS = (
     ("humanoid", "run", MAIN_BATCH), ("pendulum", "swingup", MAIN_BATCH),
     ("acrobot", "swingup", MAIN_BATCH), ("cartpole", "swingup", 8192),
     ("reacher", "easy", MAIN_BATCH), ("walker", "run", MAIN_BATCH),
     ("cheetah", "run", 4096), ("hopper", "hop", MAIN_BATCH),
     ("point_mass", "hard", MAIN_BATCH), ("ball_in_cup", "catch", MAIN_BATCH),
+    ("quadruped", "walk", MAIN_BATCH), ("quadruped", "escape", MAIN_BATCH),
+    ("quadruped", "fetch", MAIN_BATCH), ("fish", "swim", MAIN_BATCH),
+    ("swimmer", "swimmer15", MAIN_BATCH),
 )
-#: (B, n) the kernel is timed at: humanoid's, cartpole's and cheetah's
-TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9))
+#: the golden files (tests/data/torch_<golden>_golden_f64.npz), one per
+#: main path, as (golden, domain, task): named like the domain apart from
+#: quadruped's other two, and stepping the main path's task apart from
+#: swimmer's, which steps swimmer6
+GOLDENS = tuple(
+    ({"escape": "quadruped_escape", "fetch": "quadruped_fetch"}.get(t, d),
+     d, "swimmer6" if d == "swimmer" else t) for d, t, _ in MAIN_PATHS)
+#: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's and
+#: quadruped's
+TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 
 
@@ -66,7 +76,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_NS = (1, 2, 3, 4, 7, 9, 27, 31, 32, 33, 40, 62, 63, 64, 65, 79, 160)
+KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 13, 17, 22, 27, 28, 31, 32, 33, 40, 62, 63,
+             64, 65, 79, 160)
 KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
 SHARED_NS = (27, 32, 33, 64, 65)
 LOWER_NS = (27, 32, 33, 64, 65)
@@ -238,14 +249,14 @@ def time_shape(linalg, batch, n):
     return out
 
 
-def phase_golden(suite, domain, task):
-    """One float64 control step from the domain's golden start states
-    (after a reset, and some steps later: on the floor, the string taut)
-    with the golden's per-episode model overrides, against JAX."""
+def phase_golden(suite, name, domain, task):
+    """One float64 control step from the golden's start states (after a
+    reset, and some steps later: on the floor, the string taut, the ball at
+    rest) with the golden's per-episode model overrides, against JAX."""
     from dm_control_torch.rl import golden
 
     with np.load(os.path.join(ROOT, "tests", "data",
-                              f"torch_{domain}_golden_f64.npz"),
+                              f"torch_{name}_golden_f64.npz"),
                  allow_pickle=False) as z:
         gold = {k: z[k] for k in z.files}
     env = suite.load_batch(domain, task, device="cuda", dtype=torch.float64,
@@ -254,10 +265,10 @@ def phase_golden(suite, domain, task):
             for k, v in golden.step_errors(env, gold, p).items()}
     worst = max(errs, key=errs.get)
     check(errs[worst] <= 1e-8,
-          f"golden mismatch in {domain}: {worst} {errs[worst]:.3e}")
+          f"golden mismatch in {name}: {worst} {errs[worst]:.3e}")
     check(all(errs[f"{p}_{k}"] == 0 for p in golden.PREFIXES
               for k in ("discount", "step_type")),
-          f"golden discount or step type mismatch in {domain}")
+          f"golden discount or step type mismatch in {name}")
     return errs[worst], worst
 
 
@@ -334,6 +345,7 @@ def phase_main(suite, linalg, domain, task, batch):
                 reset_launches=reset_launches, substeps=substeps,
                 min_solves=min_solves, env_steps_per_s=sps,
                 diverged_share=share, reset_s=reset_s,
+                drop_rounds=getattr(env.task, "last_drop_rounds", None),
                 step_ms=[1e3 * t for t in step_times],
                 mean_reward=float(r.mean()))
 
@@ -410,8 +422,8 @@ def main() -> int:
                          for name, v in k["runs"].items())
               + f") | {card}", flush=True)
 
-    for domain, task, _ in MAIN_PATHS:
-        gerr, gworst = phase_golden(suite, domain, task)
+    for golden_name, domain, task in GOLDENS:
+        gerr, gworst = phase_golden(suite, golden_name, domain, task)
         print(f"phase 4 golden: float64 {domain}:{task} step on the card vs "
               f"JAX golden (reset and later states), max |d| {gerr:.3e} "
               f"({gworst}) <= 1e-8", flush=True)
@@ -420,9 +432,12 @@ def main() -> int:
     for domain, task, batch in MAIN_PATHS:
         run = phase_main(suite, linalg, domain, task, batch)
         runs.append(run)
+        drop = "" if run["drop_rounds"] is None else \
+            f", {run['drop_rounds']} rounds of _drop_to_ground"
         print(f"phase 5 main path: {domain}:{task} B={batch} float32, reset "
               f"{run['reset_s']:.2f} s ({run['reset_launches']} chol_solve "
-              f"launches), {MAIN_STEPS} steps ({run['substeps']} substeps), "
+              f"launches{drop}), {MAIN_STEPS} steps ({run['substeps']} "
+              f"substeps), "
               f"chol_solve launches {run['launches']} (>= "
               f"{run['min_solves']} a substep), "
               f"{run['env_steps_per_s']:.1f} env-steps/s after warm-up, "

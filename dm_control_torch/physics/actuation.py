@@ -1,7 +1,7 @@
-"""Actuator transmission and force generation, batched.
-Counterpart of ``dm_control_tpu/physics/actuation.py`` for actuators with
-a transmission on a scalar joint or on a tendon and no activation
-dynamics."""
+"""Actuator transmission, activation dynamics and force generation,
+batched.  Counterpart of ``dm_control_tpu/physics/actuation.py`` for
+actuators with a transmission on a scalar joint or on a tendon, with no
+activation dynamics or an integrator or a first-order filter."""
 
 from __future__ import annotations
 
@@ -28,12 +28,8 @@ def _transmission_plan(m: Model):
         else:
             raise NotImplementedError(
                 f"actuator {u}: only transmissions on hinge/slide joints "
-                f"and on tendons are ported (ROADMAP A1: quadruped and the "
-                f"domains after it)")
-        if m.actuator_dyntype[u] != int(DynType.NONE):
-            raise NotImplementedError(
-                f"actuator {u}: activation dynamics are not ported yet "
-                f"(ROADMAP A1: quadruped)")
+                f"and on tendons are ported (ROADMAP A2: finger, "
+                f"manipulator and stacker)")
     jids = [m.actuator_trnid[u][0] for u in joint]
     dadr = [m.jnt_dofadr[j] for j in jids]
     # the joint actuators' rows of the moment never change
@@ -72,8 +68,33 @@ def actuator_velocity(m: Model, d: Data) -> Data:
         "buv,bv->bu", d.actuator_moment, d.qvel))
 
 
+def _activation_plan(m: Model):
+    """Static activation structure, or None where no actuator has
+    dynamics: the actuators with a state and their addresses in ``act``,
+    which of them are filters, and the filters' time constants."""
+    stateful = [u for u in range(m.nu)
+                if m.actuator_dyntype[u] != int(DynType.NONE)]
+    if not stateful:
+        return None
+    for u in stateful:
+        if m.actuator_dyntype[u] not in (
+                int(DynType.INTEGRATOR), int(DynType.FILTER),
+                int(DynType.FILTEREXACT)):
+            raise NotImplementedError(
+                f"actuator {u}: muscle activation dynamics are not ported "
+                f"(no suite model has them)")
+    uidx = m.idx(stateful)
+    return dict(
+        u=uidx, adr=m.idx([m.actuator_actadr[u] for u in stateful]),
+        is_filter=torch.tensor(
+            [m.actuator_dyntype[u] != int(DynType.INTEGRATOR)
+             for u in stateful], device=m.device),
+        tau=torch.clamp(m.actuator_dynprm[uidx, 0], min=1e-15))
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
-    """mj_fwdActuation: forces and generalized forces (no activations)."""
+    """mj_fwdActuation: activation derivatives, forces and generalized
+    forces.  An actuator with dynamics takes its activation as input."""
     if m.nu == 0 or (m.opt.disableflags & DisableBit.ACTUATION):
         return d.replace(qfrc_actuator=torch.zeros_like(d.qvel),
                          actuator_force=torch.zeros_like(d.ctrl))
@@ -85,6 +106,14 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         ctrl = torch.where(limited, torch.clamp(
             ctrl, m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]),
             ctrl)
+    plan = m.cached("activation", lambda: _activation_plan(m))
+    act_dot = torch.zeros_like(d.act)
+    if plan is not None:
+        act = d.act[:, plan["adr"]]
+        cu = ctrl[:, plan["u"]]
+        act_dot = act_dot.index_copy(1, plan["adr"], torch.where(
+            plan["is_filter"], (cu - act) / plan["tau"], cu))
+        ctrl = ctrl.index_copy(1, plan["u"], act)
     ln, vel = d.actuator_length, d.actuator_velocity
     gp, bp = m.actuator_gainprm, m.actuator_biasprm
     fixed = m.cached("gain_fixed", lambda: torch.tensor(
@@ -104,5 +133,5 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         force, m.actuator_forcerange[:, 0], m.actuator_forcerange[:, 1]),
         force)
     qfrc = torch.einsum("buv,bu->bv", d.actuator_moment, force)
-    return d.replace(act_dot=torch.zeros_like(d.act), actuator_force=force,
+    return d.replace(act_dot=act_dot, actuator_force=force,
                      qfrc_actuator=qfrc)

@@ -7,8 +7,12 @@ collider type, and each group runs as one batched computation over
 beyond their margin stay in the arrays with zero force in the solver, so
 shapes never depend on the state.
 
-Ported colliders: plane-sphere, plane-capsule, sphere-sphere,
-sphere-capsule and capsule-capsule.  A model with any other pair raises
+Ported colliders: plane-sphere, plane-capsule, plane-cylinder,
+plane-ellipsoid, sphere-sphere, sphere-capsule, capsule-capsule,
+sphere-ellipsoid, capsule-ellipsoid, capsule-cylinder, sphere-cylinder, and
+a heightfield against a sphere, capsule, cylinder or ellipsoid.  Several
+are the JAX package's approximations of MuJoCo's colliders and are ported
+as they are.  A model with any other pair raises
 ``NotImplementedError``, unless its contacts or all its constraints are
 disabled: then no pair is collided at all.  (The JAX package tests only
 the CONTACT bit and still collides a model whose CONSTRAINT bit is set,
@@ -20,6 +24,9 @@ Contact normals point from geom1 into geom2; frame rows are
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -77,6 +84,45 @@ def plane_capsule(p1, m1, s1, p2, m2, s2):
     return dist, pos, torch.stack([frame, frame], dim=-3)
 
 
+def plane_cylinder(p1, m1, s1, p2, m2, s2):
+    """Four contacts: the deepest rim point of each cap and two spread
+    points on the lower cap (approximates mjc_PlaneCylinder)."""
+    n = m1[..., :, 2]
+    r, hl = s2[..., 0:1], s2[..., 1:2]
+    axis = m2[..., :, 2]
+    n_ax = mx.dot(n, axis).unsqueeze(-1)
+    proj = n - axis * n_ax
+    pn = mx.norm(proj).unsqueeze(-1)
+    radial = torch.where(pn < 1e-8, m2[..., :, 0],
+                         -proj / torch.clamp(pn, min=_MINVAL))
+    t = mx.cross(axis, radial)
+    lower = torch.where(n_ax < 0, 1.0, -1.0)
+    c_lo = p2 + lower * hl * axis
+    cos, sin = math.cos(2.0944), math.sin(2.0944)
+    pts = torch.stack([
+        p2 + hl * axis + r * radial,
+        p2 - hl * axis + r * radial,
+        c_lo + r * (radial * cos + t * sin),
+        c_lo + r * (radial * cos - t * sin)], dim=-2)  # (.., 4, 3)
+    n4 = n.unsqueeze(-2)
+    dist = mx.dot(pts, n4) - mx.dot(n, p1).unsqueeze(-1)
+    pos = pts - n4 * 0.5 * dist.unsqueeze(-1)
+    frame = _make_frame(n).unsqueeze(-3)
+    return dist, pos, frame.expand(*dist.shape, 3, 3)
+
+
+def plane_ellipsoid(p1, m1, s1, p2, m2, s2):
+    n = m1[..., :, 2]
+    nloc = mx.mat_t_vec(m2, n)
+    denom = torch.sqrt(torch.sum((s2 * nloc) ** 2, -1, keepdim=True))
+    sp = p2 + mx.mat_vec(m2, -(s2 ** 2) * nloc
+                         / torch.clamp(denom, min=_MINVAL))
+    dist = mx.dot(n, sp - p1)
+    pos = sp - n * 0.5 * dist.unsqueeze(-1)
+    return (dist.unsqueeze(-1), pos.unsqueeze(-2),
+            _make_frame(n).unsqueeze(-3))
+
+
 def _sphere_pair(c1, r1, c2, r2):
     diff = c2 - c1
     ln = mx.norm(diff)
@@ -128,13 +174,228 @@ def capsule_capsule(p1, m1, s1, p2, m2, s2):
                         a2 + d2 * t.unsqueeze(-1), s2[..., 0])
 
 
+def _ellipsoid_closest(c, size):
+    """The point of an origin-centred, axis-aligned ellipsoid's surface
+    closest to ``c``: Newton on the Lagrange multiplier, twelve steps
+    whatever the data (the JAX package's count)."""
+    a2 = size ** 2
+    a4 = a2 * a2
+    lam = torch.zeros_like(c[..., :1])
+    one = torch.ones_like(c)
+    tiny = torch.full_like(lam, _MINVAL)
+    for _ in range(12):
+        w = torch.addcdiv(one, lam, a2)  # 1 + lam / a2
+        xx = (c / w) ** 2
+        phi = torch.sum(xx / a2, -1, keepdim=True) - 1.0
+        dphi = -2.0 * torch.sum(xx / (a4 * w), -1, keepdim=True)
+        dphi = torch.where(torch.abs(dphi) < _MINVAL, tiny, dphi)
+        lam = torch.addcdiv(lam, phi, dphi, value=-1.0)  # lam - phi / dphi
+    return c / (1.0 + lam / a2)
+
+
+def _ellipsoid_contact(c, r1, p2, m2, s2):
+    """The contact of a sphere of radius ``r1`` centred at ``c`` (in the
+    ellipsoid's frame) with the ellipsoid; normal from the sphere into
+    it."""
+    x = _ellipsoid_closest(c, s2)
+    n_loc = x / torch.clamp(s2 ** 2, min=_MINVAL)
+    n_loc = n_loc / torch.clamp(mx.norm(n_loc), min=_MINVAL).unsqueeze(-1)
+    inside = torch.sum((c / s2) ** 2, -1) < 1.0
+    sgn = torch.where(inside, -1.0, 1.0)
+    dist = sgn * mx.norm(c - x) - r1
+    n_world = -sgn.unsqueeze(-1) * mx.mat_vec(m2, n_loc)
+    pos = p2 + mx.mat_vec(m2, x) - (0.5 * dist).unsqueeze(-1) * (-n_world)
+    return (dist.unsqueeze(-1), pos.unsqueeze(-2),
+            _make_frame(n_world).unsqueeze(-3))
+
+
+def sphere_ellipsoid(p1, m1, s1, p2, m2, s2):
+    return _ellipsoid_contact(mx.mat_t_vec(m2, p1 - p2), s1[..., 0], p2, m2,
+                              s2)
+
+
+def capsule_ellipsoid(p1, m1, s1, p2, m2, s2):
+    """Six fixed-point rounds between the closest point of the capsule's
+    segment and the closest point of the ellipsoid."""
+    half = s1[..., 1:2] * m1[..., :, 2]
+    a = mx.mat_t_vec(m2, p1 - half - p2)
+    b = mx.mat_t_vec(m2, p1 + half - p2)
+    c = 0.5 * (a + b)
+    for _ in range(6):
+        c = _closest_on_seg(_ellipsoid_closest(c, s2), a, b)
+    return _ellipsoid_contact(c, s1[..., 0], p2, m2, s2)
+
+
+def capsule_cylinder(p1, m1, s1, p2, m2, s2):
+    """Approximation: the cylinder's side acts as a capsule of its radius
+    and half-length, with the flat cap where the capsule's closest point
+    lies beyond it and over its disk."""
+    r1, h1 = s1[..., 0], s1[..., 1:2]
+    r2, h2 = s2[..., 0], s2[..., 1]
+    a1 = p1 - h1 * m1[..., :, 2]
+    b1 = p1 + h1 * m1[..., :, 2]
+    axis2 = m2[..., :, 2]
+    a2 = p2 - h2.unsqueeze(-1) * axis2
+    b2 = p2 + h2.unsqueeze(-1) * axis2
+    d1v = b1 - a1
+    d2v = b2 - a2
+    rvec = a1 - a2
+    a = mx.dot(d1v, d1v)
+    e = mx.dot(d2v, d2v)
+    f = mx.dot(d2v, rvec)
+    cc = mx.dot(d1v, rvec)
+    b = mx.dot(d1v, d2v)
+    denom = a * e - b * b
+    s = torch.where(denom > _MINVAL, torch.clamp(
+        (b * f - cc * e) / torch.clamp(denom, min=_MINVAL), 0, 1),
+        torch.zeros_like(denom))
+    t = (b * s + f) / torch.clamp(e, min=_MINVAL)
+    s = torch.where(t < 0, torch.clamp(-cc / torch.clamp(a, min=_MINVAL),
+                                       0, 1), s)
+    s = torch.where(t > 1, torch.clamp(
+        (b - cc) / torch.clamp(a, min=_MINVAL), 0, 1), s)
+    t = torch.clamp(t, 0.0, 1.0)
+    pc = a1 + d1v * s.unsqueeze(-1)  # capsule point
+    pz = a2 + d2v * t.unsqueeze(-1)  # cylinder axis point
+    # side contact
+    radial = pc - pz
+    axial_comp = mx.dot(radial, axis2)
+    radial_perp = radial - axial_comp.unsqueeze(-1) * axis2
+    rp_norm = mx.norm(radial_perp)
+    n_side = -radial_perp / torch.clamp(rp_norm, min=_MINVAL).unsqueeze(-1)
+    dist_side = rp_norm - r2 - r1
+    pos_side = pc + n_side * (r1 + 0.5 * dist_side).unsqueeze(-1)
+    # cap contact: the capsule's point beyond the cap plane
+    cap_sign = torch.sign(axial_comp + 1e-30)
+    cap_axis = cap_sign.unsqueeze(-1) * axis2
+    cap_center = p2 + (cap_sign * h2).unsqueeze(-1) * axis2
+    drop = pc - cap_center
+    in_disk_n = mx.norm(drop - mx.dot(drop, axis2).unsqueeze(-1) * axis2)
+    dist_cap = mx.dot(drop, cap_axis) - r1
+    pos_cap = pc - cap_axis * (r1 + 0.5 * dist_cap).unsqueeze(-1)
+    use_cap = (torch.abs(axial_comp) > h2) & (in_disk_n < r2)
+    use3 = use_cap.unsqueeze(-1)
+    dist = torch.where(use_cap, dist_cap, dist_side)
+    pos = torch.where(use3, pos_cap, pos_side)
+    n = torch.where(use3, -cap_axis, n_side)
+    return (dist.unsqueeze(-1), pos.unsqueeze(-2),
+            _make_frame(n).unsqueeze(-3))
+
+
+def sphere_cylinder(p1, m1, s1, p2, m2, s2):
+    """A sphere is a capsule of no length."""
+    zero = torch.zeros_like(s1[..., 0])
+    return capsule_cylinder(p1, m1, torch.stack([s1[..., 0], zero, zero], -1),
+                            p2, m2, s2)
+
+
+# Heightfield colliders: the terrain's height is read bilinearly; the other
+# geom touches it at a fixed set of sample points.  The elevation data is a
+# model leaf that an episode may override (quadruped's escape), (nrow, ncol)
+# or one terrain per environment, (B, nrow, ncol).
+
+
+def _hf_surface(data, size, p_local):
+    """Height (B, ...) and unit normal (B, ..., 3) of the terrain under
+    the local points ``p_local`` (B, ..., 3)."""
+    nrow, ncol = data.shape[-2:]
+    fx = torch.clamp((p_local[..., 0] / size[0] + 1.0) * 0.5 * (ncol - 1),
+                     0.0, ncol - 1.001)
+    fy = torch.clamp((p_local[..., 1] / size[1] + 1.0) * 0.5 * (nrow - 1),
+                     0.0, nrow - 1.001)
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = fx - x0
+    ty = fy - y0
+    at = y0.long() * ncol + x0.long()  # cell (y0, x0), flattened
+    cells = torch.stack([at, at + 1, at + ncol, at + ncol + 1], dim=-1)
+    if data.dim() == 3:  # one terrain per environment
+        h = data.reshape(data.shape[0], -1).gather(
+            1, cells.reshape(cells.shape[0], -1)).reshape(cells.shape)
+    else:
+        h = data.reshape(-1)[cells]
+    h00, h01, h10, h11 = h.unbind(-1)
+    height = ((1 - ty) * ((1 - tx) * h00 + tx * h01)
+              + ty * ((1 - tx) * h10 + tx * h11)) * size[2]
+    cell_dx = size[0] * 2.0 / (ncol - 1)
+    cell_dy = size[1] * 2.0 / (nrow - 1)
+    dhdx = (((1 - ty) * (h01 - h00) + ty * (h11 - h10)) * size[2]) / cell_dx
+    dhdy = (((1 - tx) * (h10 - h00) + tx * (h11 - h01)) * size[2]) / cell_dy
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(height)], dim=-1)
+    return height, n / mx.norm(n).unsqueeze(-1)
+
+
+def _hf_point_contacts(data, size, m1, p1, pts_world, radius):
+    """Contacts of the world points ``pts_world`` (B, ..., 3), each a
+    sphere of ``radius`` (broadcasting over the points), with the terrain
+    at ``p1``, ``m1`` (broadcasting likewise)."""
+    loc = mx.mat_t_vec(m1, pts_world - p1)
+    h, n_loc = _hf_surface(data, size, loc)
+    surf_loc = torch.stack([loc[..., 0], loc[..., 1], h], dim=-1)
+    dist = mx.dot(loc - surf_loc, n_loc) - radius
+    n_world = mx.mat_vec(m1, n_loc)
+    pos = pts_world - n_world * (radius + 0.5 * dist).unsqueeze(-1)
+    return dist, pos, _make_frame(n_world)
+
+
+def _hf_sphere_samples(p2, m2, s2):
+    return p2.unsqueeze(-2), s2[..., 0]
+
+
+def _hf_capsule_samples(p2, m2, s2):
+    """The two cap centres; a cylinder is sampled as the capsule of its
+    radius and half-length."""
+    half = s2[..., 1:2] * m2[..., :, 2]
+    return torch.stack([p2 + half, p2 - half], dim=-2), s2[..., 0]
+
+
+def _hf_ellipsoid_samples(p2, m2, s2):
+    """The bottom pole (the terrain's z is up), with the minor axis as the
+    contact radius."""
+    r = torch.min(s2, dim=-1).values
+    drop = torch.max(s2, dim=-1).values - r
+    e_z = p2.new_tensor([0.0, 0.0, 1.0])
+    return (p2 - e_z * drop.unsqueeze(-1)).unsqueeze(-2), r
+
+
+_HFIELD_SAMPLES = {
+    GeomType.SPHERE: (_hf_sphere_samples, 1),
+    GeomType.CAPSULE: (_hf_capsule_samples, 2),
+    GeomType.CYLINDER: (_hf_capsule_samples, 2),
+    GeomType.ELLIPSOID: (_hf_ellipsoid_samples, 1),
+}
+
+
+def _hfield_collider(data, size, sample_fn, p1, m1, s1, p2, m2, s2):
+    """(B, P) pairs of the terrain with a geom sampled at R points."""
+    pts, radius = sample_fn(p2, m2, s2)  # (B, P, R, 3), (P,)
+    return _hf_point_contacts(data, size, m1.unsqueeze(2), p1.unsqueeze(2),
+                              pts, radius.unsqueeze(-1))
+
+
 _DISPATCH = {
     (GeomType.PLANE, GeomType.SPHERE): (plane_sphere, 1),
     (GeomType.PLANE, GeomType.CAPSULE): (plane_capsule, 2),
     (GeomType.SPHERE, GeomType.SPHERE): (sphere_sphere, 1),
     (GeomType.SPHERE, GeomType.CAPSULE): (sphere_capsule, 1),
     (GeomType.CAPSULE, GeomType.CAPSULE): (capsule_capsule, 1),
+    (GeomType.PLANE, GeomType.CYLINDER): (plane_cylinder, 4),
+    (GeomType.PLANE, GeomType.ELLIPSOID): (plane_ellipsoid, 1),
+    (GeomType.SPHERE, GeomType.ELLIPSOID): (sphere_ellipsoid, 1),
+    (GeomType.CAPSULE, GeomType.ELLIPSOID): (capsule_ellipsoid, 1),
+    (GeomType.CAPSULE, GeomType.CYLINDER): (capsule_cylinder, 1),
+    (GeomType.SPHERE, GeomType.CYLINDER): (sphere_cylinder, 1),
 }
+
+
+def _resolve_collider(m: Model, key):
+    """(collider, rows a pair) for a pair of geom types, or (None, 0); a
+    heightfield's collider closes over the model's terrain."""
+    if key[0] == GeomType.HFIELD and key[1] in _HFIELD_SAMPLES:
+        sample_fn, nrows = _HFIELD_SAMPLES[key[1]]
+        return functools.partial(_hfield_collider, m.hfield_data,
+                                 m.hfield_size[0], sample_fn), nrows
+    return _DISPATCH.get(key, (None, 0))
 
 
 def contact_groups(m: Model):
@@ -147,18 +408,19 @@ def contact_groups(m: Model):
     groups = {}
     for g1, g2 in m.collision_pairs:
         key = (GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2]))
-        if key not in _DISPATCH:
+        if _resolve_collider(m, key)[0] is None:
             raise NotImplementedError(
                 f"collision {key[0].name}-{key[1].name} (geoms {g1},{g2}) "
-                f"is not ported yet (ROADMAP A1: quadruped and the domains "
-                f"after it)")
+                f"is not ported yet (ROADMAP A2: finger, manipulator and "
+                f"stacker)")
         p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
         if p1 != p2:
             condim = m.geom_condim[g1 if p1 > p2 else g2]
         else:
             condim = max(m.geom_condim[g1], m.geom_condim[g2])
         groups.setdefault(key, []).append((g1, g2, int(condim)))
-    return [(key, _DISPATCH[key][1], pairs) for key, pairs in groups.items()]
+    return [(key, _resolve_collider(m, key)[1], pairs)
+            for key, pairs in groups.items()]
 
 
 def contact_rows_static(m: Model):
@@ -242,7 +504,7 @@ def collision(m: Model, d: Data) -> Data:
                                   lambda: contact_rows_static(m))
     dists, poss, frames = [], [], []
     for key, nrows, pairs in groups:
-        fn = _DISPATCH[key][0]
+        fn = _resolve_collider(m, key)[0]
         g1 = m.idx([p[0] for p in pairs])
         g2 = m.idx([p[1] for p in pairs])
         dist, pos, frame = fn(d.geom_xpos[:, g1], d.geom_xmat[:, g1],

@@ -1,12 +1,14 @@
 """Soft-constraint row assembly (mj_makeConstraint), batched.
 
-Counterpart of ``dm_control_tpu/physics/constraints.py`` for limits on
-hinge/slide joints and on tendons, and contact rows with condim 1 or
-pyramidal condim 3.  The row structure is static per model; rows MuJoCo
-would not instantiate (dist >= margin) are carried with D = 0.  A model
-with constraints disabled, or with nothing to limit and contacts off, gets
-zero rows.  Equality rows, friction loss, ball-joint limits, elliptic
-cones and other condims raise ``NotImplementedError``.
+Counterpart of ``dm_control_tpu/physics/constraints.py`` for equality rows
+of type JOINT and TENDON, limits on hinge/slide joints and on tendons, and
+contact rows with condim 1 or pyramidal condim 3, 4 and 6.  The rows come
+in the JAX package's order: equality, then limits (joints, then tendons),
+then contacts by condim.  The row structure is static per model; rows
+MuJoCo would not instantiate (dist >= margin) are carried with D = 0.  A
+model with constraints disabled, or with nothing to tie or limit and
+contacts off, gets zero rows.  CONNECT and WELD equalities, friction loss,
+ball-joint limits and elliptic cones raise ``NotImplementedError``.
 
 MuJoCo's soft-constraint model: each row has impedance d(pos) from solimp,
 reference acceleration aref from solref, and regularization
@@ -23,18 +25,24 @@ import torch
 
 from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics.model import (
-    Data, DisableBit, JointType, Model, static_field,
+    Data, DisableBit, EqType, JointType, Model, static_field,
 )
 
 _MINVAL = 1e-15
 _MINIMP = 0.0001
 _MAXIMP = 0.9999
 
+# Row kinds (the JAX package's values): an equality row is always active,
+# a unilateral row (limit or contact) where J qacc - aref < 0.
+EQUALITY = 0
+LIMIT = 2
+
 
 @dataclasses.dataclass
 class Efc:
-    """The assembled constraint system, batch-first.  Every row is
-    unilateral (active where J qacc - aref < 0)."""
+    """The assembled constraint system, batch-first.  The first ``ne``
+    rows are equality rows (always active); every other row is unilateral
+    (active where J qacc - aref < 0)."""
 
     J: torch.Tensor  # (B, nefc, nv)
     D: torch.Tensor  # (B, nefc)
@@ -44,6 +52,11 @@ class Efc:
     # per condim group: (contact ids, first row, rows per contact)
     contact_spans: Tuple[Tuple[Tuple[int, ...], int, int], ...] = \
         static_field(default=())
+    ne: int = static_field(default=0)
+
+    @property
+    def kind(self) -> Tuple[int, ...]:
+        return (EQUALITY,) * self.ne + (LIMIT,) * (self.nefc - self.ne)
 
     @property
     def nefc(self) -> int:
@@ -98,7 +111,7 @@ class _Blocks:
                            active))
         self.nrows += r
 
-    def build(self, contact_spans) -> Efc:
+    def build(self, contact_spans, ne=0) -> Efc:
         m = self.m
         if not self.parts:
             z = torch.zeros(self.B, 0, dtype=m.dtype, device=m.device)
@@ -111,33 +124,37 @@ class _Blocks:
         r_reg = torch.clamp((1.0 - imp) / imp * diag, min=_MINVAL)
         d_vec = torch.where(active, 1.0 / r_reg, torch.zeros_like(r_reg))
         return Efc(J=J, D=d_vec, R=r_reg, aref=aref, pos=pos,
-                   contact_spans=contact_spans)
+                   contact_spans=contact_spans, ne=ne)
 
 
 def _check_ported(m: Model):
     dis = m.opt.disableflags
     if dis & DisableBit.CONSTRAINT:
         return
-    if m.neq and not dis & DisableBit.EQUALITY:
-        raise NotImplementedError("equality constraints are not ported yet "
-                                  "(ROADMAP A1: quadruped)")
+    if not dis & DisableBit.EQUALITY:
+        for e in range(m.neq):
+            if m.eq_type[e] not in (int(EqType.JOINT), int(EqType.TENDON)):
+                raise NotImplementedError(
+                    f"equality {e}: {EqType(m.eq_type[e]).name} equality "
+                    f"constraints are not ported yet (ROADMAP A2: finger, "
+                    f"manipulator and stacker)")
     if not dis & DisableBit.FRICTIONLOSS and bool(
             (m.dof_frictionloss > 0).any()):
         raise NotImplementedError("friction loss is not ported yet "
-                                  "(ROADMAP A3: finger, manipulator and "
+                                  "(ROADMAP A2: finger, manipulator and "
                                   "stacker)")
     if not dis & DisableBit.LIMIT:
         for j in range(m.njnt):
             if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL):
                 raise NotImplementedError("ball-joint limits are not ported "
-                                          "yet (ROADMAP A5: humanoid_CMU, "
+                                          "yet (ROADMAP A3: humanoid_CMU, "
                                           "dog and lqr)")
     if m.opt.contact_cap:
         raise NotImplementedError("contact compaction is not ported yet "
-                                  "(ROADMAP A5: humanoid_CMU, dog and lqr)")
+                                  "(ROADMAP A3: humanoid_CMU, dog and lqr)")
     if m.opt.cone != 0:
         raise NotImplementedError("elliptic cones are not ported yet "
-                                  "(ROADMAP A3: finger, manipulator and "
+                                  "(ROADMAP A2: finger, manipulator and "
                                   "stacker)")
     return True
 
@@ -147,12 +164,86 @@ def make_constraint(m: Model, d: Data) -> Efc:
     blocks = _Blocks(m, d.qpos.shape[0])
     dis = m.opt.disableflags
     spans: Tuple = ()
+    ne = 0
     if not dis & DisableBit.CONSTRAINT:
+        if not dis & DisableBit.EQUALITY:
+            _equality_rows(m, d, blocks)
+            ne = blocks.nrows
         if not dis & DisableBit.LIMIT:
             _limit_rows(m, d, blocks)
         if not dis & DisableBit.CONTACT:
             spans = _contact_rows(m, d, blocks)
-    return blocks.build(spans)
+    return blocks.build(spans, ne)
+
+
+def _equality_plan(m: Model, etype: EqType):
+    """Static structure of the equalities of one scalar type (JOINT or
+    TENDON), or None without any: their ids, the first and second object
+    (the second clamped to 0 where there is none, with ``has2`` 0)."""
+    ids = [e for e in range(m.neq) if m.eq_type[e] == int(etype)]
+    if not ids:
+        return None
+    obj2 = [m.eq_obj2id[e] for e in ids]
+    return dict(
+        ids=m.idx(ids), obj1=[m.eq_obj1id[e] for e in ids],
+        obj2=[max(o, 0) for o in obj2],
+        has2=torch.tensor([float(o >= 0) for o in obj2], dtype=m.dtype,
+                          device=m.device))
+
+
+def _poly_rows(m: Model, plan, x1, x2, J1, J2, w1, w2):
+    """(J, pos, diag) of the rows x1 - poly(x2) = 0 with poly the quartic
+    ``eq_data[:5]``; without a second object the row is x1 - poly[0] = 0."""
+    poly = m.eq_data[plan["ids"], :5]  # (E, 5)
+    has2 = plan["has2"]
+    x2 = x2 * has2
+    val = poly[:, 0] + x2 * (poly[:, 1] + x2 * (poly[:, 2] + x2 * (
+        poly[:, 3] + x2 * poly[:, 4])))
+    dpoly = poly[:, 1] + x2 * (2 * poly[:, 2] + x2 * (
+        3 * poly[:, 3] + x2 * 4 * poly[:, 4]))
+    J = J1 - (dpoly * has2).unsqueeze(-1) * J2
+    return J, x1 - val, (w1 + has2 * w2).expand_as(x1)
+
+
+def _equality_rows(m: Model, d: Data, blocks: _Blocks):
+    """One row per JOINT and per TENDON equality, in the model's order."""
+    if not m.neq:
+        return
+    B = d.qpos.shape[0]
+    parts, ids = [], []
+    plan = m.cached("equality_joint",
+                    lambda: _equality_plan(m, EqType.JOINT))
+    if plan is not None:
+        q = d.qpos - m.qpos0
+        j1, j2 = plan["obj1"], plan["obj2"]
+        a1 = m.idx([m.jnt_qposadr[j] for j in j1])
+        a2 = m.idx([m.jnt_qposadr[j] for j in j2])
+        d1 = m.idx([m.jnt_dofadr[j] for j in j1])
+        d2 = m.idx([m.jnt_dofadr[j] for j in j2])
+        eye = m.cached("eye_nv", lambda: torch.eye(
+            m.nv, dtype=m.dtype, device=m.device))
+        parts.append(_poly_rows(
+            m, plan, q[:, a1], q[:, a2], eye[d1].expand(B, -1, -1),
+            eye[d2].expand(B, -1, -1), m.dof_invweight0[d1],
+            m.dof_invweight0[d2]))
+        ids.append(plan["ids"])
+    plan = m.cached("equality_tendon",
+                    lambda: _equality_plan(m, EqType.TENDON))
+    if plan is not None:
+        ln = d.ten_length - m.tendon_length0
+        t1, t2 = m.idx(plan["obj1"]), m.idx(plan["obj2"])
+        parts.append(_poly_rows(
+            m, plan, ln[:, t1], ln[:, t2], d.ten_moment[:, t1],
+            d.ten_moment[:, t2], m.tendon_invweight0[t1],
+            m.tendon_invweight0[t2]))
+        ids.append(plan["ids"])
+    J, pos, diag = (torch.cat(x, dim=1) for x in zip(*parts))
+    if len(parts) > 1:  # both types: back into the model's order
+        order = torch.argsort(torch.cat(ids))
+        J, pos, diag = J[:, order], pos[:, order], diag[:, order]
+    blocks.add(J, pos, m.eq_solref, m.eq_solimp, diag,
+               torch.einsum("bkv,bv->bk", J, d.qvel),
+               active=torch.ones_like(pos, dtype=torch.bool))
 
 
 def _limit_plan(m: Model):
@@ -217,9 +308,12 @@ def _joint_limit_rows(m: Model, d: Data, blocks: _Blocks):
 
 
 def _contact_rows(m: Model, d: Data, blocks: _Blocks):
-    """Contact rows grouped by condim: condim 1 gives one normal row,
-    pyramidal condim 3 gives 4 rows n +- mu_i t_i, ordered
-    (+t0, -t0, +t1, -t1)."""
+    """Contact rows grouped by condim: condim 1 gives one normal row, a
+    pyramidal condim c gives 2 (c - 1) rows n +- mu_i t_i, ordered
+    (+t0, -t0, +t1, -t1, ...).  The first two directions are the frame's
+    tangents on the translational Jacobian; the torsional (condim 4) and
+    the two rolling ones (condim 6) are the frame's axes on the rotational
+    Jacobian."""
     con = d.contact
     ncon = len(con.dim)
     if ncon == 0:
@@ -227,13 +321,14 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
     B = d.qpos.shape[0]
     b1s = tuple(m.geom_bodyid[g] for g in con.geom1)
     b2s = tuple(m.geom_bodyid[g] for g in con.geom2)
-    jac1p, _ = kin.jac_points(m, d, con.pos, b1s)
-    jac2p, _ = kin.jac_points(m, d, con.pos, b2s)
+    jac1p, jac1r = kin.jac_points(m, d, con.pos, b1s)
+    jac2p, jac2r = kin.jac_points(m, d, con.pos, b2s)
     jdp = jac2p - jac1p  # (B, ncon, 3, nv)
+    jdr = jac2r - jac1r
 
-    def proj(row, gidx):
+    def proj(row, gidx, jd=jdp):
         return torch.einsum("bki,bkiv->bkv", con.frame[:, gidx, row],
-                            jdp[:, gidx])
+                            jd[:, gidx])
 
     pos_eff = con.dist - con.includemargin
     iw = m.body_invweight0[:, 0]
@@ -255,12 +350,12 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
             blocks.add(jn, pe, con.solref[:, gidx], con.solimp[:, gidx],
                        inv[gidx], torch.einsum("bkv,bv->bk", jn, d.qvel),
                        active=pe < 0)
-        elif condim == 3:
-            nrows = 4
+        elif condim in (3, 4, 6):
+            nrows = 2 * (condim - 1)
             rows = []
-            for i in range(2):
+            for i in range(condim - 1):
                 mu_i = con.friction[:, gidx, i].unsqueeze(-1)
-                ti = proj(1 + i, gidx)
+                ti = proj(1 + i, gidx) if i < 2 else proj(i - 2, gidx, jdr)
                 rows += [jn + mu_i * ti, jn - mu_i * ti]
             J = torch.stack(rows, dim=2).reshape(B, k * nrows, m.nv)
             rep = lambda x: torch.repeat_interleave(  # noqa: E731
@@ -272,8 +367,7 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
                        active=pr < 0)
         else:
             raise NotImplementedError(
-                f"contacts with condim {condim} are not ported yet "
-                f"(ROADMAP A3: finger, manipulator and stacker)")
+                f"contacts with condim {condim} do not exist")
         spans.append((tuple(int(c) for c in idx), row_base, nrows))
         row_base += k * nrows
     return tuple(spans)

@@ -3,6 +3,8 @@ Counterpart of ``dm_control_tpu/physics/dynamics.py``."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -38,23 +40,22 @@ def _passive_plan(m: Model):
            if m.jnt_type[j] in (int(JointType.FREE), int(JointType.BALL))):
         raise NotImplementedError(
             "springs on free/ball joints are not ported yet "
-            "(ROADMAP A5: humanoid_CMU, dog and lqr)")
+            "(ROADMAP A3: humanoid_CMU, dog and lqr)")
+    # whether the medium acts at all is decided once, on the host, from
+    # the model's constants
     fluid = bool(float(m.opt.density) != 0.0 or float(m.opt.viscosity) != 0.0
                  or np.any(m.opt.wind.cpu().numpy() != 0.0))
-    if fluid:
-        raise NotImplementedError(
-            "fluid forces are not ported yet (ROADMAP A4: fish and "
-            "swimmer)")
-    return scalar
+    return scalar, fluid
 
 
 def passive(m: Model, d: Data) -> Data:
-    """mj_passive: scalar-joint springs, joint dampers, and tendon springs
-    (active outside ``tendon_lengthspring``'s deadband) and dampers."""
+    """mj_passive: scalar-joint springs, joint dampers, tendon springs
+    (active outside ``tendon_lengthspring``'s deadband) and dampers, and
+    the forces of the surrounding medium."""
     qfrc = torch.zeros_like(d.qvel)
     if m.opt.disableflags & DisableBit.PASSIVE:
         return d.replace(qfrc_passive=qfrc)
-    scalar = m.cached("passive", lambda: _passive_plan(m))
+    scalar, fluid = m.cached("passive", lambda: _passive_plan(m))
     if scalar:
         qadr = m.idx([m.jnt_qposadr[j] for j in scalar])
         dadr = m.idx([m.jnt_dofadr[j] for j in scalar])
@@ -71,7 +72,50 @@ def passive(m: Model, d: Data) -> Data:
                 torch.zeros_like(ln)))
         frc = spring - m.tendon_damping * d.ten_velocity
         qfrc = qfrc + torch.einsum("btv,bt->bv", d.ten_moment, frc)
+    if fluid:
+        qfrc = qfrc + _fluid(m, d)
     return d.replace(qfrc_passive=qfrc)
+
+
+def _fluid_boxes(m: Model):
+    """Per body (the world excluded) the full dimensions (nbody - 1, 3) of
+    the box that has the body's mass and principal inertia."""
+    mass = torch.clamp(m.body_mass[1:], min=1e-12).unsqueeze(-1)
+    i0, i1, i2 = m.body_inertia[1:].unbind(-1)
+    spread = torch.stack([i1 + i2 - i0, i0 + i2 - i1, i0 + i1 - i2], dim=-1)
+    return torch.sqrt(torch.clamp(6.0 * spread, min=1e-12) / mass)
+
+
+def _fluid(m: Model, d: Data):
+    """Inertia-box fluid model (mj_inertiaBoxFluidModel): every body as the
+    box of its inertia, with viscous (linear) and density (quadratic) drag
+    on its 6D velocity at the CoM in the inertial frame, relative to the
+    wind; all bodies at once, mapped to joint space."""
+    box = m.cached("fluid_boxes", lambda: _fluid_boxes(m))
+    bx, by, bz = box.unbind(-1)
+    imat = d.ximat[:, 1:]
+    root_com = d.subtree_com[:, m.idx(m.body_rootid[1:])]
+    vel6 = mx.transform_motion(d.cvel[:, 1:], d.xipos[:, 1:] - root_com)
+    lw = mx.mat_t_vec(imat, vel6[..., :3])
+    lv = mx.mat_t_vec(imat, vel6[..., 3:] - m.opt.wind)
+
+    # viscous resistance of the equivalent sphere
+    diam = ((bx + by + bz) / 3.0).unsqueeze(-1)
+    lfrc_t = -math.pi * diam ** 3 * m.opt.viscosity * lw
+    lfrc_f = -3.0 * math.pi * diam * m.opt.viscosity * lv
+    # quadratic drag
+    rho = m.opt.density
+    b4 = box ** 4
+    others4 = torch.stack([b4[:, 1] + b4[:, 2], b4[:, 0] + b4[:, 2],
+                           b4[:, 0] + b4[:, 1]], dim=-1)
+    area = torch.stack([by * bz, bx * bz, bx * by], dim=-1)
+    lfrc_t = lfrc_t + -rho * box * others4 / 64.0 * torch.abs(lw) * lw
+    lfrc_f = lfrc_f + -0.5 * rho * area * torch.abs(lv) * lv
+
+    jacp, jacr = kin.jac_points(m, d, d.xipos[:, 1:],
+                                tuple(range(1, m.nbody)))
+    return (torch.einsum("bkiv,bki->bv", jacp, mx.mat_vec(imat, lfrc_f))
+            + torch.einsum("bkiv,bki->bv", jacr, mx.mat_vec(imat, lfrc_t)))
 
 
 def xfrc_accumulate(m: Model, d: Data):

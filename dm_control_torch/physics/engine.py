@@ -89,7 +89,7 @@ def _integrate_plan(m: Model):
             other.append(jid)
     if other:
         raise NotImplementedError("ball joints are not ported yet "
-                                  "(ROADMAP A5: humanoid_CMU, dog and lqr)")
+                                  "(ROADMAP A3: humanoid_CMU, dog and lqr)")
     return scalar_q, scalar_d, free
 
 

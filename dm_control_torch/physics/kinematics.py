@@ -72,9 +72,9 @@ def kinematics(m: Model, d: Data) -> Data:
                     newp = qpos[:, m.idx([[a + k for k in range(3)]
                                           for a in qadr])]
                     newq = mx.normalize(qpos[:, m.idx(
-                        [[a + 3 + k for k in range(4)] for a in qadr])])
+                        [[a + 3 + k for k in range(4)] for a in qadr])]
+                        .reshape(B, len(jids), 4))
                     newp = newp.reshape(B, len(jids), 3)
-                    newq = newq.reshape(B, len(jids), 4)
                     anchor = newp
                 elif jtype == int(JointType.BALL):
                     anchor = psel + mx.rotate(jpos, qsel)

@@ -1,10 +1,11 @@
 """Sensor evaluation (mj_sensorPos/Vel/Acc), batched.
 
 Counterpart of ``dm_control_tpu/physics/sensors.py`` for the sensor types
-humanoid declares: touch, accelerometer, velocimeter, gyro, force, torque
-and subtree linear velocity.  Sensors of one type are evaluated together
-and written into ``sensordata`` at their static addresses.  A model with
-any other sensor type raises ``NotImplementedError``.
+the ported domains declare: touch, accelerometer, velocimeter, gyro, force,
+torque, rangefinder, frame position and axes, subtree centre of mass and
+subtree linear velocity.  Sensors of one type are evaluated together and
+written into ``sensordata`` at their static addresses.  A model with any
+other sensor type raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,13 +15,16 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import (
-    Data, Model, ObjType, SensorType, body_ancestor_mask, body_dof_mask,
-    body_subtree_mask,
+    Data, GeomType, Model, ObjType, SensorType, body_ancestor_mask,
+    body_dof_mask, body_subtree_mask,
 )
 
 _S = SensorType
+_FRAME_AXIS = {_S.FRAMEXAXIS: 0, _S.FRAMEYAXIS: 1, _S.FRAMEZAXIS: 2}
+#: types whose object is any framed object or a body, not only a site
+_ANY_OBJECT = {_S.FRAMEPOS, _S.SUBTREECOM, _S.SUBTREELINVEL, *_FRAME_AXIS}
 _PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
-           _S.TORQUE, _S.SUBTREELINVEL}
+           _S.TORQUE, _S.RANGEFINDER, *_ANY_OBJECT}
 
 
 def _by_type(m: Model):
@@ -31,8 +35,9 @@ def _by_type(m: Model):
         if stype not in _PORTED:
             raise NotImplementedError(
                 f"sensor type {stype.name} is not ported yet "
-                f"(ROADMAP A1: quadruped and the domains after it)")
-        if stype != _S.SUBTREELINVEL and \
+                f"(ROADMAP A2: finger, manipulator and stacker, and the "
+                f"domains after them)")
+        if stype not in _ANY_OBJECT and \
                 m.sensor_objtype[s] != int(ObjType.SITE):
             raise NotImplementedError(
                 f"sensor {s}: only site-attached {stype.name} is ported")
@@ -64,10 +69,85 @@ def _site_frame(m: Model, d: Data, sensors):
     return bodies, mat, offset
 
 
+def _of_objects(m: Model, sensors, site, body, geom):
+    """The rows (B, S, ...) of the sensors' objects, which are sites,
+    bodies or geoms, out of the three per-kind tensors."""
+    offset = {int(ObjType.SITE): 0, int(ObjType.BODY): m.nsite,
+              int(ObjType.XBODY): m.nsite, int(ObjType.GEOM):
+              m.nsite + m.nbody}
+    for s in sensors:
+        if m.sensor_objtype[s] not in offset:
+            raise NotImplementedError(
+                f"sensor {s}: frame of object type {m.sensor_objtype[s]}")
+    at = m.idx([offset[m.sensor_objtype[s]] + m.sensor_objid[s]
+                for s in sensors])
+    return torch.cat([site, body, geom], dim=1)[:, at]
+
+
 def sensor_pos(m: Model, d: Data) -> Data:
-    """Position-stage sensors: none of the ported types is one."""
-    _groups(m)
-    return d
+    if m.nsensor == 0:
+        return d
+    groups = _groups(m)
+    if not any(t in groups for t in (_S.FRAMEPOS, _S.SUBTREECOM,
+                                     _S.RANGEFINDER, *_FRAME_AXIS)):
+        return d
+    out = d.sensordata.clone()
+    for stype, sensors in groups.items():
+        if stype == _S.FRAMEPOS:
+            _put(m, out, sensors, _of_objects(
+                m, sensors, d.site_xpos, d.xpos, d.geom_xpos))
+        elif stype in _FRAME_AXIS:
+            mat = _of_objects(m, sensors, d.site_xmat, d.xmat, d.geom_xmat)
+            _put(m, out, sensors, mat[..., _FRAME_AXIS[stype]])
+        elif stype == _S.SUBTREECOM:
+            _put(m, out, sensors, d.subtree_com[:, m.idx(
+                [m.sensor_objid[s] for s in sensors])])
+        elif stype == _S.RANGEFINDER:
+            _put(m, out, sensors, _rangefinder(m, d, sensors).unsqueeze(-1))
+    return d.replace(sensordata=out)
+
+
+def _rangefinder(m: Model, d: Data, sensors):
+    """Distances (B, S) along each site's +z to the nearest plane or
+    sphere that is not on the site's own body, -1 for a miss; every ray
+    against every such geom at once.  Other geom types (a heightfield
+    too) are not seen, as in the JAX package."""
+    sites = [m.sensor_objid[s] for s in sensors]
+    sidx = m.idx(sites)
+    origin = d.site_xpos[:, sidx].unsqueeze(2)  # (B, S, 1, 3)
+    direction = d.site_xmat[:, sidx][..., 2].unsqueeze(2)
+    inf = float("inf")
+    best = d.qpos.new_full((d.qpos.shape[0], len(sites)), inf)
+
+    def nearest(gtype):
+        """(geom ids, (S, G) mask of the geoms off each site's body)."""
+        geoms = [g for g in range(m.ngeom) if m.geom_type[g] == int(gtype)]
+        sb = np.array([m.site_bodyid[i] for i in sites])[:, None]
+        gb = np.array([m.geom_bodyid[g] for g in geoms])[None]
+        return geoms, torch.as_tensor(sb != gb, device=m.device)
+
+    planes, seen = m.cached(("rangefinder_planes", tuple(sensors)),
+                            lambda: nearest(GeomType.PLANE))
+    if planes:
+        g = m.idx(planes)
+        n = d.geom_xmat[:, g][..., 2].unsqueeze(1)  # (B, 1, G, 3)
+        denom = mx.dot(n, direction)
+        t = mx.dot(n, d.geom_xpos[:, g].unsqueeze(1) - origin) / torch.where(
+            torch.abs(denom) < 1e-12, torch.full_like(denom, inf), denom)
+        t = torch.where((t > 0) & seen, t, torch.full_like(t, inf))
+        best = torch.minimum(best, t.min(-1).values)
+    spheres, seen = m.cached(("rangefinder_spheres", tuple(sensors)),
+                             lambda: nearest(GeomType.SPHERE))
+    if spheres:
+        g = m.idx(spheres)
+        oc = origin - d.geom_xpos[:, g].unsqueeze(1)  # (B, S, G, 3)
+        b = mx.dot(oc, direction)
+        disc = b * b - (mx.dot(oc, oc) - m.geom_size[g, 0] ** 2)
+        t = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+        t = torch.where((disc > 0) & (t > 0) & seen, t,
+                        torch.full_like(t, inf))
+        best = torch.minimum(best, t.min(-1).values)
+    return torch.where(torch.isinf(best), -torch.ones_like(best), best)
 
 
 def sensor_vel(m: Model, d: Data) -> Data:

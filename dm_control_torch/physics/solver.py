@@ -4,10 +4,11 @@ Counterpart of ``dm_control_tpu/physics/solver.py``.  Minimizes over qacc
 
     c(x) = 0.5 (x - a_s)^T M (x - a_s) + sum_i s_i(J_i x - aref_i)
 
-with s_i = 0.5 D_i jar_i^2 where jar_i < 0 (every row is unilateral:
-limits and pyramidal contacts).  Each Newton step solves with the exact
-Hessian M + J^T diag(D active) J through ``ops.linalg.chol_solve`` and
-takes an exact line search on the piecewise-quadratic 1D restriction.
+with s_i = 0.5 D_i jar_i^2 on every equality row, and on a unilateral row
+(limits and pyramidal contacts) where jar_i < 0.  Each Newton step solves
+with the exact Hessian M + J^T diag(D active) J through
+``ops.linalg.chol_solve`` and takes an exact line search on the
+piecewise-quadratic 1D restriction.
 
 JAX's batched ``while_loop`` becomes a host loop over a batch mask: every
 iteration computes the step for the whole batch, and an environment whose
@@ -41,8 +42,14 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
     M = d.qM
     J, D = efc.J, efc.D
 
+    # equality rows (the first efc.ne) are quadratic everywhere
+    is_eq = m.cached(("efc_is_eq", efc.nefc, efc.ne), lambda: torch.arange(
+        efc.nefc, device=m.device) < efc.ne) if efc.ne else None
+
     def cost_terms(jar):
         quad = jar < 0
+        if is_eq is not None:
+            quad = quad | is_eq
         zero = torch.zeros_like(jar)
         return (torch.where(quad, 0.5 * D * jar * jar, zero),
                 torch.where(quad, D * jar, zero), torch.where(quad, D, zero))

@@ -88,14 +88,17 @@ class BatchEnv:
 
     def from_state(self, qpos, qvel, qacc_warmstart, time,
                    generator: torch.Generator,
-                   model_diff: Optional[Dict] = None) -> EnvState:
+                   model_diff: Optional[Dict] = None,
+                   act=None) -> EnvState:
         """An EnvState at a given physics state (e.g. one taken from
         another implementation), with step_count 0 and, unless given, the
-        task's initial model diff."""
+        task's initial model diff and zero activations."""
         B = qpos.shape[0]
         d = self._template(B).replace(qpos=qpos, qvel=qvel,
                                       qacc_warmstart=qacc_warmstart,
                                       time=time)
+        if act is not None:
+            d = d.replace(act=act)
         dev = qpos.device
         if model_diff is None:
             model_diff = self.task.initial_model_diff(self.model)

@@ -115,9 +115,12 @@ class Task:
 #: batch axis (one value per environment), and the code that reads it
 #: broadcasts over either shape: ``geom_pos`` (ngeom, 3) or (B, ngeom, 3)
 #: in ``kinematics.kinematics``, ``wrap_prm`` (nwrap,) or (B, nwrap) in
-#: ``kinematics.tendon``.  No constant cached on the model derives from
-#: them, so the overridden model shares the cache of the one it came from.
-DIFF_FIELDS = frozenset({"geom_pos", "wrap_prm"})
+#: ``kinematics.tendon``, ``hfield_data`` (nrow, ncol) or (B, nrow, ncol)
+#: in ``collision._hf_surface`` (the one reader of the terrain: the
+#: rangefinder does not see it).  No constant cached on the model derives
+#: from them, so the overridden model shares the cache of the one it came
+#: from.
+DIFF_FIELDS = frozenset({"geom_pos", "wrap_prm", "hfield_data"})
 
 
 def apply_model_diff(m: Model, diff: Dict) -> Model:

@@ -4,7 +4,8 @@ implementation of the same task.
 A recording is a dict of arrays (the golden files that
 ``tools/export_torch_assets.py`` writes from the JAX package).  For each
 start state ``<prefix>`` in ``PREFIXES`` it has the physics state
-(``<prefix>_<field>`` for ``STATE_FIELDS``), the per-episode model
+(``<prefix>_<field>`` for ``STATE_FIELDS``, and ``<prefix>_act`` where
+the model has activations), the per-episode model
 overrides (``<prefix>_diff_<field>``), the actions (``<prefix>_actions``)
 and what one ``BatchEnv.step`` gave: ``<prefix>_step_<field>``,
 ``<prefix>_obs_<name>``, ``<prefix>_reward``, ``<prefix>_discount`` and
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
+#: recorded beside them where the model has activations (na > 0)
+ACT_FIELD = "act"
 #: the recorded start states: after a reset, and some control steps later
 PREFIXES = ("reset", "contact")
 
@@ -29,6 +32,12 @@ def model_diff(gold, prefix: str, rows=slice(None)) -> Dict[str, np.ndarray]:
     return {k[len(tag):]: gold[k][rows] for k in gold if k.startswith(tag)}
 
 
+def state_fields(gold, prefix: str = "reset"):
+    """The state fields the recording holds at ``prefix``."""
+    has_act = f"{prefix}_{ACT_FIELD}" in gold
+    return STATE_FIELDS + ((ACT_FIELD,) if has_act else ())
+
+
 def start_state(env, gold, prefix: str = "reset", rows=slice(None),
                 seed: int = 0):
     """The EnvState of ``env`` at the recording's ``prefix`` start states,
@@ -36,11 +45,13 @@ def start_state(env, gold, prefix: str = "reset", rows=slice(None),
     dev = env.model.device
     diff = {k: torch.as_tensor(v, device=dev)
             for k, v in model_diff(gold, prefix, rows).items()}
+    act = gold.get(f"{prefix}_{ACT_FIELD}")
     return env.from_state(
         *(torch.as_tensor(gold[f"{prefix}_{f}"][rows], device=dev)
           for f in STATE_FIELDS),
         generator=torch.Generator(device=dev).manual_seed(seed),
-        model_diff=diff or None)
+        model_diff=diff or None,
+        act=None if act is None else torch.as_tensor(act[rows], device=dev))
 
 
 def step_errors(env, gold, prefix: str) -> Dict[str, float]:
@@ -55,7 +66,8 @@ def step_errors(env, gold, prefix: str) -> Dict[str, float]:
     if list(ts.observation) != names:
         raise ValueError(f"observation {list(ts.observation)}, recorded "
                          f"{names}")
-    got = {f"step_{f}": getattr(state.data, f) for f in STATE_FIELDS}
+    got = {f"step_{f}": getattr(state.data, f)
+           for f in state_fields(gold, prefix)}
     got.update({f"obs_{k}": v for k, v in ts.observation.items()})
     got.update(reward=ts.reward, discount=ts.discount,
                step_type=ts.step_type)

@@ -33,5 +33,5 @@ def randomize_limited_and_rotational_joints(m: Model, qpos: torch.Tensor,
             qpos[:, adr + 3:adr + 7] = mx.normalize(rc.rand(4), eps=0.0)
         elif jtype == JointType.BALL:
             raise NotImplementedError("ball joints are not ported yet "
-                                      "(ROADMAP A5: humanoid_CMU, dog and lqr)")
+                                      "(ROADMAP A3: humanoid_CMU, dog and lqr)")
     return qpos

@@ -1,8 +1,8 @@
-"""Every task of the port's nine classic-control and planar-locomotion
-domains against the JAX package's task of the same name, in float64 on the
-CPU: ``before_step``, the env layer's recompute after a step (the "vel"
-branch, and hopper's "acc" branch), ``observation``, ``reward`` and
-``termination`` on the same states.
+"""Every task of the port's domains other than humanoid against the JAX
+package's task of the same name, in float64 on the CPU: ``before_step``,
+the env layer's recompute after a step (the "vel" branch, and hopper's and
+quadruped's "acc" branch), ``observation``, ``reward`` and ``termination``
+on the same states.
 
 The golden files step one task per domain; this file holds the other
 tasks' branches (cartpole's sparse rewards and its two- and three-pole
@@ -12,7 +12,9 @@ task are the port's own reset states of every task of the domain that has
 the same model size, the model's ``qpos0`` (upright, for the poles) and the
 domain's golden states, every other one at rest and the others with
 velocities from a numpy seed; the model overrides are the task's own
-reset's, the controls come from a numpy seed.  Every task meets states that
+reset's (escape's per-environment terrains too), the controls and, where
+the model has them, the activations come from a numpy seed.  Every task
+meets states that
 it rewards differently (a sparse reward shows both its values).
 Tolerance: 1e-10 absolute on observations and rewards (both sides compute
 the same float64 expressions; they differ by summation order only);
@@ -73,11 +75,18 @@ def _data(env, qpos, qvel, diff, ctrl):
     state = env.from_state(qpos, qvel, torch.zeros_like(qvel),
                            torch.zeros(n, dtype=qpos.dtype),
                            generator=torch.Generator().manual_seed(0),
-                           model_diff=diff)
+                           model_diff=diff, act=_act(n, env.model.na))
     m = apply_model_diff(env.model, diff)
     d = env.task.before_step(m, env._unstrip(state.data), ctrl)
     state, obs = env._observe(state.replace(data=d))
     return m, state.data, obs
+
+
+def _act(n, na):
+    """Activations (n, na) from a seed, or None for a model without."""
+    if not na:
+        return None
+    return torch.as_tensor(np.random.default_rng(na).uniform(-1, 1, (n, na)))
 
 
 def _port(env, qpos, qvel, diff, ctrl):
@@ -114,10 +123,14 @@ def _jax(domain, task, qpos, qvel, diff, ctrl):
 
     env = jsuite.load_batch(domain, task, autoreset=False)
 
-    def one(qpos, qvel, diff, ctrl):
+    act = _act(qpos.shape[0], env.model.na)
+    act = jnp.zeros((qpos.shape[0], 0)) if act is None \
+        else jnp.asarray(act.numpy())
+
+    def one(qpos, qvel, act, diff, ctrl):
         m = apply_model_diff(env.model, diff)
         d = env.task.before_step(m, make_data(env.model).replace(
-            qpos=qpos, qvel=qvel), ctrl)
+            qpos=qpos, qvel=qvel, act=act), ctrl)
         state, obs = env._observe(EnvState(
             data=d, model_diff=diff, rng=None,
             step_count=jnp.zeros((), jnp.int32),
@@ -127,7 +140,7 @@ def _jax(domain, task, qpos, qvel, diff, ctrl):
                 jnp.asarray(discount, qpos.dtype))
 
     return jax.jit(jax.vmap(one))(
-        jnp.asarray(qpos.numpy()), jnp.asarray(qvel.numpy()),
+        jnp.asarray(qpos.numpy()), jnp.asarray(qvel.numpy()), act,
         {k: jnp.asarray(v.numpy()) for k, v in diff.items()},
         jnp.asarray(ctrl.numpy()))
 

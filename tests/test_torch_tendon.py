@@ -29,13 +29,17 @@ def _close(t, j, what):
                                err_msg=what)
 
 
-def _setup(domain, overrides=None):
-    """Both models (with the same overrides), and both packages' Data
-    after the position and velocity stages at B drawn states."""
+def _setup(domain, overrides=None, static=None):
+    """Both models (with the same overrides; ``static`` holds those that
+    are Python values), and both packages' Data after the position and
+    velocity stages at B drawn states."""
     rng = np.random.default_rng(17)
     jm = jax_model(domain)
     m = tbase.load_model(domain, "cpu", torch.float64)
     overrides = dict(overrides or {})
+    static = dict(static or {})
+    jm = jm.replace(**static)
+    m = m.replace(**static)
     qpos = np.asarray(jm.qpos0) + rng.uniform(-0.2, 0.2, (B, jm.nq))
     if domain == "ball_in_cup":
         # ball 0.32 below the cup in environment 0: the string (limit 0.3)
@@ -102,6 +106,29 @@ def test_tendon_limit_rows():
     _close(efc.J[:, 1], -np.asarray(td.ten_moment[:, 0]), "J of the limit")
 
 
+def test_joint_and_tendon_equality_rows():
+    """Three equalities on point_mass in one model, in this order: a JOINT
+    quartic between the two slides, a TENDON quartic between the two
+    tendons, a JOINT row with no second joint.  The rows come first, in
+    the model's order, and are always active."""
+    rng = np.random.default_rng(5)
+    eq_data = np.zeros((3, 11))
+    eq_data[:, :5] = rng.uniform(-0.5, 0.5, (3, 5))
+    m, td, _, jefc = _setup("point_mass", dict(
+        eq_data=eq_data, eq_solref=np.tile([0.02, 1.0], (3, 1)),
+        eq_solimp=np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (3, 1))), dict(
+        neq=3, eq_type=(2, 3, 2), eq_obj1id=(0, 1, 1), eq_obj2id=(1, 0, -1),
+        eq_active0=(1, 1, 1)))
+    efc = tcons.make_constraint(m, td)
+    assert efc.ne == 3 and efc.kind[:4] == (0, 0, 0, 2)
+    for name, j in zip(("J", "D", "R", "aref", "pos"), jefc):
+        _close(getattr(efc, name), j, name)
+    assert bool((efc.D[:, :3] > 0).all())
+    # the last row ties joint 1 alone: one entry in its Jacobian
+    assert efc.J[:, 2].ne(0).sum(-1).tolist() == [1] * B
+    assert efc.J[:, 1].ne(0).sum(-1).tolist() == [2] * B
+
+
 def test_tendon_transmission():
     m, td, jd, _ = _setup("point_mass")
     assert all(t == 3 for t in m.actuator_trntype)  # TrnType.TENDON
@@ -124,6 +151,6 @@ def test_other_tendon_features_still_raise():
                         sensor_objid=(0,), sensor_adr=(0,), sensor_dim=(1,))
     with pytest.raises(NotImplementedError, match="TENDONPOS"):
         tsens.sensor_pos(sensing, make_data(sensing, 1))
-    tied = m.replace(neq=1)
-    with pytest.raises(NotImplementedError, match="equality"):
+    tied = m.replace(neq=1, eq_type=(0,))  # EqType.CONNECT
+    with pytest.raises(NotImplementedError, match="CONNECT equality"):
         tcons.make_constraint(tied, make_data(tied, 1))

@@ -6,17 +6,23 @@ tool lives outside the port because it imports ``dm_control_tpu`` and JAX.
 
     JAX_PLATFORMS=cpu python tools/export_torch_assets.py [domain ...]
 
+(``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
+alone).
+
 It writes, for every ported domain (or only the ones named),
 
 - ``dm_control_torch/suite/assets/<asset>.npz`` for each compiled model of
   the domain (``ASSETS``: cartpole has one per pole count, reacher one per
   target size), through ``model_io.from_jax_model`` and ``model_io.save``;
-- ``tests/data/torch_<domain>_golden_f64.npz``: float64 start states of
-  the domain's golden task (``GOLDEN_TASKS``) for 4 environments,
+- ``tests/data/torch_<golden>_golden_f64.npz`` for each golden of the
+  domain (``GOLDEN_TASKS``; most domains have one, named like the domain;
+  quadruped has three, ``GOLDEN_DOMAINS``): float64 start states of the
+  golden's task for 4 environments,
   ``reset_*`` from a JAX ``BatchEnv.reset`` (key ``GOLDEN_KEY``) and
-  ``contact_*`` after ``FALL_STEPS[domain]`` further control steps (for
+  ``contact_*`` after ``FALL_STEPS[golden]`` further control steps (for
   the domains with a floor: lying or standing on it, contacts active; for
-  ball_in_cup: the string taut); for each, the per-episode model
+  ball_in_cup: the string taut; for quadruped_fetch: the ball on the
+  floor too); for each, the per-episode model
   overrides (``<prefix>_diff_<field>``), actions drawn with numpy seed
   ``GOLDEN_SEED`` and the JAX state, observation, reward, discount and
   step type after one control step (keys ``<prefix>_actions``,
@@ -38,18 +44,25 @@ GOLDEN_BATCH = 4
 PREFIXES = ("reset", "contact")
 STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
 
-#: domain -> the task its golden file steps
+#: golden -> the task its file steps
 GOLDEN_TASKS = {
     "humanoid": "run", "pendulum": "swingup", "acrobot": "swingup",
     "cartpole": "swingup", "reacher": "easy", "walker": "run",
     "cheetah": "run", "hopper": "hop", "point_mass": "hard",
-    "ball_in_cup": "catch",
+    "ball_in_cup": "catch", "quadruped": "walk",
+    "quadruped_escape": "escape", "quadruped_fetch": "fetch",
+    "fish": "swim", "swimmer": "swimmer6",
 }
-#: domain -> control steps between the ``reset_*`` and ``contact_*`` states
+#: golden -> its domain, where the two names differ
+GOLDEN_DOMAINS = {"quadruped_escape": "quadruped",
+                  "quadruped_fetch": "quadruped"}
+#: golden -> control steps between the ``reset_*`` and ``contact_*`` states
 FALL_STEPS = {
     "humanoid": 40, "pendulum": 10, "acrobot": 10, "cartpole": 10,
     "reacher": 10, "walker": 40, "cheetah": 10, "hopper": 40,
-    "point_mass": 10, "ball_in_cup": 30,
+    "point_mass": 10, "ball_in_cup": 30, "quadruped": 50,
+    "quadruped_escape": 25, "quadruped_fetch": 200, "fish": 10,
+    "swimmer": 10,
 }
 #: domain -> {asset name: arguments of the JAX domain's get_model}
 ASSETS = {
@@ -60,8 +73,25 @@ ASSETS = {
     "walker": {"walker": ()}, "cheetah": {"cheetah": ()},
     "hopper": {"hopper": ()}, "point_mass": {"point_mass": ()},
     "ball_in_cup": {"ball_in_cup": ()},
+    "quadruped": {
+        "quadruped_walk": dict(floor_size=10.0),
+        "quadruped_run": dict(floor_size=100),
+        "quadruped_escape": dict(floor_size=40, terrain=True,
+                                 rangefinders=True),
+        "quadruped_fetch": dict(walls_and_ball=True)},
+    "fish": {"fish": ()},
+    "swimmer": {"swimmer6": (6,), "swimmer15": (15,)},
 }
-DOMAINS = tuple(GOLDEN_TASKS)
+DOMAINS = tuple(ASSETS)
+GOLDENS = tuple(GOLDEN_TASKS)
+
+
+def golden_domain(golden):
+    return GOLDEN_DOMAINS.get(golden, golden)
+
+
+def goldens_of(domain):
+    return tuple(g for g in GOLDENS if golden_domain(g) == domain)
 
 
 def asset_path(asset):
@@ -80,7 +110,10 @@ def jax_model(asset):
     for domain, assets in ASSETS.items():
         if asset in assets:
             module = importlib.import_module(f"dm_control_tpu.suite.{domain}")
-            return module.get_model(*assets[asset])
+            args = assets[asset]
+            if isinstance(args, dict):
+                return module.get_model(**args)
+            return module.get_model(*args)
     raise KeyError(asset)
 
 
@@ -91,15 +124,21 @@ def export_model(asset):
         jax_model(asset)))
 
 
-def _jax_env(domain):
+def _jax_env(golden):
     from dm_control_tpu import suite
 
-    return suite.load_batch(domain, GOLDEN_TASKS[domain], autoreset=False)
+    return suite.load_batch(golden_domain(golden), GOLDEN_TASKS[golden],
+                            autoreset=False)
 
 
-def _snapshot(state, prefix):
+def _state_fields(m):
+    """The recorded state fields: ``act`` only where the model has one."""
+    return STATE_FIELDS + (("act",) if m.na else ())
+
+
+def _snapshot(state, prefix, fields):
     out = {f"{prefix}_{f}": np.asarray(getattr(state.data, f))
-           for f in STATE_FIELDS}
+           for f in fields}
     out.update({f"{prefix}_diff_{k}": np.asarray(v)
                 for k, v in state.model_diff.items()})
     return out
@@ -115,12 +154,13 @@ def golden_states(domain):
     env = _jax_env(domain)
     state, _ = env.reset(jax.random.split(jax.random.PRNGKey(GOLDEN_KEY),
                                           GOLDEN_BATCH))
-    out = _snapshot(state, "reset")
+    fields = _state_fields(env.model)
+    out = _snapshot(state, "reset", fields)
     rng = np.random.default_rng(GOLDEN_SEED + 1)
     for _ in range(FALL_STEPS[domain]):
         state, _ = env.step(state, jnp.asarray(rng.uniform(
             -1.0, 1.0, (GOLDEN_BATCH, env.model.nu))))
-    out.update(_snapshot(state, "contact"))
+    out.update(_snapshot(state, "contact", fields))
     return out
 
 
@@ -138,8 +178,9 @@ def golden_step(domain, states, prefix):
     B = states[f"{prefix}_qpos"].shape[0]
     actions = np.random.default_rng(GOLDEN_SEED).uniform(
         -1.0, 1.0, (B, m.nu))
+    fields = _state_fields(m)
     data = env._strip(make_data(m).replace(
-        **{f: jnp.asarray(states[f"{prefix}_{f}"]) for f in STATE_FIELDS}))
+        **{f: jnp.asarray(states[f"{prefix}_{f}"]) for f in fields}))
     diff = {k: jnp.asarray(v)
             for k, v in model_diff(states, prefix).items()}
     state = EnvState(data=data, model_diff=diff, rng=None,
@@ -151,7 +192,7 @@ def golden_step(domain, states, prefix):
            f"{prefix}_discount": np.asarray(ts.discount),
            f"{prefix}_step_type": np.asarray(ts.step_type)}
     out.update({f"{prefix}_step_{f}": np.asarray(getattr(state.data, f))
-                for f in STATE_FIELDS})
+                for f in fields})
     out.update({f"{prefix}_obs_{k}": np.asarray(v)
                 for k, v in ts.observation.items()})
     return out
@@ -171,11 +212,19 @@ def main(argv=None):
 
     jax.config.update("jax_enable_x64", True)
     for domain in args or DOMAINS:
+        if domain.startswith("golden:"):
+            golden = domain[len("golden:"):]
+            np.savez(golden_path(golden), **make_golden(golden))
+            print("wrote", os.path.relpath(golden_path(golden), ROOT),
+                  flush=True)
+            continue
         for asset in ASSETS[domain]:
             export_model(asset)
-        np.savez(golden_path(domain), **make_golden(domain))
-        print("wrote", ", ".join(ASSETS[domain]), "and",
-              os.path.relpath(golden_path(domain), ROOT), flush=True)
+        print("wrote", ", ".join(ASSETS[domain]), flush=True)
+        for golden in goldens_of(domain):
+            np.savez(golden_path(golden), **make_golden(golden))
+            print("wrote", os.path.relpath(golden_path(golden), ROOT),
+                  flush=True)
 
 
 if __name__ == "__main__":

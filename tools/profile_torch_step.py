@@ -15,7 +15,12 @@ prints (and with ``--out`` also writes) one JSON object:
   iterations per solve (max and mean over the batch);
 - the chol_solve kernel against its plain version at (B, nv) float32:
   device time per call from the profiler, and CUDA-event time per call
-  over 200 back-to-back calls.
+  over 200 back-to-back calls;
+- the reset by stage: seconds in the task's ``init`` and, for quadruped, in
+  ``_drop_to_ground`` (with its rounds) and in what ``init`` does besides
+  (escape's terrain draw);
+- one ``collision.collision`` of the model: its device kernels, and how
+  many of them the ellipsoid's closest-point iteration launches.
 
 Needs a CUDA device and no JAX.
 """
@@ -156,6 +161,80 @@ def stage_times(env, state, act):
     return out
 
 
+def reset_times(env, batch, gen):
+    """A reset with a synchronize around the task's ``init`` and around
+    quadruped's ``_drop_to_ground``: seconds of each, the rounds the drop
+    took, and ``init_other_s``, what ``init`` did besides the drop (for
+    escape the terrain draw and its resize)."""
+    task = env.task
+    spent = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return wrapper
+
+    task.init = timed("init_s", task.init)
+    if hasattr(task, "_drop_to_ground"):
+        task._drop_to_ground = timed("drop_to_ground_s",
+                                     task._drop_to_ground)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = env.reset(batch, gen)
+        torch.cuda.synchronize()
+        spent["reset_s"] = time.perf_counter() - t0
+    finally:
+        del task.init
+        if "_drop_to_ground" in vars(task):
+            del task._drop_to_ground
+    if "drop_to_ground_s" in spent:
+        spent["drop_rounds"] = task.last_drop_rounds
+        spent["init_other_s"] = spent["init_s"] - spent["drop_to_ground_s"]
+    return state, spent
+
+
+def collision_kernels(env, state):
+    """Device kernels of one ``collision.collision`` at the state, and the
+    share of the ellipsoid's closest-point iteration: its calls and the
+    kernels they launch."""
+    from dm_control_torch.physics import collision, kinematics
+    from dm_control_torch.rl.control import apply_model_diff
+
+    m = apply_model_diff(env.model, state.model_diff)
+    d = kinematics.kinematics(m, env._unstrip(state.data))
+    collision.collision(m, d)  # warm the model's caches
+    real = collision._ellipsoid_closest
+    inside = []
+
+    def counted(c, size):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = real(c, size)
+            torch.cuda.synchronize()
+        inside.append(len(_kernel_events(prof)))
+        return out
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        collision.collision(m, d)
+        torch.cuda.synchronize()
+    total = len(_kernel_events(prof))
+    collision._ellipsoid_closest = counted
+    try:
+        collision.collision(m, d)
+    finally:
+        collision._ellipsoid_closest = real
+    return {"collision_device_kernels": total,
+            "contact_rows": len(d.contact.dim),
+            "ellipsoid_closest_calls": len(inside),
+            "ellipsoid_closest_device_kernels": sum(inside)}
+
+
 def kernel_vs_plain(linalg, batch, n):
     rng = np.random.default_rng(0)
     q = rng.standard_normal((batch, n, n))
@@ -216,12 +295,11 @@ def main() -> int:
         return 2 * torch.rand(args.batch, env.model.nu, generator=act_gen,
                               device="cuda") - 1
 
-    t0 = time.perf_counter()
-    state, _ = env.reset(args.batch, gen)
-    torch.cuda.synchronize()
+    state, reset = reset_times(env, args.batch, gen)
     out = {"card": card, "domain": args.domain, "task": args.task,
-           "batch": args.batch, "substeps_per_step": env.n_sub_steps,
-           "reset_s": time.perf_counter() - t0}
+           "batch": args.batch, "nv": env.model.nv,
+           "substeps_per_step": env.n_sub_steps, **reset}
+    out.update(collision_kernels(env, state))
     for _ in range(2):  # warm-up
         state, _ = env.step(state, act())
     torch.cuda.synchronize()
