@@ -8,15 +8,18 @@ of the launcher's rule and every nv of the ported models, both types, a
 shared matrix, a matrix given by its lower triangle alone, a non-SPD
 system), times it at the main paths' shapes beside its bound, the plain
 version and PyTorch's library calls for the same function, checks one
-float64 control step of every ported domain against the JAX package's
-golden result, drives each main path (``suite.load_batch(domain, task)``
--> ``BatchEnv.reset`` and ``BatchEnv.step`` in float32: humanoid:run,
-quadruped:walk, escape and fetch and nine more at B = 1024,
-cartpole:swingup at B = 8192, cheetah:run at B = 4096) and checks that
-every dense solve on it went through the kernel, then compares a short rollout with and without the kernel.  Each
-phase prints one line; any failure exits with a non-zero code.  The last
-line is a JSON object naming the device.  Needs one CUDA device; exits
-with code 1 and prints no result without one.
+float64 control step of every golden (one per ported domain, three for
+quadruped, two for manipulator) against the JAX package's golden result,
+drives each main path (``suite.load_batch(domain, task)`` ->
+``BatchEnv.reset`` and ``BatchEnv.step`` in float32: humanoid:run,
+quadruped:walk, escape and fetch, finger:turn_hard,
+manipulator:bring_ball and insert_peg, stacker:stack_4 and nine more at
+B = 1024, cartpole:swingup at B = 8192, cheetah:run at B = 4096) and
+checks that every dense solve on it went through the kernel, then
+compares a short rollout with and without the kernel.  Each phase prints
+one line; any failure exits with a non-zero code.  The last line is a
+JSON object naming the device.  Needs one CUDA device; exits with code 1
+and prints no result without one.
 """
 
 from __future__ import annotations
@@ -44,18 +47,26 @@ MAIN_PATHS = (
     ("quadruped", "walk", MAIN_BATCH), ("quadruped", "escape", MAIN_BATCH),
     ("quadruped", "fetch", MAIN_BATCH), ("fish", "swim", MAIN_BATCH),
     ("swimmer", "swimmer15", MAIN_BATCH),
+    ("finger", "turn_hard", MAIN_BATCH),
+    ("manipulator", "bring_ball", MAIN_BATCH),
+    ("manipulator", "insert_peg", MAIN_BATCH),
+    ("stacker", "stack_4", MAIN_BATCH),
 )
 #: the golden files (tests/data/torch_<golden>_golden_f64.npz), one per
 #: main path, as (golden, domain, task): named like the domain apart from
-#: quadruped's other two, and stepping the main path's task apart from
-#: swimmer's, which steps swimmer6
+#: quadruped's and manipulator's other ones, and stepping the main path's
+#: task apart from swimmer's, which steps swimmer6
 GOLDENS = tuple(
-    ({"escape": "quadruped_escape", "fetch": "quadruped_fetch"}.get(t, d),
+    ({"escape": "quadruped_escape", "fetch": "quadruped_fetch",
+      "insert_peg": "manipulator_insert_peg"}.get(t, d),
      d, "swimmer6" if d == "swimmer" else t) for d, t, _ in MAIN_PATHS)
-#: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's and
-#: quadruped's
-TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22))
+#: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's,
+#: quadruped's and stacker:stack_4's
+TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
+                (MAIN_BATCH, 20))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+#: a float64 control step on the card against the JAX golden
+GOLDEN_TOL = 1e-9
 
 
 class PhaseError(RuntimeError):
@@ -76,8 +87,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 13, 17, 22, 27, 28, 31, 32, 33, 40, 62, 63,
-             64, 65, 79, 160)
+KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 11, 13, 14, 17, 20, 22, 27, 28, 31, 32, 33,
+             40, 62, 63, 64, 65, 79, 160)
 KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
 SHARED_NS = (27, 32, 33, 64, 65)
 LOWER_NS = (27, 32, 33, 64, 65)
@@ -264,7 +275,7 @@ def phase_golden(suite, name, domain, task):
     errs = {f"{p}_{k}": v for p in golden.PREFIXES
             for k, v in golden.step_errors(env, gold, p).items()}
     worst = max(errs, key=errs.get)
-    check(errs[worst] <= 1e-8,
+    check(errs[worst] <= GOLDEN_TOL,
           f"golden mismatch in {name}: {worst} {errs[worst]:.3e}")
     check(all(errs[f"{p}_{k}"] == 0 for p in golden.PREFIXES
               for k in ("discount", "step_type")),
@@ -276,7 +287,8 @@ def min_solves_per_substep(env):
     """The fewest dense solves one substep of this model makes: per
     ``forward`` (four under RK4) one ``solve_m`` and, where the model has
     constraint rows, at least one Newton direction; under Euler with joint
-    damping one more for the implicit step."""
+    damping (the model's, or the task's per-episode one) one more for the
+    implicit step."""
     from dm_control_torch.physics import constraints, engine
     from dm_control_torch.physics.model import make_data
 
@@ -287,7 +299,9 @@ def min_solves_per_substep(env):
     per_forward = 1 + (1 if rows else 0)
     if rk4:
         return 4 * per_forward
-    return per_forward + (1 if bool((m.dof_damping != 0).any()) else 0)
+    damping = env.task.initial_model_diff(m).get("dof_damping",
+                                                 m.dof_damping)
+    return per_forward + (1 if bool((damping != 0).any()) else 0)
 
 
 def phase_main(suite, linalg, domain, task, batch):
@@ -346,6 +360,7 @@ def phase_main(suite, linalg, domain, task, batch):
                 min_solves=min_solves, env_steps_per_s=sps,
                 diverged_share=share, reset_s=reset_s,
                 drop_rounds=getattr(env.task, "last_drop_rounds", None),
+                rejection_rounds=env.last_rejection_rounds,
                 step_ms=[1e3 * t for t in step_times],
                 mean_reward=float(r.mean()))
 
@@ -426,7 +441,7 @@ def main() -> int:
         gerr, gworst = phase_golden(suite, golden_name, domain, task)
         print(f"phase 4 golden: float64 {domain}:{task} step on the card vs "
               f"JAX golden (reset and later states), max |d| {gerr:.3e} "
-              f"({gworst}) <= 1e-8", flush=True)
+              f"({gworst}) <= {GOLDEN_TOL}", flush=True)
 
     runs = []
     for domain, task, batch in MAIN_PATHS:
@@ -434,6 +449,8 @@ def main() -> int:
         runs.append(run)
         drop = "" if run["drop_rounds"] is None else \
             f", {run['drop_rounds']} rounds of _drop_to_ground"
+        if run["rejection_rounds"]:
+            drop += f", {run['rejection_rounds']} rejection rounds"
         print(f"phase 5 main path: {domain}:{task} B={batch} float32, reset "
               f"{run['reset_s']:.2f} s ({run['reset_launches']} chol_solve "
               f"launches{drop}), {MAIN_STEPS} steps ({run['substeps']} "

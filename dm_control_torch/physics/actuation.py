@@ -28,8 +28,8 @@ def _transmission_plan(m: Model):
         else:
             raise NotImplementedError(
                 f"actuator {u}: only transmissions on hinge/slide joints "
-                f"and on tendons are ported (ROADMAP A2: finger, "
-                f"manipulator and stacker)")
+                f"and on tendons are ported (ROADMAP A6: composer, "
+                f"locomotion and manipulation)")
     jids = [m.actuator_trnid[u][0] for u in joint]
     dadr = [m.jnt_dofadr[j] for j in jids]
     # the joint actuators' rows of the moment never change

@@ -7,12 +7,16 @@ collider type, and each group runs as one batched computation over
 beyond their margin stay in the arrays with zero force in the solver, so
 shapes never depend on the state.
 
-Ported colliders: plane-sphere, plane-capsule, plane-cylinder,
-plane-ellipsoid, sphere-sphere, sphere-capsule, capsule-capsule,
-sphere-ellipsoid, capsule-ellipsoid, capsule-cylinder, sphere-cylinder, and
-a heightfield against a sphere, capsule, cylinder or ellipsoid.  Several
-are the JAX package's approximations of MuJoCo's colliders and are ported
-as they are.  A model with any other pair raises
+Every collider of the JAX package's dispatch table is ported: a plane
+against a sphere, capsule, cylinder, ellipsoid or box; sphere-sphere,
+sphere-capsule, sphere-box, capsule-capsule, capsule-box, the ellipsoid
+against a sphere, capsule, ellipsoid or box, the cylinder against a
+sphere, capsule, cylinder, ellipsoid or box, box-box; and a heightfield
+against a sphere, capsule, cylinder, ellipsoid or box.  Several are the
+JAX package's approximations of MuJoCo's colliders and are ported as they
+are (box-box marks a corner outside the reference face with an infinite
+distance, and the solver carries that row with no force).  A model with a
+pair the JAX package has no collider for either (a mesh, say) raises
 ``NotImplementedError``, unless its contacts or all its constraints are
 disabled: then no pair is collided at all.  (The JAX package tests only
 the CONTACT bit and still collides a model whose CONSTRAINT bit is set,
@@ -123,6 +127,39 @@ def plane_ellipsoid(p1, m1, s1, p2, m2, s2):
             _make_frame(n).unsqueeze(-3))
 
 
+#: the eight corners of a box, as signs of its half-sizes, x slowest
+_CORNER_SIGNS = ((-1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
+                 (-1.0, 1.0, 1.0), (1.0, -1.0, -1.0), (1.0, -1.0, 1.0),
+                 (1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def _box_corners(p, mat, size):
+    """World corners (..., 8, 3) of boxes at ``p`` (..., 3) turned by
+    ``mat`` (..., 3, 3) with half-sizes ``size`` (..., 3)."""
+    local = size.new_tensor(_CORNER_SIGNS) * size.unsqueeze(-2)
+    return p.unsqueeze(-2) + mx.mat_vec(mat.unsqueeze(-3), local)
+
+
+def _take(x, i):
+    """x[..., i] for an index tensor ``i`` of x's leading shape."""
+    return torch.gather(x, -1, i.unsqueeze(-1)).squeeze(-1)
+
+
+def plane_box(p1, m1, s1, p2, m2, s2):
+    """The four lowest corners; the sort is stable, so of a box lying flat
+    (four corners at one height) the first four in corner order come."""
+    n = m1[..., :, 2]
+    corners = _box_corners(p2, m2, s2)
+    h = mx.dot(corners, n.unsqueeze(-2)) - mx.dot(n, p1).unsqueeze(-1)
+    order = torch.argsort(h, dim=-1, stable=True)[..., :4]
+    dist = torch.gather(h, -1, order)
+    low = torch.gather(corners, -2, order.unsqueeze(-1).expand(
+        *order.shape, 3))
+    pos = low - n.unsqueeze(-2) * 0.5 * dist.unsqueeze(-1)
+    frame = _make_frame(n).unsqueeze(-3)
+    return dist, pos, frame.expand(*dist.shape, 3, 3)
+
+
 def _sphere_pair(c1, r1, c2, r2):
     diff = c2 - c1
     ln = mx.norm(diff)
@@ -174,6 +211,122 @@ def capsule_capsule(p1, m1, s1, p2, m2, s2):
                         a2 + d2 * t.unsqueeze(-1), s2[..., 0])
 
 
+def _sphere_box(center, radius, p2, m2, s2):
+    """(dist, pos, frame) of spheres against boxes, no row axis.  A centre
+    inside the box leaves through the face of least depth (the first of
+    equal ones)."""
+    c = mx.mat_t_vec(m2, center - p2)
+    clamped = torch.maximum(torch.minimum(c, s2), -s2)
+    inside = torch.all(torch.abs(c) < s2, dim=-1)
+    diff = c - clamped
+    ln = mx.norm(diff)
+    n_out = diff / torch.clamp(ln, min=_MINVAL).unsqueeze(-1)
+    dist_out = ln - radius
+    depth = s2 - torch.abs(c)
+    ax = torch.argmin(depth, dim=-1)
+    sign = torch.sign(_take(c, ax) + 1e-30)
+    n_in = torch.nn.functional.one_hot(ax, 3).to(c.dtype) \
+        * sign.unsqueeze(-1)
+    depth_ax = _take(depth, ax)
+    dist_in = -(depth_ax + radius)
+    i3 = inside.unsqueeze(-1)
+    surf = torch.where(i3, c + n_in * depth_ax.unsqueeze(-1), clamped)
+    n_loc = torch.where(i3, n_in, n_out)
+    dist = torch.where(inside, dist_in, dist_out)
+    n_box = mx.mat_vec(m2, n_loc)
+    pos = p2 + mx.mat_vec(m2, surf) - (0.5 * dist).unsqueeze(-1) * n_box
+    return dist, pos, _make_frame(-n_box)
+
+
+def sphere_box(p1, m1, s1, p2, m2, s2):
+    dist, pos, frame = _sphere_box(p1, s1[..., 0], p2, m2, s2)
+    return dist.unsqueeze(-1), pos.unsqueeze(-2), frame.unsqueeze(-3)
+
+
+def capsule_box(p1, m1, s1, p2, m2, s2):
+    """Approximation: sphere-box at the segment's two ends and at its point
+    closest to the box's centre (3 rows)."""
+    half = s1[..., 1:2] * m1[..., :, 2]
+    a, b = p1 - half, p1 + half
+    mid = _closest_on_seg(p2, a, b)
+    rows = [_sphere_box(c, s1[..., 0], p2, m2, s2) for c in (a, b, mid)]
+    return (torch.stack([r[0] for r in rows], dim=-1),
+            torch.stack([r[1] for r in rows], dim=-2),
+            torch.stack([r[2] for r in rows], dim=-3))
+
+
+def cylinder_box(p1, m1, s1, p2, m2, s2):
+    """The cylinder as the capsule of its radius and half-length."""
+    return capsule_box(p1, m1, s1, p2, m2, s2)
+
+
+def cylinder_cylinder(p1, m1, s1, p2, m2, s2):
+    """Approximation: the two cylinders as capsules."""
+    return capsule_capsule(p1, m1, s1, p2, m2, s2)
+
+
+def _matmul3(a, b):
+    """a @ b of (..., 3, 3) matrices, each entry summed left to right."""
+    return sum(a[..., :, k, None] * b[..., None, k, :] for k in range(3))
+
+
+def _matvec3(a, v):
+    """a @ v of (..., 3, 3) and (..., 3), summed left to right."""
+    return sum(a[..., :, k] * v[..., k, None] for k in range(3))
+
+
+def box_box(p1, m1, s1, p2, m2, s2):
+    """Approximation of mjc_BoxBox: separating-axis test over the six face
+    axes; the face of least overlap is the reference, the other box's
+    eight corners are the rows, and a corner outside the reference face's
+    footprint gets an infinite distance.  Edge-edge contacts fall back to
+    the best face axis.  Ties go to the first axis, as in the JAX
+    package."""
+    m1t = m1.transpose(-1, -2)
+    m2t = m2.transpose(-1, -2)
+    r = _matmul3(m1t, m2)
+    t = _matvec3(m1t, p2 - p1)
+    absr = torch.abs(r) + 1e-9
+    sep1 = torch.abs(t) - (s1 + _matvec3(absr, s2))
+    t2 = _matvec3(r.transpose(-1, -2), t)
+    sep2 = torch.abs(t2) - (s2 + _matvec3(absr.transpose(-1, -2), s1))
+    best = torch.argmax(torch.cat([sep1, sep2], dim=-1), dim=-1)
+    use1 = best < 3
+    axis = best % 3
+    axes_w = torch.cat([m1t, m2t], dim=-2)  # rows: the six face axes
+    n = torch.gather(axes_w, -2, best[..., None, None].expand(
+        *best.shape, 1, 3)).squeeze(-2)
+    sign_ref = torch.where(use1, torch.sign(_take(t, axis) + 1e-30),
+                           torch.sign(_take(t2, axis) + 1e-30))
+    n = n * sign_ref.unsqueeze(-1)
+
+    u3 = use1.unsqueeze(-1)
+    u33 = u3.unsqueeze(-1)
+    corners = torch.where(u33, _box_corners(p2, m2, s2),
+                          _box_corners(p1, m1, s1))
+    ref_p = torch.where(u3, p1, p2)
+    ref_m = torch.where(u33, m1, m2)
+    ref_s = torch.where(u3, s1, s2)
+    n_into = torch.where(u3, n, -n)  # out of the reference box
+    n_loc = mx.mat_t_vec(ref_m, n_into)
+    face_center = ref_p + n_into * torch.abs(
+        mx.dot(n_loc, ref_s)).unsqueeze(-1)
+    dists = mx.dot(corners - face_center.unsqueeze(-2), n_into.unsqueeze(-2))
+    local = mx.mat_t_vec(ref_m.unsqueeze(-3), corners - ref_p.unsqueeze(-2))
+    face_ax = torch.argmax(torch.abs(n_loc), dim=-1)
+    lat_ax = torch.stack([(face_ax + 1) % 3, (face_ax + 2) % 3], dim=-1)
+    lat = torch.gather(local, -1, lat_ax.unsqueeze(-2).expand(
+        *local.shape[:-1], 2))
+    lat_s = torch.gather(ref_s, -1, lat_ax)
+    in_footprint = torch.all(torch.abs(lat) <= lat_s.unsqueeze(-2) + 1e-6,
+                             dim=-1)
+    dist = torch.where(in_footprint, dists, torch.full_like(dists,
+                                                            float("inf")))
+    pos = corners - n_into.unsqueeze(-2) * 0.5 * dists.unsqueeze(-1)
+    frame = _make_frame(n).unsqueeze(-3)
+    return dist, pos, frame.expand(*dist.shape, 3, 3)
+
+
 def _ellipsoid_closest(c, size):
     """The point of an origin-centred, axis-aligned ellipsoid's surface
     closest to ``c``: Newton on the Lagrange multiplier, twelve steps
@@ -207,6 +360,57 @@ def _ellipsoid_contact(c, r1, p2, m2, s2):
     pos = p2 + mx.mat_vec(m2, x) - (0.5 * dist).unsqueeze(-1) * (-n_world)
     return (dist.unsqueeze(-1), pos.unsqueeze(-2),
             _make_frame(n_world).unsqueeze(-3))
+
+
+def _surface_pair(x1w, x2w, p1, m1, s1):
+    """The contact between two surface points: ``x1w`` of geom 1 (an
+    ellipsoid at ``p1``, ``m1`` with semi-axes ``s1``) and ``x2w`` of
+    geom 2; overlapping where x2w lies inside the ellipsoid."""
+    diff = x2w - x1w
+    ln = mx.norm(diff)
+    v = mx.mat_t_vec(m1, x2w - p1)
+    inside = torch.sum((v / s1) ** 2, -1) < 1.0
+    sgn = torch.where(inside, -1.0, 1.0)
+    n = sgn.unsqueeze(-1) * diff / torch.clamp(ln, min=_MINVAL).unsqueeze(-1)
+    return ((sgn * ln).unsqueeze(-1), (0.5 * (x1w + x2w)).unsqueeze(-2),
+            _make_frame(n).unsqueeze(-3))
+
+
+def ellipsoid_ellipsoid(p1, m1, s1, p2, m2, s2):
+    """Six rounds of alternating closest-point projection between the two
+    surfaces."""
+    x1w = p1
+    for _ in range(6):
+        x2w = p2 + mx.mat_vec(m2, _ellipsoid_closest(
+            mx.mat_t_vec(m2, x1w - p2), s2))
+        x1w = p1 + mx.mat_vec(m1, _ellipsoid_closest(
+            mx.mat_t_vec(m1, x2w - p1), s1))
+    return _surface_pair(x1w, x2w, p1, m1, s1)
+
+
+def _closest_on_box(c, size):
+    """The point of an origin-centred box's surface closest to ``c``:
+    clamped onto it, or pushed out through the face of least depth from
+    inside."""
+    clamped = torch.maximum(torch.minimum(c, size), -size)
+    inside = torch.all(torch.abs(c) < size, dim=-1, keepdim=True)
+    ax = torch.argmin(size - torch.abs(c), dim=-1, keepdim=True)
+    face = torch.sign(torch.gather(c, -1, ax) + 1e-30) \
+        * torch.gather(size.expand_as(c), -1, ax)
+    pushed = clamped.scatter(-1, ax, face)
+    return torch.where(inside, pushed, clamped)
+
+
+def ellipsoid_box(p1, m1, s1, p2, m2, s2):
+    """Six rounds of alternating projection between the ellipsoid's and
+    the box's surfaces."""
+    x1w = p1
+    for _ in range(6):
+        x2w = p2 + mx.mat_vec(m2, _closest_on_box(
+            mx.mat_t_vec(m2, x1w - p2), s2))
+        x1w = p1 + mx.mat_vec(m1, _ellipsoid_closest(
+            mx.mat_t_vec(m1, x2w - p1), s1))
+    return _surface_pair(x1w, x2w, p1, m1, s1)
 
 
 def sphere_ellipsoid(p1, m1, s1, p2, m2, s2):
@@ -289,6 +493,14 @@ def sphere_cylinder(p1, m1, s1, p2, m2, s2):
                             p2, m2, s2)
 
 
+def ellipsoid_cylinder(p1, m1, s1, p2, m2, s2):
+    """The cylinder as a capsule through capsule-ellipsoid with the two
+    geoms swapped; the normal turned back to point from the ellipsoid
+    into the cylinder."""
+    dist, pos, frame = capsule_ellipsoid(p2, m2, s2, p1, m1, s1)
+    return dist, pos, _make_frame(-frame[..., 0, :])
+
+
 # Heightfield colliders: the terrain's height is read bilinearly; the other
 # geom touches it at a fixed set of sample points.  The elevation data is a
 # model leaf that an episode may override (quadruped's escape), (nrow, ncol)
@@ -358,11 +570,17 @@ def _hf_ellipsoid_samples(p2, m2, s2):
     return (p2 - e_z * drop.unsqueeze(-1)).unsqueeze(-2), r
 
 
+def _hf_box_samples(p2, m2, s2):
+    """The eight corners, as points."""
+    return _box_corners(p2, m2, s2), torch.zeros_like(s2[..., 0])
+
+
 _HFIELD_SAMPLES = {
     GeomType.SPHERE: (_hf_sphere_samples, 1),
     GeomType.CAPSULE: (_hf_capsule_samples, 2),
     GeomType.CYLINDER: (_hf_capsule_samples, 2),
     GeomType.ELLIPSOID: (_hf_ellipsoid_samples, 1),
+    GeomType.BOX: (_hf_box_samples, 8),
 }
 
 
@@ -376,15 +594,24 @@ def _hfield_collider(data, size, sample_fn, p1, m1, s1, p2, m2, s2):
 _DISPATCH = {
     (GeomType.PLANE, GeomType.SPHERE): (plane_sphere, 1),
     (GeomType.PLANE, GeomType.CAPSULE): (plane_capsule, 2),
-    (GeomType.SPHERE, GeomType.SPHERE): (sphere_sphere, 1),
-    (GeomType.SPHERE, GeomType.CAPSULE): (sphere_capsule, 1),
-    (GeomType.CAPSULE, GeomType.CAPSULE): (capsule_capsule, 1),
     (GeomType.PLANE, GeomType.CYLINDER): (plane_cylinder, 4),
     (GeomType.PLANE, GeomType.ELLIPSOID): (plane_ellipsoid, 1),
+    (GeomType.PLANE, GeomType.BOX): (plane_box, 4),
+    (GeomType.SPHERE, GeomType.SPHERE): (sphere_sphere, 1),
+    (GeomType.SPHERE, GeomType.CAPSULE): (sphere_capsule, 1),
+    (GeomType.SPHERE, GeomType.BOX): (sphere_box, 1),
+    (GeomType.CAPSULE, GeomType.CAPSULE): (capsule_capsule, 1),
+    (GeomType.CAPSULE, GeomType.BOX): (capsule_box, 3),
     (GeomType.SPHERE, GeomType.ELLIPSOID): (sphere_ellipsoid, 1),
     (GeomType.CAPSULE, GeomType.ELLIPSOID): (capsule_ellipsoid, 1),
     (GeomType.CAPSULE, GeomType.CYLINDER): (capsule_cylinder, 1),
+    (GeomType.CYLINDER, GeomType.CYLINDER): (cylinder_cylinder, 1),
+    (GeomType.ELLIPSOID, GeomType.ELLIPSOID): (ellipsoid_ellipsoid, 1),
+    (GeomType.ELLIPSOID, GeomType.BOX): (ellipsoid_box, 1),
     (GeomType.SPHERE, GeomType.CYLINDER): (sphere_cylinder, 1),
+    (GeomType.ELLIPSOID, GeomType.CYLINDER): (ellipsoid_cylinder, 1),
+    (GeomType.CYLINDER, GeomType.BOX): (cylinder_box, 3),
+    (GeomType.BOX, GeomType.BOX): (box_box, 8),
 }
 
 
@@ -411,8 +638,8 @@ def contact_groups(m: Model):
         if _resolve_collider(m, key)[0] is None:
             raise NotImplementedError(
                 f"collision {key[0].name}-{key[1].name} (geoms {g1},{g2}) "
-                f"is not ported yet (ROADMAP A2: finger, manipulator and "
-                f"stacker)")
+                f"is not supported: the JAX package has no collider for "
+                f"it either")
         p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
         if p1 != p2:
             condim = m.geom_condim[g1 if p1 > p2 else g2]

@@ -1,14 +1,15 @@
 """Soft-constraint row assembly (mj_makeConstraint), batched.
 
 Counterpart of ``dm_control_tpu/physics/constraints.py`` for equality rows
-of type JOINT and TENDON, limits on hinge/slide joints and on tendons, and
-contact rows with condim 1 or pyramidal condim 3, 4 and 6.  The rows come
-in the JAX package's order: equality, then limits (joints, then tendons),
-then contacts by condim.  The row structure is static per model; rows
-MuJoCo would not instantiate (dist >= margin) are carried with D = 0.  A
-model with constraints disabled, or with nothing to tie or limit and
-contacts off, gets zero rows.  CONNECT and WELD equalities, friction loss,
-ball-joint limits and elliptic cones raise ``NotImplementedError``.
+of type JOINT and TENDON, dof friction loss, limits on hinge/slide joints
+and on tendons, and contact rows with condim 1, pyramidal condim 3, 4 and
+6, or elliptic cones.  The rows come in the JAX package's order: equality,
+then friction loss, then limits (joints, then tendons), then contacts by
+condim.  The row structure is static per model; rows MuJoCo would not
+instantiate (dist >= margin) are carried with D = 0.  A model with
+constraints disabled, or with nothing to tie or limit and contacts off,
+gets zero rows.  CONNECT and WELD equalities and ball-joint limits raise
+``NotImplementedError``.
 
 MuJoCo's soft-constraint model: each row has impedance d(pos) from solimp,
 reference acceleration aref from solref, and regularization
@@ -33,30 +34,47 @@ _MINIMP = 0.0001
 _MAXIMP = 0.9999
 
 # Row kinds (the JAX package's values): an equality row is always active,
-# a unilateral row (limit or contact) where J qacc - aref < 0.
+# a friction-loss row a Huber cost, a unilateral row (limit or pyramidal
+# contact) active where J qacc - aref < 0, and the rows of an elliptic
+# cone are costed per contact.
 EQUALITY = 0
+FRICTIONLOSS = 1
 LIMIT = 2
+CONE = 3
 
 
 @dataclasses.dataclass
 class Efc:
-    """The assembled constraint system, batch-first.  The first ``ne``
-    rows are equality rows (always active); every other row is unilateral
-    (active where J qacc - aref < 0)."""
+    """The assembled constraint system, batch-first: ``ne`` equality rows
+    (always active), then ``nf`` friction-loss rows, then unilateral rows
+    (active where J qacc - aref < 0), then ``ncone`` rows of elliptic
+    cones (``cone_spans``)."""
 
     J: torch.Tensor  # (B, nefc, nv)
     D: torch.Tensor  # (B, nefc)
     R: torch.Tensor  # (B, nefc)
     aref: torch.Tensor  # (B, nefc)
     pos: torch.Tensor  # (B, nefc)
+    floss: torch.Tensor = None  # (nf,) the friction-loss rows' bounds
     # per condim group: (contact ids, first row, rows per contact)
     contact_spans: Tuple[Tuple[Tuple[int, ...], int, int], ...] = \
         static_field(default=())
+    # per elliptic condim group: (contact ids, first row, condim); each
+    # contact has ``condim`` consecutive rows: normal, then friction
+    cone_spans: Tuple[Tuple[Tuple[int, ...], int, int], ...] = \
+        static_field(default=())
     ne: int = static_field(default=0)
+    nf: int = static_field(default=0)
+
+    @property
+    def ncone(self) -> int:
+        return sum(len(ids) * dim for ids, _, dim in self.cone_spans)
 
     @property
     def kind(self) -> Tuple[int, ...]:
-        return (EQUALITY,) * self.ne + (LIMIT,) * (self.nefc - self.ne)
+        nuni = self.nefc - self.ne - self.nf - self.ncone
+        return ((EQUALITY,) * self.ne + (FRICTIONLOSS,) * self.nf
+                + (LIMIT,) * nuni + (CONE,) * self.ncone)
 
     @property
     def nefc(self) -> int:
@@ -102,29 +120,44 @@ class _Blocks:
         self.m = m
         self.B = batch
         self.parts: List[tuple] = []
+        self.raw: List[tuple] = []
         self.nrows = 0
 
     def add(self, J, pos, solref, solimp, diag, vel, active):
+        assert not self.raw, "rows added after raw rows break the order"
         B, r = pos.shape
         self.parts.append((J, pos, solref.expand(B, r, 2),
                            solimp.expand(B, r, 5), diag.expand(B, r), vel,
                            active))
         self.nrows += r
 
-    def build(self, contact_spans, ne=0) -> Efc:
+    def add_raw(self, J, aref, D, R, pos):
+        """Rows whose aref, D and R are computed already (the elliptic
+        cones'); they come after every row of ``add``."""
+        self.raw.append((J, aref, D, R, pos))
+        self.nrows += pos.shape[1]
+
+    def build(self, spans=((), ()), ne=0, floss=None) -> Efc:
         m = self.m
-        if not self.parts:
+        contact_spans, cone_spans = spans
+        if not self.nrows:
             z = torch.zeros(self.B, 0, dtype=m.dtype, device=m.device)
             return Efc(J=z.new_zeros(self.B, 0, m.nv), D=z, R=z, aref=z,
                        pos=z)
-        J, pos, solref, solimp, diag, vel, active = (
-            torch.cat(x, dim=1) for x in zip(*self.parts))
-        k, b, imp = kbi(m, solref, solimp, pos)
-        aref = -b * vel - k * pos
-        r_reg = torch.clamp((1.0 - imp) / imp * diag, min=_MINVAL)
-        d_vec = torch.where(active, 1.0 / r_reg, torch.zeros_like(r_reg))
-        return Efc(J=J, D=d_vec, R=r_reg, aref=aref, pos=pos,
-                   contact_spans=contact_spans, ne=ne)
+        rows = []
+        if self.parts:
+            J, pos, solref, solimp, diag, vel, active = (
+                torch.cat(x, dim=1) for x in zip(*self.parts))
+            k, b, imp = kbi(m, solref, solimp, pos)
+            aref = -b * vel - k * pos
+            r_reg = torch.clamp((1.0 - imp) / imp * diag, min=_MINVAL)
+            d_vec = torch.where(active, 1.0 / r_reg, torch.zeros_like(r_reg))
+            rows.append((J, aref, d_vec, r_reg, pos))
+        J, aref, d_vec, r_reg, pos = (
+            torch.cat(x, dim=1) for x in zip(*rows, *self.raw))
+        return Efc(J=J, D=d_vec, R=r_reg, aref=aref, pos=pos, floss=floss,
+                   contact_spans=contact_spans, cone_spans=cone_spans, ne=ne,
+                   nf=0 if floss is None else floss.shape[0])
 
 
 def _check_ported(m: Model):
@@ -136,13 +169,8 @@ def _check_ported(m: Model):
             if m.eq_type[e] not in (int(EqType.JOINT), int(EqType.TENDON)):
                 raise NotImplementedError(
                     f"equality {e}: {EqType(m.eq_type[e]).name} equality "
-                    f"constraints are not ported yet (ROADMAP A2: finger, "
-                    f"manipulator and stacker)")
-    if not dis & DisableBit.FRICTIONLOSS and bool(
-            (m.dof_frictionloss > 0).any()):
-        raise NotImplementedError("friction loss is not ported yet "
-                                  "(ROADMAP A2: finger, manipulator and "
-                                  "stacker)")
+                    f"constraints are not ported yet (ROADMAP A6: composer, "
+                    f"locomotion and manipulation)")
     if not dis & DisableBit.LIMIT:
         for j in range(m.njnt):
             if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL):
@@ -152,10 +180,6 @@ def _check_ported(m: Model):
     if m.opt.contact_cap:
         raise NotImplementedError("contact compaction is not ported yet "
                                   "(ROADMAP A3: humanoid_CMU, dog and lqr)")
-    if m.opt.cone != 0:
-        raise NotImplementedError("elliptic cones are not ported yet "
-                                  "(ROADMAP A2: finger, manipulator and "
-                                  "stacker)")
     return True
 
 
@@ -163,17 +187,20 @@ def make_constraint(m: Model, d: Data) -> Efc:
     m.cached("constraints_checked", lambda: _check_ported(m))
     blocks = _Blocks(m, d.qpos.shape[0])
     dis = m.opt.disableflags
-    spans: Tuple = ()
+    spans: Tuple = ((), ())
     ne = 0
+    floss = None
     if not dis & DisableBit.CONSTRAINT:
         if not dis & DisableBit.EQUALITY:
             _equality_rows(m, d, blocks)
             ne = blocks.nrows
+        if not dis & DisableBit.FRICTIONLOSS:
+            floss = _frictionloss_rows(m, d, blocks)
         if not dis & DisableBit.LIMIT:
             _limit_rows(m, d, blocks)
         if not dis & DisableBit.CONTACT:
             spans = _contact_rows(m, d, blocks)
-    return blocks.build(spans, ne)
+    return blocks.build(spans, ne, floss)
 
 
 def _equality_plan(m: Model, etype: EqType):
@@ -246,6 +273,32 @@ def _equality_rows(m: Model, d: Data, blocks: _Blocks):
                active=torch.ones_like(pos, dtype=torch.bool))
 
 
+def _frictionloss_plan(m: Model):
+    """(dof ids, their unit rows (F, nv)) of the dofs with friction loss,
+    or None without any."""
+    dofs = np.nonzero(m.dof_frictionloss.cpu().numpy() > 0)[0]
+    if not dofs.size:
+        return None
+    J = torch.zeros(dofs.size, m.nv, dtype=m.dtype, device=m.device)
+    J[torch.arange(dofs.size, device=m.device), m.idx(dofs)] = 1.0
+    return m.idx(dofs), J
+
+
+def _frictionloss_rows(m: Model, d: Data, blocks: _Blocks):
+    """One row per dof with friction loss, at pos 0; returns the rows'
+    bounds (F,), or None without any row."""
+    plan = m.cached("frictionloss_plan", lambda: _frictionloss_plan(m))
+    if plan is None:
+        return None
+    dofs, J = plan
+    B = d.qpos.shape[0]
+    vel = d.qvel[:, dofs]
+    blocks.add(J.expand(B, *J.shape), torch.zeros_like(vel),
+               m.dof_solref[dofs], m.dof_solimp[dofs], m.dof_invweight0[dofs],
+               vel, active=torch.ones_like(vel, dtype=torch.bool))
+    return m.dof_frictionloss[dofs]
+
+
 def _limit_plan(m: Model):
     scalar = [j for j in range(m.njnt)
               if m.jnt_limited[j] and m.jnt_type[j] in (int(JointType.HINGE),
@@ -310,14 +363,15 @@ def _joint_limit_rows(m: Model, d: Data, blocks: _Blocks):
 def _contact_rows(m: Model, d: Data, blocks: _Blocks):
     """Contact rows grouped by condim: condim 1 gives one normal row, a
     pyramidal condim c gives 2 (c - 1) rows n +- mu_i t_i, ordered
-    (+t0, -t0, +t1, -t1, ...).  The first two directions are the frame's
-    tangents on the translational Jacobian; the torsional (condim 4) and
-    the two rolling ones (condim 6) are the frame's axes on the rotational
-    Jacobian."""
+    (+t0, -t0, +t1, -t1, ...), an elliptic condim c gives c rows n, t0,
+    t1, ... (``_elliptic_rows``).  The first two directions are the
+    frame's tangents on the translational Jacobian; the torsional (condim
+    4) and the two rolling ones (condim 6) are the frame's axes on the
+    rotational Jacobian.  Returns (pyramidal spans, elliptic spans)."""
     con = d.contact
     ncon = len(con.dim)
     if ncon == 0:
-        return ()
+        return (), ()
     B = d.qpos.shape[0]
     b1s = tuple(m.geom_bodyid[g] for g in con.geom1)
     b2s = tuple(m.geom_bodyid[g] for g in con.geom2)
@@ -336,8 +390,9 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
     mu0 = con.friction[:, :, 0]  # (B, ncon)
     inv_pyr = (inv + mu0 * mu0 * inv) * 2.0 * mu0 * mu0 / m.opt.impratio
 
+    elliptic = m.opt.cone == 1
     dims = np.array(con.dim)
-    spans = []
+    spans, cone_spans = [], []
     row_base = blocks.nrows
     for condim in sorted(set(con.dim)):
         idx = np.nonzero(dims == condim)[0]
@@ -345,6 +400,15 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
         gidx = m.idx(idx)
         pe = pos_eff[:, gidx]
         jn = proj(0, gidx)
+        if condim > 1 and elliptic:
+            J = torch.stack([jn] + [
+                proj(1 + i, gidx) if i < 2 else proj(i - 2, gidx, jdr)
+                for i in range(condim - 1)], dim=2)  # (B, k, condim, nv)
+            _elliptic_rows(m, d, blocks, J, pe, gidx, inv[gidx])
+            cone_spans.append((tuple(int(c) for c in idx), row_base,
+                               condim))
+            row_base += k * condim
+            continue
         if condim == 1:
             nrows = 1
             blocks.add(jn, pe, con.solref[:, gidx], con.solimp[:, gidx],
@@ -370,5 +434,28 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
                 f"contacts with condim {condim} do not exist")
         spans.append((tuple(int(c) for c in idx), row_base, nrows))
         row_base += k * nrows
-    return tuple(spans)
+    return tuple(spans), tuple(cone_spans)
+
+
+def _elliptic_rows(m: Model, d: Data, blocks: _Blocks, J, pos, gidx, inv):
+    """The rows of k elliptic contacts of one condim c, J (B, k, c, nv),
+    at ``pos`` (B, k) with the bodies' summed inverse weights ``inv``:
+    the normal row with its own impedance (D0, aref -b vel - k pos), each
+    friction row j with D0 impratio (mu_j / mu_0)^2 and aref -b vel, with
+    no position term; R = 1 / D.  Added as computed (raw) rows."""
+    con = d.contact
+    B, k, c, nv = J.shape
+    kk, b, imp = kbi(m, con.solref[:, gidx], con.solimp[:, gidx], pos)
+    r0 = torch.clamp((1.0 - imp) / imp * inv, min=_MINVAL)
+    d0 = torch.where(pos < 0, 1.0 / r0, torch.zeros_like(r0))
+    fri = con.friction[:, gidx, :c - 1]
+    dj = d0.unsqueeze(-1) * m.opt.impratio * (fri / fri[..., :1]) ** 2
+    vel = torch.einsum("bkrv,bv->bkr", J, d.qvel)
+    aref = -b.unsqueeze(-1) * vel
+    aref[..., 0] = aref[..., 0] - kk * pos
+    D = torch.cat([d0.unsqueeze(-1), dj], dim=-1)  # (B, k, c)
+    R = 1.0 / torch.clamp(D, min=_MINVAL)
+    blocks.add_raw(J.reshape(B, k * c, nv), aref.reshape(B, -1),
+                   D.reshape(B, -1), R.reshape(B, -1),
+                   torch.repeat_interleave(pos, c, dim=1))
 

@@ -117,14 +117,22 @@ def _advance(m: Model, d: Data, qacc, act_dot) -> Data:
                      act=act, time=d.time + dt)
 
 
+def _has_damping(m: Model) -> bool:
+    """Whether the Euler step is implicit in joint damping: always for a
+    per-environment ``dof_damping`` (B, nv), as for a traced one in the
+    JAX package; else where any dof has damping."""
+    if m.dof_damping.dim() > 1:
+        return True
+    return m.derived("has_damping", "dof_damping",
+                     lambda: bool((m.dof_damping != 0).any()))
+
+
 def euler(m: Model, d: Data) -> Data:
     """mj_Euler, implicit in joint damping:
     v' = v + h (M + h diag(B))^-1 (qfrc_smooth + qfrc_constraint)."""
-    has_damping = m.cached("has_damping",
-                           lambda: bool((m.dof_damping != 0).any()))
-    if not has_damping:
+    if not _has_damping(m):
         return _advance(m, d, d.qacc, d.act_dot)
-    mh = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
+    mh = d.qM + m.opt.timestep * torch.diag_embed(m.dof_damping)
     qacc = linalg.chol_solve(mh, d.qfrc_smooth + d.qfrc_constraint)
     return _advance(m, d, qacc, d.act_dot)
 

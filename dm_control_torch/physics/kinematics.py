@@ -57,8 +57,10 @@ def kinematics(m: Model, d: Data) -> Data:
     for bodies, parents, slots in m.cached("fk", lambda: _fk_structure(m)):
         bidx = m.idx(bodies)
         pq = xquat[:, m.idx(parents)]
-        pos = xpos[:, m.idx(parents)] + mx.rotate(m.body_pos[bidx], pq)
-        quat = mx.quat_mul(pq, m.body_quat[bidx])
+        # body_pos and body_quat: (nbody, .) or (B, nbody, .) under a diff
+        pos = xpos[:, m.idx(parents)] + mx.rotate(
+            m.body_pos[..., bidx, :], pq)
+        quat = mx.quat_mul(pq, m.body_quat[..., bidx, :])
         for groups in slots:
             for jtype, (rows, jids) in groups.items():
                 r = m.idx(rows)
@@ -109,7 +111,8 @@ def kinematics(m: Model, d: Data) -> Data:
     xipos = xpos + mx.mat_vec(xmat, m.body_ipos)
     ximat = xmat @ mx.quat_to_mat(m.body_iquat)
 
-    # geom_pos is (ngeom, 3), or (B, ngeom, 3) under a per-episode diff
+    # geom_pos and site_pos are (n, 3), or (B, n, 3) under a per-episode
+    # diff
     gb = m.idx(m.geom_bodyid)
     geom_xpos = xpos[:, gb] + mx.mat_vec(xmat[:, gb], m.geom_pos)
     geom_xmat = xmat[:, gb] @ mx.quat_to_mat(m.geom_quat)

@@ -418,9 +418,19 @@ class Model(_Replace):
             value = self._cache[key] = build()
             return value
 
+    def derived(self, key, field: str, build):
+        """``build()`` of a value derived from the tensor ``field``, kept
+        while the model's ``field`` is the tensor it came from.  A model
+        that overrides the field (``rl.control.DIFF_FIELDS``) shares this
+        cache, and there ``build()`` runs anew on every call."""
+        tensor = getattr(self, field)
+        own, value = self.cached(("derived", key), lambda: (tensor, build()))
+        return value if own is tensor else build()
+
     def replace_sharing_cache(self, **updates) -> "Model":
         """``replace`` that keeps this model's cache: only for fields that
-        no cached constant derives from (``rl.control.DIFF_FIELDS``)."""
+        no cached constant derives from (``rl.control.DIFF_FIELDS``; see
+        ``derived``)."""
         new = self.replace(**updates)
         new._cache = self._cache
         return new

@@ -1,11 +1,12 @@
 """Sensor evaluation (mj_sensorPos/Vel/Acc), batched.
 
 Counterpart of ``dm_control_tpu/physics/sensors.py`` for the sensor types
-the ported domains declare: touch, accelerometer, velocimeter, gyro, force,
-torque, rangefinder, frame position and axes, subtree centre of mass and
-subtree linear velocity.  Sensors of one type are evaluated together and
-written into ``sensordata`` at their static addresses.  A model with any
-other sensor type raises ``NotImplementedError``.
+the ported domains declare: joint position and velocity, touch,
+accelerometer, velocimeter, gyro, force, torque, rangefinder, frame
+position and axes, subtree centre of mass and subtree linear velocity.
+Sensors of one type are evaluated together and written into
+``sensordata`` at their static addresses.  A model with any other sensor
+type raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import (
-    Data, GeomType, Model, ObjType, SensorType, body_ancestor_mask,
+    Data, GeomType, JointType, Model, ObjType, SensorType, body_ancestor_mask,
     body_dof_mask, body_subtree_mask,
 )
 
@@ -23,8 +24,13 @@ _S = SensorType
 _FRAME_AXIS = {_S.FRAMEXAXIS: 0, _S.FRAMEYAXIS: 1, _S.FRAMEZAXIS: 2}
 #: types whose object is any framed object or a body, not only a site
 _ANY_OBJECT = {_S.FRAMEPOS, _S.SUBTREECOM, _S.SUBTREELINVEL, *_FRAME_AXIS}
+#: types whose object is a joint
+_OF_JOINT = {_S.JOINTPOS, _S.JOINTVEL}
 _PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
-           _S.TORQUE, _S.RANGEFINDER, *_ANY_OBJECT}
+           _S.TORQUE, _S.RANGEFINDER, *_ANY_OBJECT, *_OF_JOINT}
+#: the ROADMAP item that ports a missing type: the first model that needs it
+_ROADMAP = {_S.SUBTREEANGMOM: "A3: humanoid_CMU, dog and lqr"}
+_ROADMAP_LATER = "A6: composer, locomotion and manipulation"
 
 
 def _by_type(m: Model):
@@ -34,10 +40,15 @@ def _by_type(m: Model):
         stype = _S(m.sensor_type[s])
         if stype not in _PORTED:
             raise NotImplementedError(
-                f"sensor type {stype.name} is not ported yet "
-                f"(ROADMAP A2: finger, manipulator and stacker, and the "
-                f"domains after them)")
-        if stype not in _ANY_OBJECT and \
+                f"sensor type {stype.name} is not ported yet (ROADMAP "
+                f"{_ROADMAP.get(stype, _ROADMAP_LATER)})")
+        if stype in _OF_JOINT:
+            jtype = m.jnt_type[m.sensor_objid[s]]
+            if jtype not in (int(JointType.HINGE), int(JointType.SLIDE)):
+                raise NotImplementedError(
+                    f"sensor {s}: {stype.name} of a {JointType(jtype).name} "
+                    f"joint")
+        elif stype not in _ANY_OBJECT and \
                 m.sensor_objtype[s] != int(ObjType.SITE):
             raise NotImplementedError(
                 f"sensor {s}: only site-attached {stype.name} is ported")
@@ -88,12 +99,16 @@ def sensor_pos(m: Model, d: Data) -> Data:
     if m.nsensor == 0:
         return d
     groups = _groups(m)
-    if not any(t in groups for t in (_S.FRAMEPOS, _S.SUBTREECOM,
+    if not any(t in groups for t in (_S.JOINTPOS, _S.FRAMEPOS, _S.SUBTREECOM,
                                      _S.RANGEFINDER, *_FRAME_AXIS)):
         return d
     out = d.sensordata.clone()
     for stype, sensors in groups.items():
-        if stype == _S.FRAMEPOS:
+        if stype == _S.JOINTPOS:
+            _put(m, out, sensors, d.qpos[:, m.idx(
+                [m.jnt_qposadr[m.sensor_objid[s]] for s in sensors])
+            ].unsqueeze(-1))
+        elif stype == _S.FRAMEPOS:
             _put(m, out, sensors, _of_objects(
                 m, sensors, d.site_xpos, d.xpos, d.geom_xpos))
         elif stype in _FRAME_AXIS:
@@ -155,7 +170,11 @@ def sensor_vel(m: Model, d: Data) -> Data:
         return d
     out = d.sensordata.clone()
     for stype, sensors in _groups(m).items():
-        if stype in (_S.GYRO, _S.VELOCIMETER):
+        if stype == _S.JOINTVEL:
+            _put(m, out, sensors, d.qvel[:, m.idx(
+                [m.jnt_dofadr[m.sensor_objid[s]] for s in sensors])
+            ].unsqueeze(-1))
+        elif stype in (_S.GYRO, _S.VELOCIMETER):
             bodies, mat, offset = _site_frame(m, d, sensors)
             vel = mx.transform_motion(d.cvel[:, m.idx(bodies)], offset)
             part = vel[..., :3] if stype == _S.GYRO else vel[..., 3:]
@@ -212,7 +231,8 @@ def _touch(m: Model, d: Data, sensors):
     smat = d.site_xmat[:, sidx]  # (B, S, 3, 3)
     rel = con.pos[:, None] - d.site_xpos[:, sidx, None]  # (B, S, C, 3)
     p = torch.einsum("bsij,bsci->bscj", smat, rel)
-    size = m.site_size[sidx][:, None, :]  # (S, 1, 3)
+    # (S, 1, 3), or (B, S, 1, 3) under a per-episode diff
+    size = m.site_size[..., sidx, :].unsqueeze(-2)
     st = m.cached(("touch_type", tuple(sensors)), lambda: torch.tensor(
         [m.site_type[i] for i in sids], device=m.device)[:, None])
 

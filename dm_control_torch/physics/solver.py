@@ -1,14 +1,17 @@
-"""Newton constraint solver (mj_solNewton) for pyramidal cones, batched.
+"""Newton constraint solver (mj_solNewton), batched.
 
 Counterpart of ``dm_control_tpu/physics/solver.py``.  Minimizes over qacc
 
     c(x) = 0.5 (x - a_s)^T M (x - a_s) + sum_i s_i(J_i x - aref_i)
 
-with s_i = 0.5 D_i jar_i^2 on every equality row, and on a unilateral row
-(limits and pyramidal contacts) where jar_i < 0.  Each Newton step solves
-with the exact Hessian M + J^T diag(D active) J through
-``ops.linalg.chol_solve`` and takes an exact line search on the
-piecewise-quadratic 1D restriction.
+with, per row kind: s_i = 0.5 D_i jar_i^2 on every equality row, and on a
+unilateral row (limits and pyramidal contacts) where jar_i < 0; a Huber
+cost on a friction-loss row (quadratic where |D jar| <= floss, linear
+outside); and the cost of each elliptic cone on its contact's rows
+(``_cone_eval``).  Each Newton step solves with the exact Hessian
+M + J^T diag(D active) J + the cones' blocks through
+``ops.linalg.chol_solve`` and takes an exact line search on the piecewise
+smooth 1D restriction.
 
 JAX's batched ``while_loop`` becomes a host loop over a batch mask: every
 iteration computes the step for the whole batch, and an environment whose
@@ -36,27 +39,160 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def _row_masks(m: Model, efc: Efc):
+    """(equality, friction loss, unilateral) row masks (nefc,), each None
+    where no row has that kind; the unilateral one also None where every
+    row that is not an equality is unilateral."""
+    def build():
+        rows = torch.arange(efc.nefc, device=m.device)
+        first_cone = efc.nefc - efc.ncone
+        eq = rows < efc.ne if efc.ne else None
+        fl = ((rows >= efc.ne) & (rows < efc.ne + efc.nf)) if efc.nf \
+            else None
+        uni = ((rows >= efc.ne + efc.nf) & (rows < first_cone)) \
+            if efc.nf or efc.ncone else None
+        return eq, fl, uni
+
+    return m.cached(("efc_masks", efc.nefc, efc.ne, efc.nf, efc.ncone), build)
+
+
+def _cost_terms(D, jar, masks, fl=None):
+    """Cost, gradient and Hessian weight (B, nefc) of each row that is not
+    a cone's (those get 0): quadratic on equality rows and on active
+    unilateral rows; on a friction-loss row the Huber cost, linear where
+    |D jar| > floss.  ``masks`` are ``_row_masks``; ``fl`` is (floss,
+    0.5 floss^2 / D), each (nefc,), where the model has friction loss."""
+    is_eq, is_fl, is_uni = masks
+    quad = jar < 0
+    if is_uni is not None:
+        quad = quad & is_uni
+    if is_eq is not None:
+        quad = quad | is_eq
+    zero = torch.zeros_like(jar)
+    if fl is None:
+        return (torch.where(quad, 0.5 * D * jar * jar, zero),
+                torch.where(quad, D * jar, zero), torch.where(quad, D, zero))
+    floss, half_fl2 = fl
+    djar = D * jar
+    lin_hi = is_fl & (djar > floss)
+    lin_lo = is_fl & (djar < -floss)
+    quad = quad | (is_fl & ~lin_hi & ~lin_lo)
+    cost = torch.where(quad, 0.5 * D * jar * jar, zero)
+    cost = torch.where(lin_hi, floss * jar - half_fl2, cost)
+    cost = torch.where(lin_lo, -floss * jar - half_fl2, cost)
+    dcost = torch.where(quad, djar, zero)
+    dcost = torch.where(lin_hi, floss, dcost)
+    dcost = torch.where(lin_lo, -floss, dcost)
+    return cost, dcost, torch.where(quad, D, zero)
+
+
+def _cone_groups(m: Model, d: Data, efc: Efc):
+    """Per elliptic span: (first row, k, condim, friction (B, k, condim-1),
+    mu (B, k), D (B, k, condim)); the spans are the last rows, in order."""
+    groups = []
+    row = efc.nefc - efc.ncone
+    B = efc.D.shape[0]
+    for conids, start, dim in efc.cone_spans:
+        assert start == row, "elliptic rows must close the row order"
+        k = len(conids)
+        fri = d.contact.friction[:, m.idx(conids), :dim - 1]
+        mu = fri[..., 0] / torch.sqrt(m.opt.impratio)
+        Dg = efc.D[:, start:start + k * dim].reshape(B, k, dim)
+        groups.append((start, k, dim, fri, mu, Dg))
+        row += k * dim
+    return groups
+
+
+def _cone_eval(groups, jar, jp=None, hess=False):
+    """The elliptic cones at ``jar`` (B, nefc): cost (B,), the cone rows'
+    cost gradients (B, ncone), and with ``hess`` the per-contact Hessian
+    blocks [(B, k, c, c)]; with ``jp``, the curvature jp^T H jp (B,) along
+    a direction's row values ``jp`` in place of the cost (the line search
+    needs no cost).
+
+    With n = jar_0, u_j = mu_j jar_j, t = |u|, mu = mu_0 / sqrt(impratio):
+    separating (n >= t): no cost; sticking (mu^2 n + t <= 0): each row
+    quadratic, 0.5 D_j jar_j^2; sliding (otherwise): 0.5 D_0 / (1 + mu^2)
+    (n - t)^2, the force on the cone's surface."""
+    B = jar.shape[0]
+    cost = jar.new_zeros(B) if jp is None else None
+    dparts, hparts = [], []
+    curv = jar.new_zeros(B) if jp is not None else None
+    for start, k, dim, fri, mu, Dg in groups:
+        jar_g = jar[:, start:start + k * dim].reshape(B, k, dim)
+        D0 = Dg[..., 0]
+        n = jar_g[..., 0]
+        u = fri * jar_g[..., 1:]
+        tt = torch.sqrt(torch.sum(u * u, -1))
+        tts = torch.clamp(tt, min=_MINVAL)
+        active = D0 > 0
+        bottom = (mu * mu * n + tt <= 0) & active
+        top = n >= tt
+        mid = active & ~bottom & ~top
+        dm = D0 / (1.0 + mu * mu)
+        nmt = n - tt
+        zero = torch.zeros_like(n)
+        if jp is None:
+            c_bot = 0.5 * torch.sum(Dg * jar_g * jar_g, -1)
+            c_mid = 0.5 * dm * nmt * nmt
+            cost = cost + torch.sum(torch.where(
+                bottom, c_bot, torch.where(mid, c_mid, zero)), -1)
+        w = fri * u / tts.unsqueeze(-1)  # fri_j^2 jar_j / t
+        g = torch.cat([torch.ones_like(n).unsqueeze(-1), -w], -1)
+        d_mid = (dm * nmt).unsqueeze(-1) * g
+        d_bot = Dg * jar_g
+        b3, m3 = bottom.unsqueeze(-1), mid.unsqueeze(-1)
+        dg = torch.where(b3, d_bot, torch.where(m3, d_mid,
+                                                torch.zeros_like(d_mid)))
+        dparts.append(dg.reshape(B, k * dim))
+        if not hess and jp is None:
+            continue
+        # the sliding zone's curvature coefficient on the tangent block
+        coef = dm * (tt - n) / tts
+        if hess:
+            eye_t = torch.eye(dim - 1, dtype=jar.dtype, device=jar.device)
+            tang = (fri.unsqueeze(-1) * fri.unsqueeze(-2) * eye_t
+                    - w.unsqueeze(-1) * w.unsqueeze(-2))
+            h_mid = dm[..., None, None] * g.unsqueeze(-1) * g.unsqueeze(-2)
+            h_mid[..., 1:, 1:] += coef[..., None, None] * tang
+            h_bot = torch.diag_embed(Dg)
+            hparts.append(torch.where(b3.unsqueeze(-1), h_bot, torch.where(
+                m3.unsqueeze(-1), h_mid, torch.zeros_like(h_mid))))
+        if jp is not None:
+            jp_g = jp[:, start:start + k * dim].reshape(B, k, dim)
+            jp_t = jp_g[..., 1:]
+            q_mid = dm * _dot(g, jp_g) ** 2 + coef * (
+                _dot(fri * fri, jp_t * jp_t) - _dot(w, jp_t) ** 2)
+            q_bot = _dot(Dg, jp_g * jp_g)
+            curv = curv + torch.sum(torch.where(
+                bottom, q_bot, torch.where(mid, q_mid, zero)), -1)
+    return cost, torch.cat(dparts, dim=1), hparts, curv
+
+
 def solve(m: Model, d: Data, efc: Efc) -> Data:
     dtype = d.qpos.dtype
     a_s = d.qacc_smooth
     M = d.qM
     J, D = efc.J, efc.D
-
-    # equality rows (the first efc.ne) are quadratic everywhere
-    is_eq = m.cached(("efc_is_eq", efc.nefc, efc.ne), lambda: torch.arange(
-        efc.nefc, device=m.device) < efc.ne) if efc.ne else None
+    masks = _row_masks(m, efc)
+    fl = None
+    if masks[1] is not None:  # each friction-loss row's bound, 0 elsewhere
+        floss = torch.zeros(efc.nefc, dtype=dtype, device=D.device)
+        floss[efc.ne:efc.ne + efc.nf] = efc.floss
+        fl = (floss, 0.5 * floss ** 2 / torch.clamp(D, min=1e-15))
+    cones = _cone_groups(m, d, efc)
+    ncone = efc.ncone
 
     def cost_terms(jar):
-        quad = jar < 0
-        if is_eq is not None:
-            quad = quad | is_eq
-        zero = torch.zeros_like(jar)
-        return (torch.where(quad, 0.5 * D * jar * jar, zero),
-                torch.where(quad, D * jar, zero), torch.where(quad, D, zero))
+        return _cost_terms(D, jar, masks, fl)
+
+    def with_cones(dcost, dcone):
+        return torch.cat([dcost[:, :efc.nefc - ncone], dcone], dim=1)
 
     def cost_from_jar(x, jar):
         dx = x - a_s
-        return 0.5 * _dot(dx, _bmv(M, dx)) + torch.sum(cost_terms(jar)[0], -1)
+        cost = 0.5 * _dot(dx, _bmv(M, dx)) + torch.sum(cost_terms(jar)[0], -1)
+        return cost + _cone_eval(cones, jar)[0] if cones else cost
 
     def total_cost(x):
         jar = _bmv(J, x) - efc.aref
@@ -91,8 +227,15 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
         if not bool(active.any()):
             break
         _, dcost, hw = cost_terms(jar)
-        grad = _bmv(M, x - a_s) + torch.einsum("bkv,bk->bv", J, dcost)
         H = M + torch.bmm(J.transpose(1, 2) * hw.unsqueeze(1), J)
+        if cones:
+            _, dcone, blocks, _ = _cone_eval(cones, jar, hess=True)
+            dcost = with_cones(dcost, dcone)
+            for (start, k, dim, *_), hc in zip(cones, blocks):
+                Jg = J[:, start:start + k * dim].reshape(B, k, dim, m.nv)
+                H = H + torch.bmm(Jg.reshape(B, k * dim, m.nv).transpose(
+                    1, 2), (hc @ Jg).reshape(B, k * dim, m.nv))
+        grad = _bmv(M, x - a_s) + torch.einsum("bkv,bk->bv", J, dcost)
         p = -linalg.chol_solve(H, grad)
 
         jp = _bmv(J, p)
@@ -101,10 +244,15 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
         x_as = x - a_s
 
         def phi_derivs(alpha):
-            _, dcost_a, hw_a = cost_terms(jar + alpha.unsqueeze(-1) * jp)
+            jar_a = jar + alpha.unsqueeze(-1) * jp
+            _, dcost_a, hw_a = cost_terms(jar_a)
+            d2 = p_mp + torch.sum(hw_a * jp * jp, -1)
+            if cones:
+                _, dcone_a, _, curv = _cone_eval(cones, jar_a, jp=jp)
+                dcost_a = with_cones(dcost_a, dcone_a)
+                d2 = d2 + curv
             d1 = _dot(x_as + alpha.unsqueeze(-1) * p, mp) \
                 + torch.sum(dcost_a * jp, -1)
-            d2 = p_mp + torch.sum(hw_a * jp * jp, -1)
             return d1, d2
 
         # bracket the root of phi' by doubling from alpha = 1 ...
@@ -147,11 +295,15 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
         niter = niter + active.to(torch.int32)
 
     jar = _bmv(J, x) - efc.aref
-    efc_force = -cost_terms(jar)[1]
+    dcost = cost_terms(jar)[1]
+    if cones:
+        dcost = with_cones(dcost, _cone_eval(cones, jar)[1])
+    efc_force = -dcost
     qfrc_constraint = torch.einsum("bkv,bk->bv", J, efc_force)
 
     # per-contact force (mj_contactForce): pyramidal rows are
-    # n +- mu_i t_i, so normal = sum_j f_j, comp_i = mu_i (f_2i - f_2i+1)
+    # n +- mu_i t_i, so normal = sum_j f_j, comp_i = mu_i (f_2i - f_2i+1);
+    # an elliptic contact's rows are its force's components
     contact_force = torch.zeros_like(d.contact.dist)
     contact_force_vec = contact_force.new_zeros(*contact_force.shape, 6)
     for conids, start, nrows in efc.contact_spans:
@@ -167,6 +319,12 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
             mu = d.contact.friction[:, ids, :nfd]
             wrench[..., 1:1 + nfd] = mu * (group[..., 0::2] - group[..., 1::2])
         contact_force_vec[:, ids] = wrench
+    for conids, start, dim in efc.cone_spans:
+        k = len(conids)
+        ids = m.idx(conids)
+        group = efc_force[:, start:start + k * dim].reshape(B, k, dim)
+        contact_force[:, ids] = group[..., 0]
+        contact_force_vec[:, ids, :dim] = group
     return d.replace(qacc=x, qfrc_constraint=qfrc_constraint,
                      contact_force=contact_force,
                      contact_force_vec=contact_force_vec, solver_niter=niter)

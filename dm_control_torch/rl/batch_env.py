@@ -69,6 +69,8 @@ class BatchEnv:
         self._state_fields = tuple(f for f in _STATE_FIELDS
                                    if getattr(one, f)[0].numel() > 0)
         self._templates: Dict[int, Data] = {}
+        #: rounds the last reset's rejection loop took (for profiles)
+        self.last_rejection_rounds = 0
 
     # -- stripped-carry helpers ---------------------------------------------
 
@@ -121,12 +123,14 @@ class BatchEnv:
                                      diff)
         d = d.replace(qpos=qpos, qvel=qvel)
         mm = apply_model_diff(m, diff)
+        self.last_rejection_rounds = 0
         if task.max_reset_rejections:
             tries = torch.zeros(batch, dtype=torch.int32, device=m.device)
             while True:
                 redo = task.reject(mm, d) & (tries < task.max_reset_rejections)
                 if not bool(redo.any()):
                     break
+                self.last_rejection_rounds += 1
                 qp, qv, _ = task.init(m, m.qpos0.expand(batch, m.nq).clone(),
                                       torch.zeros_like(d.qvel), rc, diff)
                 r1 = redo.unsqueeze(-1)

@@ -71,6 +71,12 @@ class RandomContext:
         numbers or tensors that broadcast against ``size``."""
         return low + (high - low) * self.rand(*size)
 
+    def randint(self, low, high, *size):
+        """Integers uniform in [low, high) of shape (B, *size), int64."""
+        return torch.randint(low, high, (self.batch, *size),
+                             generator=self.generator,
+                             device=self.generator.device)
+
 
 class Task:
     """Functional task interface over batched (Model, Data)."""
@@ -113,14 +119,19 @@ class Task:
 
 #: Model fields a per-episode diff may override.  Each may carry a leading
 #: batch axis (one value per environment), and the code that reads it
-#: broadcasts over either shape: ``geom_pos`` (ngeom, 3) or (B, ngeom, 3)
-#: in ``kinematics.kinematics``, ``wrap_prm`` (nwrap,) or (B, nwrap) in
-#: ``kinematics.tendon``, ``hfield_data`` (nrow, ncol) or (B, nrow, ncol)
-#: in ``collision._hf_surface`` (the one reader of the terrain: the
-#: rangefinder does not see it).  No constant cached on the model derives
-#: from them, so the overridden model shares the cache of the one it came
-#: from.
-DIFF_FIELDS = frozenset({"geom_pos", "wrap_prm", "hfield_data"})
+#: broadcasts over either shape: ``body_pos`` (nbody, 3), ``body_quat``
+#: (nbody, 4), ``geom_pos`` and ``site_pos`` in ``kinematics.kinematics``;
+#: ``wrap_prm`` (nwrap,) in ``kinematics.tendon``; ``hfield_data`` (nrow,
+#: ncol) in ``collision._hf_surface`` (the one reader of the terrain: the
+#: rangefinder does not see it); ``dof_damping`` (nv,) in
+#: ``dynamics.passive`` and ``engine.euler`` (a batched one always takes
+#: the implicit step, as a traced one does in the JAX package);
+#: ``site_size`` (nsite, 3) in ``sensors._touch``, and in the tasks.  No
+#: constant cached on the model derives from them, so the overridden model
+#: shares the cache of the one it came from.
+DIFF_FIELDS = frozenset({"geom_pos", "wrap_prm", "hfield_data", "body_pos",
+                         "body_quat", "dof_damping", "site_pos",
+                         "site_size"})
 
 
 def apply_model_diff(m: Model, diff: Dict) -> Model:

@@ -1,8 +1,8 @@
 """The control suite, batched on PyTorch.
 
-Thirteen of the JAX package's 19 domains are ported (``DOMAINS``);
-``load_batch`` raises ``NotImplementedError`` naming the ROADMAP item for
-each of the others.
+Sixteen of the JAX package's 19 domains are ported (``DOMAINS``), 41 of
+its 51 tasks; ``load_batch`` raises ``NotImplementedError`` naming the
+ROADMAP item for each of the others.
 """
 
 from __future__ import annotations
@@ -10,26 +10,24 @@ from __future__ import annotations
 import torch
 
 from dm_control_torch.suite import (
-    acrobot, ball_in_cup, cartpole, cheetah, fish, hopper, humanoid,
-    pendulum, point_mass, quadruped, reacher, swimmer, walker,
+    acrobot, ball_in_cup, cartpole, cheetah, finger, fish, hopper, humanoid,
+    manipulator, pendulum, point_mass, quadruped, reacher, stacker, swimmer,
+    walker,
 )
 from dm_control_torch.suite import base
 
 DOMAINS = {
     "acrobot": acrobot, "ball_in_cup": ball_in_cup, "cartpole": cartpole,
-    "cheetah": cheetah, "fish": fish, "hopper": hopper,
-    "humanoid": humanoid, "pendulum": pendulum, "point_mass": point_mass,
-    "quadruped": quadruped, "reacher": reacher, "swimmer": swimmer,
-    "walker": walker,
+    "cheetah": cheetah, "finger": finger, "fish": fish, "hopper": hopper,
+    "humanoid": humanoid, "manipulator": manipulator, "pendulum": pendulum,
+    "point_mass": point_mass, "quadruped": quadruped, "reacher": reacher,
+    "stacker": stacker, "swimmer": swimmer, "walker": walker,
 }
 #: every (domain, task) the port serves
 ALL_TASKS = tuple((d, t) for d in sorted(DOMAINS) for t in DOMAINS[d].TASKS)
 
 #: the JAX package's other domains -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "finger": "A2: finger, manipulator and stacker",
-    "manipulator": "A2: finger, manipulator and stacker",
-    "stacker": "A2: finger, manipulator and stacker",
     "humanoid_CMU": "A3: humanoid_CMU, dog and lqr",
     "dog": "A3: humanoid_CMU, dog and lqr",
     "lqr": "A3: humanoid_CMU, dog and lqr",

@@ -36,8 +36,9 @@ class Balance(base.Task):
         return obs
 
     def reward(self, m, d):
-        target_radius = m.cached("acrobot_target_radius", lambda: float(
-            m.site_size[m.names.site["target"], 0]))
+        target_radius = m.derived(
+            "acrobot_target_radius", "site_size",
+            lambda: float(m.site_size[m.names.site["target"], 0]))
         dist = torch.linalg.vector_norm(
             self.site_xpos(m, d, "target") - self.site_xpos(m, d, "tip"),
             dim=-1)

@@ -203,7 +203,7 @@ class Fetch(_QuadrupedTask):
 
     def _sizes(self, m):
         names = m.names
-        return m.cached("quadruped_fetch_sizes", lambda: dict(
+        return m.derived("quadruped_fetch_sizes", "site_size", lambda: dict(
             floor=float(m.geom_size[names.geom["floor"], 0]),
             ball=float(m.geom_size[names.geom["ball"], 0]),
             workspace=float(m.site_size[names.site["workspace"], 0]),

@@ -119,7 +119,8 @@ def stages_both(asset, state, diff=None, wind=None):
             contact_dist=pv.contact.dist, contact_pos=pv.contact.pos,
             contact_frame=pv.contact.frame, qfrc_passive=pv.qfrc_passive,
             ten_length=pv.ten_length, sensordata_posvel=sv.sensordata,
-            efc_J=efc.J, efc_aref=efc.aref, efc_D=efc.D, efc_pos=efc.pos,
+            efc_J=efc.J, efc_aref=efc.aref, efc_D=efc.D, efc_R=efc.R,
+            efc_pos=efc.pos,
             act_dot=ac.act_dot, actuator_force=ac.actuator_force,
             qfrc_actuator=ac.qfrc_actuator, step_qpos=st.qpos,
             step_qvel=st.qvel, step_act=st.act,
@@ -147,6 +148,8 @@ def stages_both(asset, state, diff=None, wind=None):
 #: absolute tolerances of ``stages_both``'s entries, by prefix: one
 #: function of the state 1e-12, constraint rows 1e-10, a whole step 1e-9
 STAGE_ATOL = {"efc_": 1e-10, "step_": 1e-9}
+#: relative tolerances instead: R is 1 / D, and 1e15 on a row without force
+STAGE_RTOL = {"efc_R": 1e-10}
 
 
 def assert_stages_close(out, skip=()):
@@ -155,9 +158,10 @@ def assert_stages_close(out, skip=()):
             continue
         atol = next((a for p, a in STAGE_ATOL.items()
                      if name.startswith(p)), 1e-12)
+        rtol = STAGE_RTOL.get(name, 0)
         assert tuple(t.shape) == j.shape, name
-        np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=atol,
-                                   err_msg=name)
+        np.testing.assert_allclose(t.numpy(), j, rtol=rtol,
+                                   atol=0 if rtol else atol, err_msg=name)
     assert out["kind"][0] == out["kind"][1]
     np.testing.assert_array_equal(out["solver_niter"][0].numpy(),
                                   out["solver_niter"][1])

@@ -1,12 +1,19 @@
-"""The port's cylinder, ellipsoid and heightfield colliders and its cubic
-resize against the JAX package's functions, in float64 on the CPU.
+"""The port's cylinder, ellipsoid, box and heightfield colliders and its
+cubic resize against the JAX package's functions, in float64 on the CPU.
 
 Poses and sizes are numpy draws from a seed.  Each collider runs batched
 over (B, P) pairs in the port and under ``jax.vmap`` over the same B * P
 pairs in the JAX package; dist, pos and frame agree within 1e-12 (the same
 expressions on both sides; they differ by the order of sums of three
-terms).  The pairs are placed touching, apart and, for the ellipsoid, with
-the other geom's centre inside it.
+terms).  The pairs are placed touching, apart and, for the ellipsoid and
+the box, with the other geom's centre inside it.  The two colliders that
+project alternately between two surfaces (ellipsoid-ellipsoid and
+ellipsoid-box) take their normal from the difference of two surface
+points; where the points nearly meet (|dist| < 1e-2) rounding alone turns
+that normal, so their frames are held to 1e-12 elsewhere only.  The ties
+random poses do not meet have tests of their own: a box lying flat on a
+plane (four corners at one height) and box-box with the reference face on
+either box.
 """
 
 import jax
@@ -24,7 +31,10 @@ jax.config.update("jax_enable_x64", True)
 B, P = 3, 4
 ATOL = 1e-12
 COLLIDERS = ("plane_cylinder", "plane_ellipsoid", "sphere_ellipsoid",
-             "capsule_ellipsoid", "capsule_cylinder", "sphere_cylinder")
+             "capsule_ellipsoid", "capsule_cylinder", "sphere_cylinder",
+             "plane_box", "sphere_box", "capsule_box", "cylinder_box",
+             "cylinder_cylinder", "ellipsoid_ellipsoid", "ellipsoid_box",
+             "ellipsoid_cylinder", "box_box")
 #: distance between the two centres, in units of the sizes' scale
 PLACEMENTS = {"touching": 0.25, "apart": 1.5, "inside": 0.02}
 
@@ -65,27 +75,39 @@ def _both(name, args):
     return got, [np.asarray(w).reshape((B, P) + w.shape[1:]) for w in want]
 
 
-#: only the ellipsoid has a branch for a centre inside it
+#: only the ellipsoid and the box have a branch for a centre inside them
 CASES = [(name, placement) for name in COLLIDERS for placement in PLACEMENTS
-         if placement != "inside" or "ellipsoid" in name]
+         if placement != "inside" or "ellipsoid" in name or "box" in name]
+
+
+#: the normal is the direction between two surface points
+_PROJECTIONS = ("ellipsoid_ellipsoid", "ellipsoid_box")
 
 
 @pytest.mark.parametrize("name,placement", CASES)
 def test_collider_matches_jax(name, placement):
     args = _pairs(sum(map(ord, name)), PLACEMENTS[placement])
     got, want = _both(name, args)
+    conditioned = np.ones(got[0].shape, bool)
+    if name in _PROJECTIONS:
+        conditioned = np.abs(got[0].numpy()) >= 1e-2
+        assert conditioned.any()
     for g, w, what in zip(got, want, ("dist", "pos", "frame")):
         assert g.shape == w.shape, what
-        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL,
-                                   err_msg=what)
+        g = g.numpy()
+        if what == "frame":
+            g, w = g[conditioned], w[conditioned]
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=what)
     dist = got[0].numpy()
-    if placement == "apart" and name.endswith("_ellipsoid") \
-            and not name.startswith("plane"):
+    if placement == "apart" and name.endswith(("_ellipsoid", "_box")) \
+            and not name.startswith(("plane", "box")):
         assert (dist > 0).all()
-    if placement == "inside" and name == "sphere_ellipsoid":
-        assert (dist < 0).all()  # the centre lies inside the ellipsoid
+    if placement == "inside" and name in ("sphere_ellipsoid", "sphere_box"):
+        assert (dist < 0).all()  # the centre lies inside the other geom
     if placement == "touching":
         assert (dist < 0).any()
+    if name == "box_box":  # corners outside the reference face: no contact
+        assert np.isinf(dist).any() and np.isfinite(dist).any()
 
 
 def test_cylinder_flat_on_the_plane_and_capsule_over_the_cap():
@@ -117,6 +139,60 @@ def test_cylinder_flat_on_the_plane_and_capsule_over_the_cap():
                                atol=ATOL)
     np.testing.assert_allclose(got[0][..., 0].numpy(),
                                pc[..., 2] - 0.2 - 0.05, atol=ATOL)
+
+
+def test_box_flat_on_the_plane_takes_the_first_four_corners():
+    """Four corners at exactly one height: the stable sort keeps corner
+    order on both sides, and the lowest corners are the bottom face, 1 cm
+    into the plane, each contact half-way between corner and plane."""
+    rng = np.random.default_rng(9)
+    eye = np.broadcast_to(np.eye(3), (B, P, 3, 3)).copy()
+    angle = rng.uniform(0, 6, (B, P))
+    turn = np.zeros((B, P, 3, 3))  # about z only: still lying flat
+    turn[..., 0, 0], turn[..., 0, 1] = np.cos(angle), -np.sin(angle)
+    turn[..., 1, 0], turn[..., 1, 1] = np.sin(angle), np.cos(angle)
+    turn[..., 2, 2] = 1.0
+    size = rng.uniform(0.05, 0.2, (P, 3))
+    p2 = np.zeros((B, P, 3))
+    p2[..., 2] = size[:, 2] - 0.01
+    for m2 in (eye, turn):
+        got, want = _both("plane_box", (np.zeros((B, P, 3)), eye, size, p2,
+                                        m2, size))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(got[0].numpy(), -0.01, atol=1e-12)
+        np.testing.assert_allclose(got[1][..., 2].numpy(), -0.005,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("reference", ["box1", "box2"])
+def test_box_box_reference_face_on_either_box(reference):
+    """A small box pressed into a large one's top face: the large box's
+    face is the reference whichever of the two it is, and the small box's
+    four lower corners are the contacts (the upper four lie above the
+    face, the other box's corners outside the small face)."""
+    rng = np.random.default_rng(13)
+    big = np.tile([0.3, 0.3, 0.1], (P, 1))
+    small = np.tile([0.05, 0.04, 0.03], (P, 1))
+    eye = np.broadcast_to(np.eye(3), (B, P, 3, 3)).copy()
+    tilt = _rotations(rng, (B, P)) * 0.02 + eye  # nearly aligned
+    tilt, _ = np.linalg.qr(tilt)
+    tilt *= np.sign(np.einsum("...ii->...i", tilt))[..., None, :]
+    p_big = rng.uniform(-0.1, 0.1, (B, P, 3))
+    p_small = p_big + np.array([0.0, 0.0, 0.1 + 0.03 - 0.005]) \
+        + rng.uniform(-0.02, 0.02, (B, P, 3)) * [1, 1, 0]
+    args = (p_big, eye, big, p_small, tilt, small) if reference == "box1" \
+        else (p_small, tilt, small, p_big, eye, big)
+    got, want = _both("box_box", args)
+    for g, w, what in zip(got, want, ("dist", "pos", "frame")):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL,
+                                   err_msg=what)
+    dist = got[0].numpy()
+    assert ((dist < 0).sum(-1) == 4).all()  # the small box's lower face
+    normal = got[2][..., 0, 0, :].numpy()  # from geom 1 into geom 2
+    up = 1.0 if reference == "box1" else -1.0
+    np.testing.assert_allclose(
+        normal, np.broadcast_to([0, 0, up], normal.shape), atol=1e-12)
 
 
 # -- heightfield --------------------------------------------------------------
@@ -175,7 +251,7 @@ def test_hf_surface_and_point_contacts_match_jax(batched):
 
 
 @pytest.mark.parametrize("geom", ["sphere", "capsule", "cylinder",
-                                  "ellipsoid"])
+                                  "ellipsoid", "box"])
 def test_hfield_collider_matches_jax(geom):
     from dm_control_tpu.physics.model import GeomType as JGeomType
     from dm_control_torch.physics.model import GeomType

@@ -43,6 +43,7 @@ def _spd(rng, b, n, dtype, device):
 # warps evenly
 @pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (2, 8192), (3, 1024),
                                  (4, 1001), (7, 1024), (9, 4096),
+                                 (11, 1024), (14, 1001), (20, 1024),
                                  (27, 1024), (31, 1001),
                                  (32, 1001), (33, 1001), (62, 1024),
                                  (63, 1001), (64, 1001), (65, 1001),

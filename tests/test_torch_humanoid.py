@@ -140,7 +140,7 @@ def test_divergence_terminates_only_its_env(gold, tenv):
 
 def test_other_domains_are_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsuite.load_batch("finger", "turn_easy", device="cpu",
+        tsuite.load_batch("humanoid_CMU", "run", device="cpu",
                           dtype=torch.float32)
 
 

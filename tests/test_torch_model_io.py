@@ -17,6 +17,10 @@ from dm_control_torch.physics.model import Model
 from dm_control_torch.suite import base as tbase
 
 ASSETS = tuple(a for assets in export_tool().ASSETS.values() for a in assets)
+#: domains whose assets tests/test_torch_finger.py and
+#: tests/test_torch_manipulator.py check against a fresh export through this
+#: file's function: those files compile the JAX models anyway
+ELSEWHERE = ("finger", "manipulator", "stacker")
 
 
 def _fields(model):
@@ -70,7 +74,9 @@ def test_save_load_round_trip_is_exact(exported, tmp_path):
     _assert_same(model_io.load(path, "cpu", torch.float64), exported)
 
 
-@pytest.mark.parametrize("asset", ASSETS)
+@pytest.mark.parametrize("asset", [
+    a for d, assets in export_tool().ASSETS.items() if d not in ELSEWHERE
+    for a in assets])
 def test_checked_in_asset_equals_a_fresh_export(asset):
     _assert_same(tbase.load_model(asset, "cpu", torch.float64),
                  model_io.from_jax_model(jax_model(asset)))

@@ -296,8 +296,8 @@ def test_tasks_time_limits_and_timesteps_equal_the_jax_suite():
 
 def test_load_batch_errors():
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP A2: finger, manipulator and stacker"):
-        tsuite.load_batch("finger", "spin", device="cpu",
+                       match="ROADMAP A3: humanoid_CMU, dog and lqr"):
+        tsuite.load_batch("humanoid_CMU", "stand", device="cpu",
                           dtype=torch.float32)
     with pytest.raises(ValueError, match="Level 'fly'"):
         tsuite.load_batch("walker", "fly", device="cpu", dtype=torch.float32)

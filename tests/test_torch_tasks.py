@@ -28,7 +28,12 @@ import torch
 from _torch_helpers import golden
 from dm_control_torch import suite as tsuite
 
-TASKS = tuple(t for t in tsuite.ALL_TASKS if t[0] != "humanoid")
+#: the domains whose tasks tests/test_torch_finger.py and
+#: tests/test_torch_manipulator.py run through this file's functions (their
+#: files compile the JAX models anyway)
+MANIPULATION = ("finger", "manipulator", "stacker")
+TASKS = tuple(t for t in tsuite.ALL_TASKS
+              if t[0] != "humanoid" and t[0] not in MANIPULATION)
 ATOL = 1e-10
 
 
@@ -98,9 +103,31 @@ def _port(env, qpos, qvel, diff, ctrl):
 def _reward_state_0(domain, env, qpos, qvel, diff, ctrl):
     """Makes state 0 (``qpos0``, at rest) one that the domain's otherwise
     rarely met reward pays for: reacher's target under the finger,
-    ball_in_cup's ball at the target, hopper moving forward."""
+    ball_in_cup's ball at the target, hopper moving forward, finger's
+    spinner turning fast and its target under the tip, manipulator's prop
+    on its target, a stacker box on the target."""
     m, d, _ = _data(env, qpos, qvel, diff, ctrl)
     names = m.names
+    if domain == "finger":
+        qvel[0, m.jnt_dofadr[names.joint["hinge"]]] = -20.0
+        if "site_pos" in diff:  # the target is a world site
+            xz = m.idx([0, 2])
+            diff["site_pos"][0, names.site["target"], xz] = \
+                d.site_xpos[0, names.site["tip"], xz]
+    if domain in ("manipulator", "stacker"):
+        prop, target = ("box0", "target") if domain == "stacker" else (
+            env.task._object, env.task._target)
+        if domain == "manipulator":  # turn the prop to the target's angle
+            def angle(b):
+                q = d.xquat[0, names.body[b]]
+                return 2 * torch.atan2(q[2], q[0])
+            qpos[0, m.jnt_qposadr[names.joint[prop + "_y"]]] += \
+                angle(target) - angle(prop)
+            m, d, _ = _data(env, qpos, qvel, diff, ctrl)
+        gap = d.site_xpos[0, names.site[target]] \
+            - d.site_xpos[0, names.site[prop]]
+        qpos[0, m.jnt_qposadr[names.joint[prop + "_x"]]] += gap[0]
+        qpos[0, m.jnt_qposadr[names.joint[prop + "_z"]]] += gap[2]
     if domain == "reacher":
         diff["geom_pos"][0, names.geom["target"], :2] = \
             d.geom_xpos[0, names.geom["finger"], :2]
@@ -168,3 +195,5 @@ def test_task_functions_match_jax(domain, task):
         assert set(np.unique(reward.numpy())) == {0.0, 1.0}
     else:
         assert float(reward.max()) > float(reward.min())
+    if domain in MANIPULATION:  # state 0 is one the reward pays for
+        assert float(reward[0]) > 0.5

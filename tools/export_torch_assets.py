@@ -22,7 +22,14 @@ It writes, for every ported domain (or only the ones named),
   ``contact_*`` after ``FALL_STEPS[golden]`` further control steps (for
   the domains with a floor: lying or standing on it, contacts active; for
   ball_in_cup: the string taut; for quadruped_fetch: the ball on the
-  floor too); for each, the per-episode model
+  floor too; for finger: the spinner touching the finger; for
+  manipulator: the ball in the hand; for manipulator_insert_peg: the peg
+  against the slot; for stacker: a box on a box, boxes flat on the floor.
+  Those four counts were picked among the states that reach the new code
+  as ones where a step's result does not jump with rounding: at some
+  states, manipulator's after 95 steps say, a relative change of 1e-12
+  in qvel moves the next control step's qacc by 1e3); for each, the
+  per-episode model
   overrides (``<prefix>_diff_<field>``), actions drawn with numpy seed
   ``GOLDEN_SEED`` and the JAX state, observation, reward, discount and
   step type after one control step (keys ``<prefix>_actions``,
@@ -51,18 +58,22 @@ GOLDEN_TASKS = {
     "cheetah": "run", "hopper": "hop", "point_mass": "hard",
     "ball_in_cup": "catch", "quadruped": "walk",
     "quadruped_escape": "escape", "quadruped_fetch": "fetch",
-    "fish": "swim", "swimmer": "swimmer6",
+    "fish": "swim", "swimmer": "swimmer6", "finger": "turn_hard",
+    "manipulator": "bring_ball", "manipulator_insert_peg": "insert_peg",
+    "stacker": "stack_4",
 }
 #: golden -> its domain, where the two names differ
 GOLDEN_DOMAINS = {"quadruped_escape": "quadruped",
-                  "quadruped_fetch": "quadruped"}
+                  "quadruped_fetch": "quadruped",
+                  "manipulator_insert_peg": "manipulator"}
 #: golden -> control steps between the ``reset_*`` and ``contact_*`` states
 FALL_STEPS = {
     "humanoid": 40, "pendulum": 10, "acrobot": 10, "cartpole": 10,
     "reacher": 10, "walker": 40, "cheetah": 10, "hopper": 40,
     "point_mass": 10, "ball_in_cup": 30, "quadruped": 50,
     "quadruped_escape": 25, "quadruped_fetch": 200, "fish": 10,
-    "swimmer": 10,
+    "swimmer": 10, "finger": 95, "manipulator": 65,
+    "manipulator_insert_peg": 429, "stacker": 55,
 }
 #: domain -> {asset name: arguments of the JAX domain's get_model}
 ASSETS = {
@@ -81,6 +92,13 @@ ASSETS = {
         "quadruped_fetch": dict(walls_and_ball=True)},
     "fish": {"fish": ()},
     "swimmer": {"swimmer6": (6,), "swimmer15": (15,)},
+    "finger": {"finger": ()},
+    "manipulator": {
+        "manipulator_bring_ball": (False, False),
+        "manipulator_bring_peg": (True, False),
+        "manipulator_insert_ball": (False, True),
+        "manipulator_insert_peg": (True, True)},
+    "stacker": {"stacker_2": (2,), "stacker_4": (4,)},
 }
 DOMAINS = tuple(ASSETS)
 GOLDENS = tuple(GOLDEN_TASKS)

@@ -18,7 +18,7 @@ prints (and with ``--out`` also writes) one JSON object:
   over 200 back-to-back calls;
 - the reset by stage: seconds in the task's ``init`` and, for quadruped, in
   ``_drop_to_ground`` (with its rounds) and in what ``init`` does besides
-  (escape's terrain draw);
+  (escape's terrain draw); the rounds of the reset's rejection loop;
 - one ``collision.collision`` of the model: its device kernels, and how
   many of them the ellipsoid's closest-point iteration launches.
 
@@ -193,6 +193,7 @@ def reset_times(env, batch, gen):
         del task.init
         if "_drop_to_ground" in vars(task):
             del task._drop_to_ground
+    spent["rejection_rounds"] = env.last_rejection_rounds
     if "drop_to_ground_s" in spent:
         spent["drop_rounds"] = task.last_drop_rounds
         spent["init_other_s"] = spent["init_s"] - spent["drop_to_ground_s"]
