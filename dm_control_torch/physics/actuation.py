@@ -28,7 +28,7 @@ def _transmission_plan(m: Model):
         else:
             raise NotImplementedError(
                 f"actuator {u}: only transmissions on hinge/slide joints "
-                f"and on tendons are ported (ROADMAP A6: composer, "
+                f"and on tendons are ported (ROADMAP A5: composer, "
                 f"locomotion and manipulation)")
     jids = [m.actuator_trnid[u][0] for u in joint]
     dadr = [m.jnt_dofadr[j] for j in jids]

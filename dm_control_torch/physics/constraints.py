@@ -8,7 +8,9 @@ then friction loss, then limits (joints, then tendons), then contacts by
 condim.  The row structure is static per model; rows MuJoCo would not
 instantiate (dist >= margin) are carried with D = 0.  A model with
 constraints disabled, or with nothing to tie or limit and contacts off,
-gets zero rows.  CONNECT and WELD equalities and ball-joint limits raise
+gets zero rows.  With ``opt.contact_cap`` set, a float32 state keeps only
+the deepest contacts of each condim group (``_contact_rows_compact``).
+CONNECT and WELD equalities and ball-joint limits raise
 ``NotImplementedError``.
 
 MuJoCo's soft-constraint model: each row has impedance d(pos) from solimp,
@@ -65,6 +67,13 @@ class Efc:
         static_field(default=())
     ne: int = static_field(default=0)
     nf: int = static_field(default=0)
+    # contact compaction (``_contact_rows_compact``), per condim group:
+    # (offset into contact_selids, first row, rows per contact, k), the
+    # group's k contacts chosen per environment; contact_selids (B, nsel)
+    # holds their candidate ids, for the forces' scatter back
+    sel_spans: Tuple[Tuple[int, int, int, int], ...] = \
+        static_field(default=())
+    contact_selids: torch.Tensor = None
 
     @property
     def ncone(self) -> int:
@@ -137,7 +146,8 @@ class _Blocks:
         self.raw.append((J, aref, D, R, pos))
         self.nrows += pos.shape[1]
 
-    def build(self, spans=((), ()), ne=0, floss=None) -> Efc:
+    def build(self, spans=((), ()), ne=0, floss=None,
+              sel=((), None)) -> Efc:
         m = self.m
         contact_spans, cone_spans = spans
         if not self.nrows:
@@ -157,7 +167,8 @@ class _Blocks:
             torch.cat(x, dim=1) for x in zip(*rows, *self.raw))
         return Efc(J=J, D=d_vec, R=r_reg, aref=aref, pos=pos, floss=floss,
                    contact_spans=contact_spans, cone_spans=cone_spans, ne=ne,
-                   nf=0 if floss is None else floss.shape[0])
+                   nf=0 if floss is None else floss.shape[0],
+                   sel_spans=sel[0], contact_selids=sel[1])
 
 
 def _check_ported(m: Model):
@@ -169,17 +180,14 @@ def _check_ported(m: Model):
             if m.eq_type[e] not in (int(EqType.JOINT), int(EqType.TENDON)):
                 raise NotImplementedError(
                     f"equality {e}: {EqType(m.eq_type[e]).name} equality "
-                    f"constraints are not ported yet (ROADMAP A6: composer, "
+                    f"constraints are not ported yet (ROADMAP A5: composer, "
                     f"locomotion and manipulation)")
     if not dis & DisableBit.LIMIT:
         for j in range(m.njnt):
             if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL):
                 raise NotImplementedError("ball-joint limits are not ported "
-                                          "yet (ROADMAP A3: humanoid_CMU, "
-                                          "dog and lqr)")
-    if m.opt.contact_cap:
-        raise NotImplementedError("contact compaction is not ported yet "
-                                  "(ROADMAP A3: humanoid_CMU, dog and lqr)")
+                                          "yet (ROADMAP A5: composer, "
+                                          "locomotion and manipulation)")
     return True
 
 
@@ -188,6 +196,7 @@ def make_constraint(m: Model, d: Data) -> Efc:
     blocks = _Blocks(m, d.qpos.shape[0])
     dis = m.opt.disableflags
     spans: Tuple = ((), ())
+    sel: Tuple = ((), None)
     ne = 0
     floss = None
     if not dis & DisableBit.CONSTRAINT:
@@ -199,8 +208,24 @@ def make_constraint(m: Model, d: Data) -> Efc:
         if not dis & DisableBit.LIMIT:
             _limit_rows(m, d, blocks)
         if not dis & DisableBit.CONTACT:
-            spans = _contact_rows(m, d, blocks)
-    return blocks.build(spans, ne, floss)
+            if _compacts(m, d):
+                sel = _contact_rows_compact(m, d, blocks, m.opt.contact_cap)
+            else:
+                spans = _contact_rows(m, d, blocks)
+    return blocks.build(spans, ne, floss, sel)
+
+
+def _compacts(m: Model, d: Data) -> bool:
+    """Contact compaction engages, as in the JAX package, where
+    ``opt.contact_cap`` is set, the state is float32, the cones are
+    pyramidal, noslip is off and some condim group has more candidates
+    than the cap (the selection is per group: a group under the cap
+    would drop no row)."""
+    dims = d.contact.dim
+    return (m.opt.contact_cap > 0 and d.qpos.dtype == torch.float32
+            and m.opt.cone != 1 and m.opt.noslip_iterations == 0
+            and max((dims.count(c) for c in set(dims)), default=0)
+            > m.opt.contact_cap)
 
 
 def _equality_plan(m: Model, etype: EqType):
@@ -372,7 +397,6 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
     ncon = len(con.dim)
     if ncon == 0:
         return (), ()
-    B = d.qpos.shape[0]
     b1s = tuple(m.geom_bodyid[g] for g in con.geom1)
     b2s = tuple(m.geom_bodyid[g] for g in con.geom2)
     jac1p, jac1r = kin.jac_points(m, d, con.pos, b1s)
@@ -387,8 +411,6 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
     pos_eff = con.dist - con.includemargin
     iw = m.body_invweight0[:, 0]
     inv = iw[m.idx(b1s)] + iw[m.idx(b2s)]  # (ncon,)
-    mu0 = con.friction[:, :, 0]  # (B, ncon)
-    inv_pyr = (inv + mu0 * mu0 * inv) * 2.0 * mu0 * mu0 / m.opt.impratio
 
     elliptic = m.opt.cone == 1
     dims = np.array(con.dim)
@@ -409,32 +431,102 @@ def _contact_rows(m: Model, d: Data, blocks: _Blocks):
                                condim))
             row_base += k * condim
             continue
-        if condim == 1:
-            nrows = 1
-            blocks.add(jn, pe, con.solref[:, gidx], con.solimp[:, gidx],
-                       inv[gidx], torch.einsum("bkv,bv->bk", jn, d.qvel),
-                       active=pe < 0)
-        elif condim in (3, 4, 6):
-            nrows = 2 * (condim - 1)
-            rows = []
-            for i in range(condim - 1):
-                mu_i = con.friction[:, gidx, i].unsqueeze(-1)
-                ti = proj(1 + i, gidx) if i < 2 else proj(i - 2, gidx, jdr)
-                rows += [jn + mu_i * ti, jn - mu_i * ti]
-            J = torch.stack(rows, dim=2).reshape(B, k * nrows, m.nv)
-            rep = lambda x: torch.repeat_interleave(  # noqa: E731
-                x, nrows, dim=1)
-            pr = rep(pe)
-            blocks.add(J, pr, rep(con.solref[:, gidx]),
-                       rep(con.solimp[:, gidx]), rep(inv_pyr[:, gidx]),
-                       torch.einsum("bkv,bv->bk", J, d.qvel),
-                       active=pr < 0)
-        else:
-            raise NotImplementedError(
-                f"contacts with condim {condim} do not exist")
+        nrows = _pyramid_rows(
+            m, d, blocks, condim, jn, lambda i: proj(1 + i, gidx)
+            if i < 2 else proj(i - 2, gidx, jdr), pe, con.solref[:, gidx],
+            con.solimp[:, gidx], con.friction[:, gidx], inv[gidx])
         spans.append((tuple(int(c) for c in idx), row_base, nrows))
         row_base += k * nrows
     return tuple(spans), tuple(cone_spans)
+
+
+def _pyramid_rows(m: Model, d: Data, blocks: _Blocks, condim, jn, tangent,
+                  pe, solref, solimp, friction, inv):
+    """Adds the rows of k contacts of one condim: one normal row for
+    condim 1; for a pyramidal condim c, 2 (c - 1) rows n +- mu_i t_i,
+    ordered (+t0, -t0, +t1, -t1, ...).  ``jn`` (B, k, nv) is the normal's
+    Jacobian, ``tangent(i)`` friction direction i's; ``pe``, ``solref``,
+    ``solimp`` and ``friction`` are the contacts' (B, k, ...), ``inv``
+    their bodies' summed inverse weights.  Returns the rows per contact."""
+    B, k = pe.shape
+    if condim == 1:
+        blocks.add(jn, pe, solref, solimp, inv,
+                   torch.einsum("bkv,bv->bk", jn, d.qvel), active=pe < 0)
+        return 1
+    if condim not in (3, 4, 6):
+        raise NotImplementedError(f"contacts with condim {condim} do not "
+                                  f"exist")
+    nrows = 2 * (condim - 1)
+    mu0 = friction[..., 0]
+    inv_pyr = (inv + mu0 * mu0 * inv) * 2.0 * mu0 * mu0 / m.opt.impratio
+    rows = []
+    for i in range(condim - 1):
+        mu_i = friction[..., i].unsqueeze(-1)
+        ti = tangent(i)
+        rows += [jn + mu_i * ti, jn - mu_i * ti]
+    J = torch.stack(rows, dim=2).reshape(B, k * nrows, m.nv)
+    rep = lambda x: torch.repeat_interleave(x, nrows, dim=1)  # noqa: E731
+    pr = rep(pe)
+    blocks.add(J, pr, rep(solref), rep(solimp), rep(inv_pyr),
+               torch.einsum("bkv,bv->bk", J, d.qvel), active=pr < 0)
+    return nrows
+
+
+def _contact_rows_compact(m: Model, d: Data, blocks: _Blocks, cap: int):
+    """Contact rows of the ``cap`` deepest candidates of each condim group,
+    chosen per environment (a group with at most ``cap`` keeps all, in
+    order); the rows of ``_pyramid_rows``, on Jacobians at each
+    environment's own bodies.  The candidate arrays in ``d.contact`` keep
+    their full size.  Returns (sel_spans, contact_selids) for the solver
+    to scatter the forces back (``Efc``).  Counterpart of
+    ``dm_control_tpu/physics/constraints.py::_contact_rows_compact``.
+
+    ``jax.lax.top_k`` of -depth puts the lower index first among equal
+    depths (a box lying flat has four); a stable ascending sort of the
+    depth does the same (``torch.topk`` promises no order)."""
+    con = d.contact
+    B = d.qpos.shape[0]
+    pos_eff = con.dist - con.includemargin
+    geom_body = m.cached("geom_bodyid", lambda: m.idx(m.geom_bodyid))
+    g1, g2 = m.idx(con.geom1), m.idx(con.geom2)
+    iw = m.body_invweight0[:, 0]
+    dims = np.array(con.dim)
+    sel_spans, sel_parts = [], []
+    sel_off, row_base = 0, blocks.nrows
+    for condim in sorted(set(con.dim)):
+        gidx = m.idx(np.nonzero(dims == condim)[0])
+        k = gidx.shape[0]
+        kk = min(k, cap)
+        if kk < k:
+            gsel = gidx[torch.sort(pos_eff[:, gidx], dim=1,
+                                   stable=True).indices[:, :kk]]
+        else:
+            gsel = gidx.expand(B, k)
+
+        def take(x):  # the selected rows of a (B, ncon, ...) tensor
+            return torch.gather(x, 1, gsel.reshape(
+                B, kk, *(1,) * (x.ndim - 2)).expand(B, kk, *x.shape[2:]))
+
+        b1, b2 = geom_body[g1[gsel]], geom_body[g2[gsel]]  # (B, kk)
+        pos = take(con.pos)
+        jac1p, jac1r = kin.jac_points(m, d, pos, b1)
+        jac2p, jac2r = kin.jac_points(m, d, pos, b2)
+        jdp = jac2p - jac1p
+        frame = take(con.frame)
+
+        def proj(row, jd=jdp):
+            return torch.einsum("bki,bkiv->bkv", frame[:, :, row], jd)
+
+        jdr = jac2r - jac1r
+        nrows = _pyramid_rows(
+            m, d, blocks, condim, proj(0), lambda i: proj(1 + i)
+            if i < 2 else proj(i - 2, jdr), take(pos_eff), take(con.solref),
+            take(con.solimp), take(con.friction), iw[b1] + iw[b2])
+        sel_spans.append((sel_off, row_base, nrows, kk))
+        sel_parts.append(gsel)
+        sel_off += kk
+        row_base += kk * nrows
+    return tuple(sel_spans), torch.cat(sel_parts, dim=1)
 
 
 def _elliptic_rows(m: Model, d: Data, blocks: _Blocks, J, pos, gidx, inv):

@@ -40,7 +40,7 @@ def _passive_plan(m: Model):
            if m.jnt_type[j] in (int(JointType.FREE), int(JointType.BALL))):
         raise NotImplementedError(
             "springs on free/ball joints are not ported yet "
-            "(ROADMAP A3: humanoid_CMU, dog and lqr)")
+            "(ROADMAP A5: composer, locomotion and manipulation)")
     # whether the medium acts at all is decided once, on the host, from
     # the model's constants
     fluid = bool(float(m.opt.density) != 0.0 or float(m.opt.viscosity) != 0.0

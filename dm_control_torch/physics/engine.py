@@ -89,7 +89,8 @@ def _integrate_plan(m: Model):
             other.append(jid)
     if other:
         raise NotImplementedError("ball joints are not ported yet "
-                                  "(ROADMAP A3: humanoid_CMU, dog and lqr)")
+                                  "(ROADMAP A5: composer, locomotion and "
+                                  "manipulation)")
     return scalar_q, scalar_d, free
 
 

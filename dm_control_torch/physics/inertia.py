@@ -30,3 +30,20 @@ def solve_m(m: Model, d: Data, rhs: torch.Tensor) -> torch.Tensor:
     refactors inside the solve, so that factorization is not carried over.
     """
     return linalg.chol_solve(d.qM, rhs)
+
+
+def factor_m(d: Data) -> torch.Tensor:
+    """The lower Cholesky factor of qM (B, nv, nv), for ``solve_m_matrix``
+    (an environment whose qM is not positive definite gets garbage in its
+    own rows only)."""
+    return torch.linalg.cholesky_ex(d.qM).L
+
+
+def solve_m_matrix(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """mj_solveM for a matrix rhs (B, nv, k), given ``factor_m``'s factor.
+
+    The JAX package solves its matrix right-hand sides outside its Pallas
+    kernel too, with a Cholesky factor and two triangular solves
+    (``dm_control_tpu/physics/inertia.py::solve_m``); this is that, as
+    library calls."""
+    return torch.cholesky_solve(rhs, chol)

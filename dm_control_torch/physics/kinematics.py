@@ -195,10 +195,18 @@ def com_vel(m: Model, d: Data) -> Data:
 
 
 def jac_points(m: Model, d: Data, points, bodyids):
-    """mj_jac over K world points on static bodies: (jacp, jacr), each
-    (B, K, 3, nv).  ``points`` is (B, K, 3)."""
-    mask = m.body_chain_mask[m.idx(bodyids)]  # (K, nv)
-    com = d.subtree_com[:, m.idx([m.body_rootid[b] for b in bodyids])]
+    """mj_jac over K world points: (jacp, jacr), each (B, K, 3, nv).
+    ``points`` is (B, K, 3); ``bodyids`` is a sequence of K static body
+    ids, or a (B, K) integer tensor of each environment's own (contact
+    compaction selects the contacts per environment)."""
+    if isinstance(bodyids, torch.Tensor):
+        roots = m.cached("body_rootid", lambda: m.idx(m.body_rootid))
+        mask = m.body_chain_mask[bodyids]  # (B, K, nv)
+        com = torch.gather(d.subtree_com, 1, roots[bodyids].unsqueeze(
+            -1).expand(*bodyids.shape, 3))
+    else:
+        mask = m.body_chain_mask[m.idx(bodyids)]  # (K, nv)
+        com = d.subtree_com[:, m.idx([m.body_rootid[b] for b in bodyids])]
     offset = (points - com).unsqueeze(-2)  # (B, K, 1, 3)
     ang = d.cdof[:, None, :, :3]  # (B, 1, nv, 3)
     lin = d.cdof[:, None, :, 3:]

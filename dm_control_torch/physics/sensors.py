@@ -23,14 +23,14 @@ from dm_control_torch.physics.model import (
 _S = SensorType
 _FRAME_AXIS = {_S.FRAMEXAXIS: 0, _S.FRAMEYAXIS: 1, _S.FRAMEZAXIS: 2}
 #: types whose object is any framed object or a body, not only a site
-_ANY_OBJECT = {_S.FRAMEPOS, _S.SUBTREECOM, _S.SUBTREELINVEL, *_FRAME_AXIS}
+_ANY_OBJECT = {_S.FRAMEPOS, _S.SUBTREECOM, _S.SUBTREELINVEL,
+               _S.SUBTREEANGMOM, *_FRAME_AXIS}
 #: types whose object is a joint
 _OF_JOINT = {_S.JOINTPOS, _S.JOINTVEL}
 _PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
            _S.TORQUE, _S.RANGEFINDER, *_ANY_OBJECT, *_OF_JOINT}
-#: the ROADMAP item that ports a missing type: the first model that needs it
-_ROADMAP = {_S.SUBTREEANGMOM: "A3: humanoid_CMU, dog and lqr"}
-_ROADMAP_LATER = "A6: composer, locomotion and manipulation"
+#: the ROADMAP item that ports the missing types
+_ROADMAP = "A5: composer, locomotion and manipulation"
 
 
 def _by_type(m: Model):
@@ -41,7 +41,7 @@ def _by_type(m: Model):
         if stype not in _PORTED:
             raise NotImplementedError(
                 f"sensor type {stype.name} is not ported yet (ROADMAP "
-                f"{_ROADMAP.get(stype, _ROADMAP_LATER)})")
+                f"{_ROADMAP})")
         if stype in _OF_JOINT:
             jtype = m.jnt_type[m.sensor_objid[s]]
             if jtype not in (int(JointType.HINGE), int(JointType.SLIDE)):
@@ -169,6 +169,7 @@ def sensor_vel(m: Model, d: Data) -> Data:
     if m.nsensor == 0:
         return d
     out = d.sensordata.clone()
+    subtree = None
     for stype, sensors in _groups(m).items():
         if stype == _S.JOINTVEL:
             _put(m, out, sensors, d.qvel[:, m.idx(
@@ -179,10 +180,14 @@ def sensor_vel(m: Model, d: Data) -> Data:
             vel = mx.transform_motion(d.cvel[:, m.idx(bodies)], offset)
             part = vel[..., :3] if stype == _S.GYRO else vel[..., 3:]
             _put(m, out, sensors, mx.mat_t_vec(mat, part))
-        elif stype == _S.SUBTREELINVEL:
-            linvel = _subtree_linvel(m, d)
-            _put(m, out, sensors,
-                 linvel[:, m.idx([m.sensor_objid[s] for s in sensors])])
+        elif stype in (_S.SUBTREELINVEL, _S.SUBTREEANGMOM):
+            if subtree is None:
+                subtree = _subtree_vel(m, d, [
+                    m.sensor_objid[s]
+                    for s in _groups(m).get(_S.SUBTREEANGMOM, ())])
+            linvel, angmom = subtree
+            _put(m, out, sensors, angmom if stype == _S.SUBTREEANGMOM
+                 else linvel[:, m.idx([m.sensor_objid[s] for s in sensors])])
     return d.replace(sensordata=out)
 
 
@@ -252,13 +257,31 @@ def _touch(m: Model, d: Data, sensors):
                                  torch.zeros_like(force)), dim=-1)
 
 
-def _subtree_linvel(m: Model, d: Data):
-    """mj_subtreeVel's linear part: subtree CoM velocity per body."""
+def _subtree_vel(m: Model, d: Data, bodies=()):
+    """mj_subtreeVel: the subtree CoM linear velocity of every body
+    (B, nbody, 3), and the angular momentum (B, len(bodies), 3) of the
+    subtrees of ``bodies`` about their CoMs (None without ``bodies``):
+
+        L_b = sum_{i in subtree(b)} I_i w_i + m_i (r_i - c_b) x (v_i - v_b)
+
+    with I_i w_i in world axes; membership is ``body_subtree_mask``."""
     root = m.idx(m.body_rootid)
     vel6 = mx.transform_motion(d.cvel, d.xipos - d.subtree_com[:, root])
-    mom = m.body_mass.unsqueeze(-1) * vel6[..., 3:]
-    return (body_subtree_mask(m) @ mom) / torch.clamp(
+    ang, lin = vel6[..., :3], vel6[..., 3:]
+    member = body_subtree_mask(m)
+    mom = m.body_mass.unsqueeze(-1) * lin
+    linvel = (member @ mom) / torch.clamp(
         m.body_subtreemass.unsqueeze(-1), min=1e-15)
+    if not bodies:
+        return linvel, None
+    iw = mx.mat_vec(d.ximat, m.body_inertia * mx.mat_t_vec(d.ximat, ang))
+    b = m.idx(bodies)
+    sub = member[b]  # (S, nbody)
+    r = d.xipos.unsqueeze(1) - d.subtree_com[:, b].unsqueeze(2)
+    dv = lin.unsqueeze(1) - linvel[:, b].unsqueeze(2)  # (B, S, nbody, 3)
+    cross = mx.cross(r, dv) * m.body_mass.unsqueeze(-1)
+    angmom = sub @ iw + torch.sum(sub.unsqueeze(-1) * cross, dim=2)
+    return linvel, angmom
 
 
 def _rne_postconstraint(m: Model, d: Data):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from dm_control_torch.ops import linalg
+from dm_control_torch.physics import inertia as inr
 from dm_control_torch.physics.constraints import Efc
 from dm_control_torch.physics.model import Data, DisableBit, Model
 
@@ -169,6 +170,124 @@ def _cone_eval(groups, jar, jp=None, hess=False):
     return cost, torch.cat(dparts, dim=1), hparts, curv
 
 
+def _noslip_order(force, start, k, nrows, gather):
+    """The contacts (B, K) of one pyramidal span that the sweep visits, in
+    order.  With ``gather``: first each environment's contacts with a
+    nonzero row force, in their order, then its others, cut at the
+    batch's largest count K of the first kind; without: every contact."""
+    B = force.shape[0]
+    if not gather:
+        return torch.arange(k, device=force.device).expand(B, k)
+    live = (force[:, start:start + k * nrows].reshape(B, k, nrows)
+            != 0).any(-1)
+    K = int(live.sum(-1).max())
+    return torch.sort((~live).to(torch.uint8), dim=1,
+                      stable=True).indices[:, :K]
+
+
+def noslip(m: Model, d: Data, efc: Efc, qacc, force, gather=True):
+    """The noslip post-pass (mj_noSlip): ``opt.noslip_iterations``
+    Gauss-Seidel sweeps over the friction variables of the unregularized
+    dual (A = J M^-1 J^T, residual J qacc - aref), each sweep first over
+    the friction-loss rows, one after another, each clamped to
+    [-floss, floss]; then over the pyramidal contacts, span by span and
+    contact by contact, each contact's pairs one after another: the pair
+    sum mid_j = (f_2j + f_2j+1) / 2 stays fixed and the half difference
+    y_j takes a 1-D Newton step clamped to |y_j| <= mid_j.  Returns
+    (force, qacc).  Counterpart of
+    ``dm_control_tpu/physics/solver.py::_noslip``.
+
+    Why only some contacts are visited (``gather``): the Newton solution's
+    pyramid forces are >= 0, so a contact whose rows all carry zero force
+    has mid_j = 0 for every pair.  Its update is then y_j = 0, its forces
+    stay 0 and it adds 0 to qacc: an exact no-op, in this sweep and in
+    every later one.  So each environment sweeps its contacts with a
+    nonzero force, in their original order, and the batch runs its
+    largest count K of them; an environment with fewer fills its last
+    slots with contacts without force, whose update is that no-op.  This
+    gives the full sweep's result (``gather=False``; a test holds the two
+    equal bit for bit), and M^-1 J^T is needed for the visited rows
+    only."""
+    spans = [s for s in efc.contact_spans if s[2] > 1]
+    if not efc.nf and not spans:
+        return force, qacc
+    B, nv = qacc.shape
+    chol = inr.factor_m(d)
+
+    def minv_rows(rows):  # J rows (B, r, nv) -> (M^-1 J^T)^T (B, r, nv)
+        return inr.solve_m_matrix(chol, rows.transpose(1, 2)).transpose(1, 2)
+
+    def dot(a, b):
+        return torch.sum(a * b, -1)
+
+    force = force.clone()
+    if efc.nf:
+        frows = slice(efc.ne, efc.ne + efc.nf)
+        Jf = efc.J[:, frows]
+        mf = minv_rows(Jf)
+        a_ff = torch.clamp(dot(Jf, mf), min=_MINVAL)
+        af = efc.aref[:, frows]
+    # per slot: its rows (B, nrows), the pairs' J_2j - J_2j+1 and
+    # aref_2j - aref_2j+1, the rows' M^-1 J^T, and the pairs' curvature
+    # h_jj = A_2j,2j - 2 A_2j,2j+1 + A_2j+1,2j+1
+    slots = []
+    for conids, start, nrows in spans:
+        order = _noslip_order(force, start, len(conids), nrows, gather)
+        offs = torch.arange(nrows, device=qacc.device)
+        for c in range(order.shape[1]):
+            rows = start + order[:, c:c + 1] * nrows + offs
+            Jc = torch.gather(efc.J, 1, rows.unsqueeze(-1).expand(
+                B, nrows, nv))
+            mc = minv_rows(Jc)
+            A = Jc @ mc.transpose(1, 2)  # (B, nrows, nrows)
+            h = (A[:, 0::2, 0::2].diagonal(dim1=1, dim2=2)
+                 - 2 * A[:, 0::2, 1::2].diagonal(dim1=1, dim2=2)
+                 + A[:, 1::2, 1::2].diagonal(dim1=1, dim2=2))
+            ac = torch.gather(efc.aref, 1, rows)
+            slots.append((rows, Jc[:, 0::2] - Jc[:, 1::2],
+                          ac[:, 0::2] - ac[:, 1::2], mc,
+                          torch.clamp(h, min=_MINVAL)))
+    noslip.slots += len(slots)
+    f_slot = [torch.gather(force, 1, s[0]) for s in slots]
+    for _ in range(m.opt.noslip_iterations):
+        for i in range(efc.nf):
+            row = efc.ne + i
+            res = dot(Jf[:, i], qacc) - af[:, i]
+            fnew = torch.clamp(force[:, row] - res / a_ff[:, i],
+                               -efc.floss[i], efc.floss[i])
+            delta = fnew - force[:, row]
+            force[:, row] = fnew
+            qacc = qacc + mf[:, i] * delta.unsqueeze(-1)
+        for c, (_, Jd, ad, mc, h) in enumerate(slots):
+            fg = f_slot[c]
+            mid = 0.5 * (fg[:, 0::2] + fg[:, 1::2])
+            y = 0.5 * (fg[:, 0::2] - fg[:, 1::2])
+            pos = mid > 0
+            f_new = fg.clone()
+            for j in range(mid.shape[1]):
+                r0, r1 = 2 * j, 2 * j + 1
+                mj = mid[:, j]
+                yj = y[:, j] - (dot(Jd[:, j], qacc) - ad[:, j]) / h[:, j]
+                yj = torch.where(pos[:, j], torch.clamp(yj, -mj, mj),
+                                 torch.zeros_like(yj))
+                d0 = mj + yj - f_new[:, r0]
+                d1 = mj - yj - f_new[:, r1]
+                f_new[:, r0] = mj + yj
+                f_new[:, r1] = mj - yj
+                qacc = qacc + d0.unsqueeze(-1) * mc[:, r0] \
+                    + d1.unsqueeze(-1) * mc[:, r1]
+            f_slot[c] = f_new
+    if slots:  # no two slots of an environment share a row
+        force = force.scatter(1, torch.cat([s[0] for s in slots], 1),
+                              torch.cat(f_slot, 1))
+    return force, qacc
+
+
+#: contact slots the noslip sweep visited (summed over its calls) since
+#: the count was last set to 0
+noslip.slots = 0
+
+
 def solve(m: Model, d: Data, efc: Efc) -> Data:
     dtype = d.qpos.dtype
     a_s = d.qacc_smooth
@@ -299,6 +418,8 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
     if cones:
         dcost = with_cones(dcost, _cone_eval(cones, jar)[1])
     efc_force = -dcost
+    if m.opt.noslip_iterations > 0:
+        efc_force, x = noslip(m, d, efc, x, efc_force)
     qfrc_constraint = torch.einsum("bkv,bk->bv", J, efc_force)
 
     # per-contact force (mj_contactForce): pyramidal rows are
@@ -325,6 +446,21 @@ def solve(m: Model, d: Data, efc: Efc) -> Data:
         group = efc_force[:, start:start + k * dim].reshape(B, k, dim)
         contact_force[:, ids] = group[..., 0]
         contact_force_vec[:, ids, :dim] = group
+    # compacted groups: each environment's chosen candidates (distinct)
+    for off, start, nrows, k in efc.sel_spans:
+        ids = efc.contact_selids[:, off:off + k]
+        group = efc_force[:, start:start + k * nrows].reshape(B, k, nrows)
+        normal = group.sum(-1)
+        wrench = torch.zeros(B, k, 6, dtype=dtype, device=x.device)
+        wrench[..., 0] = normal
+        if nrows > 1:
+            nfd = nrows // 2
+            mu = torch.gather(d.contact.friction, 1, ids.unsqueeze(-1).expand(
+                B, k, 5))[..., :nfd]
+            wrench[..., 1:1 + nfd] = mu * (group[..., 0::2] - group[..., 1::2])
+        contact_force = contact_force.scatter(1, ids, normal)
+        contact_force_vec = contact_force_vec.scatter(
+            1, ids.unsqueeze(-1).expand(B, k, 6), wrench)
     return d.replace(qacc=x, qfrc_constraint=qfrc_constraint,
                      contact_force=contact_force,
                      contact_force_vec=contact_force_vec, solver_niter=niter)

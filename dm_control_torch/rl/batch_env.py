@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from dm_control_torch.physics import actuation as act_mod
+from dm_control_torch.physics import collision
 from dm_control_torch.physics import engine
 from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics import sensors as sens
@@ -45,12 +46,25 @@ class BatchEnv:
 
     ``step`` resets the environments whose previous step was LAST (or
     diverged), drawing their new episodes from ``state.rng``.
+
+    ``contact_cap`` sets contact compaction (``constraints.
+    _contact_rows_compact``), as in the JAX package: None engages it at
+    64 contacts per condim group for a float32 model with more than 512
+    candidate contacts; 0 turns it off; an integer pins the cap.
     """
 
     def __init__(self, model: Model, task: Task,
                  time_limit: float = float("inf"),
                  control_timestep: Optional[float] = None,
-                 autoreset: bool = True):
+                 autoreset: bool = True,
+                 contact_cap: Optional[int] = None):
+        if contact_cap is None:
+            ncand = len(collision.contact_rows_static(model)[0])
+            contact_cap = 64 if (model.dtype == torch.float32
+                                 and ncand > 512) else 0
+        if contact_cap:
+            model = model.replace(opt=model.opt.replace(
+                contact_cap=int(contact_cap)))
         self.model = model
         self.task = task
         self.autoreset = autoreset
@@ -122,6 +136,9 @@ class BatchEnv:
         qpos, qvel, diff = task.init(m, d.qpos, torch.zeros_like(d.qvel), rc,
                                      diff)
         d = d.replace(qpos=qpos, qvel=qvel)
+        act = task.init_act(m, rc)
+        if act is not None:
+            d = d.replace(act=act)
         mm = apply_model_diff(m, diff)
         self.last_rejection_rounds = 0
         if task.max_reset_rejections:
@@ -136,6 +153,9 @@ class BatchEnv:
                 r1 = redo.unsqueeze(-1)
                 d = d.replace(qpos=torch.where(r1, qp, d.qpos),
                               qvel=torch.where(r1, qv, d.qvel))
+                act = task.init_act(m, rc)
+                if act is not None:
+                    d = d.replace(act=torch.where(r1, act, d.act))
                 tries = tries + redo.to(torch.int32)
         if task.settle_steps:
             for _ in range(task.settle_steps):

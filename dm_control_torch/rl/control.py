@@ -93,6 +93,11 @@ class Task:
         """Returns (qpos, qvel, diff) for new episodes, (B, ...)."""
         return qpos, qvel, diff
 
+    def init_act(self, m: Model, rc: RandomContext):
+        """Activations (B, na) for new episodes, drawn after ``init``, or
+        None to leave them at 0."""
+        return None
+
     def reject(self, m: Model, d: Data):
         return torch.zeros(d.qpos.shape[0], dtype=torch.bool,
                            device=d.qpos.device)

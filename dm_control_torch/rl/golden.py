@@ -20,6 +20,13 @@ import numpy as np
 import torch
 
 STATE_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time")
+#: the gate of a recorded step: every key within ``ABS_GATE`` of the
+#: recording, apart from ``qacc_warmstart`` (the solver's acceleration,
+#: 1e3-1e5 on the contact-rich models, where 1e-9 absolute would ask for
+#: 1e-14 relative), which is held to ``REL_GATE`` of its largest recorded
+#: entry
+ABS_GATE = 1e-9
+REL_GATE = 1e-12
 #: recorded beside them where the model has activations (na > 0)
 ACT_FIELD = "act"
 #: the recorded start states: after a reset, and some control steps later
@@ -73,3 +80,14 @@ def step_errors(env, gold, prefix: str) -> Dict[str, float]:
                step_type=ts.step_type)
     return {k: float(np.abs(v.cpu().numpy() - gold[f"{prefix}_{k}"]).max())
             for k, v in got.items()}
+
+
+def gate_figures(errs: Dict[str, float], gold, prefix: str):
+    """(the largest deviation of every key but ``qacc_warmstart``, and
+    ``qacc_warmstart``'s deviation over its largest recorded entry) of
+    ``step_errors``' result; the step passes where the first is within
+    ``ABS_GATE`` and the second within ``REL_GATE``."""
+    qacc = "step_qacc_warmstart"
+    scale = float(np.abs(gold[f"{prefix}_{qacc}"]).max())
+    rest = max(v for k, v in errs.items() if k != qacc)
+    return rest, errs[qacc] / max(scale, np.finfo(np.float64).tiny)

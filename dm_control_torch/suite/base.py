@@ -2,11 +2,14 @@
 Counterpart of ``dm_control_tpu/suite/base.py``.
 
 Every domain module of the suite has the same small interface, which
-``suite.load_batch`` reads: ``TASKS`` (task name -> a constructor of
-``(asset name, task object)``), ``TIME_LIMIT`` and ``CONTROL_TIMESTEP``
-(``None``: the model's own timestep).  The asset name is a compiled model
-under ``assets/``, written by ``tools/export_torch_assets.py`` from the
-JAX package's compiler.
+``suite.load_batch`` reads: ``TASKS`` (task name -> a constructor, called
+with the task's keyword arguments, of ``(asset name, task object)`` or
+``(asset name, task object, edit)``), ``TIME_LIMIT`` and
+``CONTROL_TIMESTEP`` (``None``: the model's own timestep).  The asset
+name is a compiled model under ``assets/``, written by
+``tools/export_torch_assets.py`` from the JAX package's compiler; the
+edit (``Model -> Model``) replaces the fields in which a task's model
+differs from the asset (lqr's seeded stiffness, the size of dog's floor).
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ def asset_path(asset: str) -> str:
     return os.path.join(_ASSET_DIR, asset + ".npz")
 
 
-def load_model(asset: str, device, dtype: torch.dtype) -> Model:
+def load_model(asset: str, device, dtype: torch.dtype, edit=None) -> Model:
     """The compiled model ``assets/<asset>.npz`` on ``device`` in
-    ``dtype``."""
-    return model_io.load(asset_path(asset), device, dtype)
+    ``dtype``, through ``edit`` where one is given."""
+    m = model_io.load(asset_path(asset), device, dtype)
+    return m if edit is None else edit(m)
 
 
 class Task(control.Task):

@@ -33,5 +33,6 @@ def randomize_limited_and_rotational_joints(m: Model, qpos: torch.Tensor,
             qpos[:, adr + 3:adr + 7] = mx.normalize(rc.rand(4), eps=0.0)
         elif jtype == JointType.BALL:
             raise NotImplementedError("ball joints are not ported yet "
-                                      "(ROADMAP A3: humanoid_CMU, dog and lqr)")
+                                      "(ROADMAP A5: composer, locomotion and "
+                                      "manipulation)")
     return qpos

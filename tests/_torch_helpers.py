@@ -13,7 +13,8 @@ import torch
 
 from dm_control_torch.rl.golden import PREFIXES, STATE_FIELDS  # noqa: F401
 from dm_control_torch.rl.golden import start_state as golden_state  # noqa: F401
-from dm_control_torch.rl.golden import step_errors
+from dm_control_torch.rl.golden import ABS_GATE, REL_GATE, gate_figures, \
+    step_errors
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,6 +40,44 @@ def jax_model(asset):
     return export_tool().jax_model(asset)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_model_from_asset(asset):
+    """The JAX package's ``Model`` built from the port's checked-in asset
+    (the JAX compiler's output, saved field by field), without compiling
+    MJCF: for the big models, whose JAX compile takes most of a minute
+    here.  The slow tier checks each asset against a fresh export."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from dm_control_tpu.physics import model as jmodel
+    from dm_control_torch.suite import base as tbase
+
+    m = tbase.load_model(asset, "cpu", torch.float64)
+
+    def leaf(v):
+        return jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v
+
+    def build(cls, src):
+        return cls(**{f.name: leaf(getattr(src, f.name))
+                      for f in dataclasses.fields(cls) if f.init})
+
+    kwargs = {}
+    for f in dataclasses.fields(jmodel.Model):
+        if not f.init:
+            continue
+        if f.name == "opt":
+            kwargs[f.name] = build(jmodel.Option, m.opt)
+        elif f.name == "stat":
+            kwargs[f.name] = build(jmodel.Statistic, m.stat)
+        elif f.name == "names":
+            kwargs[f.name] = jmodel.NameMap(**{
+                slot: getattr(m.names, slot) for slot in m.names.SLOTS})
+        else:
+            kwargs[f.name] = leaf(getattr(m, f.name))
+    return jmodel.Model(**kwargs)
+
+
 def golden(domain="humanoid"):
     """The domain's golden file (tools/export_torch_assets.py) as a dict."""
     with np.load(export_tool().golden_path(domain), allow_pickle=False) as z:
@@ -48,12 +87,17 @@ def golden(domain="humanoid"):
 def assert_step_matches_golden(env, gold, prefix, atol=1e-8):
     """One ``env.step`` from the golden's ``prefix`` start states equals the
     JAX result within ``atol`` in state, every observation and reward, and
-    exactly in discount and step type.  Prints the largest deviation (shown
-    with ``pytest -s``)."""
+    exactly in discount and step type, and passes the golden gate
+    (``rl/golden.py``: ``qacc_warmstart`` within 1e-12 of its largest
+    recorded entry, the rest within 1e-9).  Prints the largest deviation
+    and the gate's two figures (shown with ``pytest -s``)."""
     errs = step_errors(env, gold, prefix)
     worst = max(errs, key=errs.get)
-    print(f"\n{prefix}: max |port - JAX| {errs[worst]:.3e} ({worst})")
+    rest, rel = gate_figures(errs, gold, prefix)
+    print(f"\n{prefix}: max |port - JAX| {errs[worst]:.3e} ({worst}); "
+          f"gate: rest {rest:.3e}, qacc_warmstart {rel:.3e} of its scale")
     assert errs[worst] <= atol, (worst, errs[worst])
+    assert rest <= ABS_GATE and rel <= REL_GATE, (rest, rel)
     assert errs["discount"] == 0 and errs["step_type"] == 0, errs
 
 

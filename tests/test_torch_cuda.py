@@ -47,7 +47,7 @@ def _spd(rng, b, n, dtype, device):
                                  (27, 1024), (31, 1001),
                                  (32, 1001), (33, 1001), (62, 1024),
                                  (63, 1001), (64, 1001), (65, 1001),
-                                 (79, 1000), (160, 3)])
+                                 (79, 1000), (85, 512), (160, 3)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -97,7 +97,7 @@ def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 62, 79])
+@pytest.mark.parametrize("n", [27, 62, 79, 85])
 def test_non_spd_system_gives_nan_in_its_row_only(cuda, n, dtype):
     rng = np.random.default_rng(0)
     a = _spd(rng, 64, n, dtype, cuda)

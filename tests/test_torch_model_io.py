@@ -17,10 +17,13 @@ from dm_control_torch.physics.model import Model
 from dm_control_torch.suite import base as tbase
 
 ASSETS = tuple(a for assets in export_tool().ASSETS.values() for a in assets)
-#: domains whose assets tests/test_torch_finger.py and
-#: tests/test_torch_manipulator.py check against a fresh export through this
-#: file's function: those files compile the JAX models anyway
-ELSEWHERE = ("finger", "manipulator", "stacker")
+#: domains whose assets tests/test_torch_finger.py,
+#: tests/test_torch_manipulator.py, tests/test_torch_humanoid_cmu.py,
+#: tests/test_torch_lqr.py and tests/test_torch_dog.py check against a
+#: fresh export through this file's function: those files compile the JAX
+#: models anyway
+ELSEWHERE = ("finger", "manipulator", "stacker", "humanoid_CMU", "lqr",
+             "dog")
 
 
 def _fields(model):

@@ -21,6 +21,8 @@ the same float64 expressions; they differ by summation order only);
 termination flags are equal.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -32,27 +34,39 @@ from dm_control_torch import suite as tsuite
 #: tests/test_torch_manipulator.py run through this file's functions (their
 #: files compile the JAX models anyway)
 MANIPULATION = ("finger", "manipulator", "stacker")
+#: the same for tests/test_torch_humanoid_cmu.py, tests/test_torch_lqr.py
+#: and tests/test_torch_dog.py
+ELSEWHERE = MANIPULATION + ("humanoid_CMU", "lqr", "dog")
 TASKS = tuple(t for t in tsuite.ALL_TASKS
-              if t[0] != "humanoid" and t[0] not in MANIPULATION)
+              if t[0] != "humanoid" and t[0] not in ELSEWHERE)
 ATOL = 1e-10
 
 
-def _env(domain, task):
+def _env(domain, task, task_kwargs=None):
     return tsuite.load_batch(domain, task, device="cpu", dtype=torch.float64,
-                             autoreset=False)
+                             autoreset=False, task_kwargs=task_kwargs)
 
 
-def _states(domain, task):
+@functools.lru_cache(maxsize=None)
+def _reset_qpos(domain, task, seed, task_kwargs=()):
+    """qpos (2, nq) after the port's reset of two environments of
+    ``task``, drawn with ``seed`` (the same for every task of the domain
+    that is compared)."""
+    state, _ = _env(domain, task, dict(task_kwargs) or None).reset(
+        2, torch.Generator().manual_seed(seed))
+    return state.data.qpos
+
+
+def _states(domain, task, task_kwargs=None):
     """(env, qpos, qvel, model_diff, ctrl) as float64 tensors."""
-    env = _env(domain, task)
+    env = _env(domain, task, task_kwargs)
     m = env.model
     qpos = [m.qpos0.reshape(1, m.nq)]
     if not env.task.settle_steps:  # cheetah's reset is 200 steps: golden only
         for i, other in enumerate(tsuite.DOMAINS[domain].TASKS):
-            oenv = _env(domain, other)
-            if oenv.model.nq == m.nq:
-                state, _ = oenv.reset(2, torch.Generator().manual_seed(i))
-                qpos.append(state.data.qpos)
+            if _env(domain, other, task_kwargs).model.nq == m.nq:
+                qpos.append(_reset_qpos(domain, other, i, tuple(sorted(
+                    (task_kwargs or {}).items()))))
     gold = golden(domain)
     if gold["reset_qpos"].shape[1] == m.nq:
         qpos += [torch.as_tensor(gold["reset_step_qpos"]),
@@ -95,9 +109,10 @@ def _act(n, na):
 
 
 def _port(env, qpos, qvel, diff, ctrl):
+    """(observation, reward, terminate, discount) and the Data they read."""
     m, d, obs = _data(env, qpos, qvel, diff, ctrl)
     terminate, discount = env.task.termination(m, d)
-    return obs, env.task.reward(m, d), terminate, discount
+    return (obs, env.task.reward(m, d), terminate, discount), d
 
 
 def _reward_state_0(domain, env, qpos, qvel, diff, ctrl):
@@ -140,7 +155,12 @@ def _reward_state_0(domain, env, qpos, qvel, diff, ctrl):
         qvel[0, m.jnt_dofadr[names.joint["rootx"]]] = 3.0
 
 
-def _jax(domain, task, qpos, qvel, diff, ctrl):
+def _jax(domain, task, qpos, qvel, diff, ctrl, env=None, task_kwargs=None,
+         port_data=None):
+    """The JAX task's (observation, reward, terminate, discount) at the
+    states; ``env``: the JAX ``BatchEnv`` (default: the JAX suite's).
+    With ``port_data`` (the port's Data after its observe) the JAX task
+    reads that Data (``jax_data``) in place of running the JAX physics."""
     import jax
     import jax.numpy as jnp
 
@@ -148,7 +168,20 @@ def _jax(domain, task, qpos, qvel, diff, ctrl):
     from dm_control_tpu.physics.model import make_data
     from dm_control_tpu.rl.control import EnvState, apply_model_diff
 
-    env = jsuite.load_batch(domain, task, autoreset=False)
+    if env is None:
+        env = jsuite.load_batch(domain, task, task_kwargs=task_kwargs,
+                                autoreset=False)
+
+    def outputs(m, d):
+        terminate, discount = env.task.termination(m, d)
+        return (env.task.observation(m, d), env.task.reward(m, d),
+                jnp.asarray(terminate), jnp.asarray(discount, d.qpos.dtype))
+
+    jdiff = {k: jnp.asarray(v.numpy()) for k, v in diff.items()}
+    if port_data is not None:
+        return jax.jit(jax.vmap(lambda d, diff: outputs(
+            apply_model_diff(env.model, diff), d)))(
+                jax_data(env.model, port_data), jdiff)
 
     act = _act(qpos.shape[0], env.model.na)
     act = jnp.zeros((qpos.shape[0], 0)) if act is None \
@@ -158,28 +191,58 @@ def _jax(domain, task, qpos, qvel, diff, ctrl):
         m = apply_model_diff(env.model, diff)
         d = env.task.before_step(m, make_data(env.model).replace(
             qpos=qpos, qvel=qvel, act=act), ctrl)
-        state, obs = env._observe(EnvState(
+        state, _ = env._observe(EnvState(
             data=d, model_diff=diff, rng=None,
             step_count=jnp.zeros((), jnp.int32),
             needs_reset=jnp.zeros((), bool)))
-        terminate, discount = env.task.termination(m, state.data)
-        return (obs, env.task.reward(m, state.data), jnp.asarray(terminate),
-                jnp.asarray(discount, qpos.dtype))
+        return outputs(m, state.data)
 
     return jax.jit(jax.vmap(one))(
-        jnp.asarray(qpos.numpy()), jnp.asarray(qvel.numpy()), act,
-        {k: jnp.asarray(v.numpy()) for k, v in diff.items()},
+        jnp.asarray(qpos.numpy()), jnp.asarray(qvel.numpy()), act, jdiff,
         jnp.asarray(ctrl.numpy()))
 
 
+def jax_data(jm, d):
+    """The port's Data (B, ...) as a batched JAX Data of model ``jm``:
+    every field the two share, the others (the contacts among them) the
+    JAX template's, repeated B times."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from dm_control_tpu.physics.model import make_data
+
+    B = d.qpos.shape[0]
+    template = make_data(jm)
+    fields = {}
+    for f in dataclasses.fields(template):
+        mine = getattr(d, f.name, None)
+        if isinstance(mine, torch.Tensor):
+            fields[f.name] = jnp.asarray(mine.numpy())
+        else:
+            fields[f.name] = jax.tree.map(
+                lambda x: jnp.broadcast_to(x, (B,) + jnp.shape(x)),
+                getattr(template, f.name))
+    return template.replace(**fields)
+
+
 @pytest.mark.parametrize("domain,task", TASKS)
-def test_task_functions_match_jax(domain, task):
-    env, qpos, qvel, diff, ctrl = _states(domain, task)
+def test_task_functions_match_jax(domain, task, jax_env=None,
+                                  task_kwargs=None, jax_physics=True):
+    """``jax_env``: the JAX ``BatchEnv`` to hold the task to (default: the
+    JAX suite's); ``task_kwargs`` go to both suites.  Without
+    ``jax_physics`` the JAX task reads the port's Data after the port's
+    observe (for the models whose JAX physics takes minutes to compile
+    here; the golden steps hold that physics to JAX's)."""
+    env, qpos, qvel, diff, ctrl = _states(domain, task, task_kwargs)
     n = qpos.shape[0]
     assert all(v.shape[0] == n for v in diff.values())  # one per environment
-    obs, reward, terminate, discount = _port(env, qpos, qvel, diff, ctrl)
-    jobs, jreward, jterminate, jdiscount = _jax(domain, task, qpos, qvel,
-                                                diff, ctrl)
+    (obs, reward, terminate, discount), d = _port(env, qpos, qvel, diff,
+                                                  ctrl)
+    jobs, jreward, jterminate, jdiscount = _jax(
+        domain, task, qpos, qvel, diff, ctrl, jax_env, task_kwargs,
+        None if jax_physics else d)
     assert list(obs) == list(jobs)
     for k, v in obs.items():
         assert v.shape[0] == n

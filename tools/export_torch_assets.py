@@ -16,19 +16,25 @@ It writes, for every ported domain (or only the ones named),
   target size), through ``model_io.from_jax_model`` and ``model_io.save``;
 - ``tests/data/torch_<golden>_golden_f64.npz`` for each golden of the
   domain (``GOLDEN_TASKS``; most domains have one, named like the domain;
-  quadruped has three, ``GOLDEN_DOMAINS``): float64 start states of the
+  quadruped has three, manipulator and dog two, ``GOLDEN_DOMAINS``; lqr's
+  task is seeded, ``GOLDEN_TASK_KWARGS``): float64 start states of the
   golden's task for 4 environments,
-  ``reset_*`` from a JAX ``BatchEnv.reset`` (key ``GOLDEN_KEY``) and
+  ``reset_*`` from a JAX ``BatchEnv.reset`` (key ``GOLDEN_KEY``; for dog,
+  whose JAX task draws its start on the host, numpy seeds as in the JAX
+  single-environment reset: ``_host_reset``) and
   ``contact_*`` after ``FALL_STEPS[golden]`` further control steps (for
   the domains with a floor: lying or standing on it, contacts active; for
   ball_in_cup: the string taut; for quadruped_fetch: the ball on the
   floor too; for finger: the spinner touching the finger; for
   manipulator: the ball in the hand; for manipulator_insert_peg: the peg
-  against the slot; for stacker: a box on a box, boxes flat on the floor.
-  Those four counts were picked among the states that reach the new code
-  as ones where a step's result does not jump with rounding: at some
-  states, manipulator's after 95 steps say, a relative change of 1e-12
-  in qvel moves the next control step's qacc by 1e3); for each, the
+  against the slot; for stacker: a box on a box, boxes flat on the floor;
+  for humanoid_CMU: on the floor in every environment; for dog: feet
+  loaded and the noslip sweep moving qacc; for dog_fetch: the ball in
+  flight.  The counts of finger, manipulator, stacker and dog were
+  picked among the states that reach the new code as ones where a step's
+  result does not jump with rounding: at some states, manipulator's
+  after 95 steps say, a relative change of 1e-12 in qvel moves the next
+  control step's qacc by 1e3); for each, the
   per-episode model
   overrides (``<prefix>_diff_<field>``), actions drawn with numpy seed
   ``GOLDEN_SEED`` and the JAX state, observation, reward, discount and
@@ -60,12 +66,16 @@ GOLDEN_TASKS = {
     "quadruped_escape": "escape", "quadruped_fetch": "fetch",
     "fish": "swim", "swimmer": "swimmer6", "finger": "turn_hard",
     "manipulator": "bring_ball", "manipulator_insert_peg": "insert_peg",
-    "stacker": "stack_4",
+    "stacker": "stack_4", "humanoid_CMU": "run", "lqr": "lqr_6_2",
+    "dog": "run", "dog_fetch": "fetch",
 }
+#: golden -> the keyword arguments of its task (lqr's model is seeded)
+GOLDEN_TASK_KWARGS = {"lqr": {"random": 0}}
 #: golden -> its domain, where the two names differ
 GOLDEN_DOMAINS = {"quadruped_escape": "quadruped",
                   "quadruped_fetch": "quadruped",
-                  "manipulator_insert_peg": "manipulator"}
+                  "manipulator_insert_peg": "manipulator",
+                  "dog_fetch": "dog"}
 #: golden -> control steps between the ``reset_*`` and ``contact_*`` states
 FALL_STEPS = {
     "humanoid": 40, "pendulum": 10, "acrobot": 10, "cartpole": 10,
@@ -73,7 +83,8 @@ FALL_STEPS = {
     "point_mass": 10, "ball_in_cup": 30, "quadruped": 50,
     "quadruped_escape": 25, "quadruped_fetch": 200, "fish": 10,
     "swimmer": 10, "finger": 95, "manipulator": 65,
-    "manipulator_insert_peg": 429, "stacker": 55,
+    "manipulator_insert_peg": 429, "stacker": 55, "humanoid_CMU": 40,
+    "lqr": 10, "dog": 60, "dog_fetch": 20,
 }
 #: domain -> {asset name: arguments of the JAX domain's get_model}
 ASSETS = {
@@ -99,6 +110,12 @@ ASSETS = {
         "manipulator_insert_ball": (False, True),
         "manipulator_insert_peg": (True, True)},
     "stacker": {"stacker_2": (2,), "stacker_4": (4,)},
+    "humanoid_CMU": {"humanoid_CMU": ()},
+    # (bodies, actuators, seed): the port edits the seeded stiffness
+    "lqr": {"lqr_2_1": (2, 1, 0), "lqr_6_2": (6, 2, 0)},
+    # the floor of the no-ball tasks is edited per task (suite/dog.py)
+    "dog": {"dog": dict(floor_size=15, remove_ball=True),
+            "dog_fetch": dict(floor_size=10, remove_ball=False)},
 }
 DOMAINS = tuple(ASSETS)
 GOLDENS = tuple(GOLDEN_TASKS)
@@ -125,10 +142,17 @@ def jax_model(asset):
     """The JAX package's compiled model behind an asset name."""
     import importlib
 
+    import numpy as np
+
     for domain, assets in ASSETS.items():
         if asset in assets:
             module = importlib.import_module(f"dm_control_tpu.suite.{domain}")
             args = assets[asset]
+            if domain == "lqr":
+                return module.get_model(*args[:2], np.random.RandomState(
+                    args[2]))
+            if domain == "dog":
+                return module._make_model(**args)
             if isinstance(args, dict):
                 return module.get_model(**args)
             return module.get_model(*args)
@@ -145,8 +169,16 @@ def export_model(asset):
 def _jax_env(golden):
     from dm_control_tpu import suite
 
-    return suite.load_batch(golden_domain(golden), GOLDEN_TASKS[golden],
-                            autoreset=False)
+    env = suite.load_batch(golden_domain(golden), GOLDEN_TASKS[golden],
+                           task_kwargs=GOLDEN_TASK_KWARGS.get(golden),
+                           autoreset=False)
+    if golden_domain(golden) == "dog":
+        # the JAX dog task computes its pose constants on the host, once
+        # per model, before anything traces them
+        from dm_control_tpu.suite import dog
+
+        dog._pose_consts(env.model)
+    return env
 
 
 def _state_fields(m):
@@ -162,16 +194,52 @@ def _snapshot(state, prefix, fields):
     return out
 
 
+def _host_reset(env):
+    """Start states drawn as the JAX single-environment reset draws them,
+    on the host with numpy (one ``RandomState`` a environment, seeded
+    ``GOLDEN_KEY * 1000 + i``): ``init``, then ``init_act``.  For tasks
+    whose ``init`` runs on the host only (dog's), where the JAX
+    ``BatchEnv.reset`` cannot trace it."""
+    import jax
+    import jax.numpy as jnp
+
+    from dm_control_tpu.physics.model import make_data
+    from dm_control_tpu.rl.control import EnvState, RandomContext
+
+    m, task = env.model, env.task
+    rows = []
+    for i in range(GOLDEN_BATCH):
+        rc = RandomContext(np_random=np.random.RandomState(
+            GOLDEN_KEY * 1000 + i))
+        qpos, qvel, _ = task.init(m, np.asarray(m.qpos0).copy(),
+                                  np.zeros(m.nv), rc,
+                                  task.initial_model_diff(m))
+        rows.append((qpos, qvel, task.init_act(m, rc)))
+    data = jax.tree.map(
+        lambda x: jnp.broadcast_to(x, (GOLDEN_BATCH,) + x.shape),
+        env._strip(make_data(m)))
+    data = data.replace(**{f: jnp.asarray(np.stack([r[k] for r in rows]))
+                           for k, f in enumerate(("qpos", "qvel", "act"))})
+    return EnvState(data=data, model_diff={},
+                    rng=jax.random.split(jax.random.PRNGKey(GOLDEN_KEY),
+                                         GOLDEN_BATCH),
+                    step_count=jnp.zeros(GOLDEN_BATCH, jnp.int32),
+                    needs_reset=jnp.zeros(GOLDEN_BATCH, bool))
+
+
 def golden_states(domain):
-    """The float64 start states: ``reset_*`` from a JAX reset, and
-    ``contact_*``, the same environments ``FALL_STEPS[domain]`` control
-    steps later."""
+    """The float64 start states: ``reset_*`` from a JAX reset (for dog's
+    goldens ``_host_reset``), and ``contact_*``, the same environments
+    ``FALL_STEPS[domain]`` control steps later."""
     import jax
     import jax.numpy as jnp
 
     env = _jax_env(domain)
-    state, _ = env.reset(jax.random.split(jax.random.PRNGKey(GOLDEN_KEY),
-                                          GOLDEN_BATCH))
+    if golden_domain(domain) == "dog":
+        state = _host_reset(env)
+    else:
+        state, _ = env.reset(jax.random.split(
+            jax.random.PRNGKey(GOLDEN_KEY), GOLDEN_BATCH))
     fields = _state_fields(env.model)
     out = _snapshot(state, "reset", fields)
     rng = np.random.default_rng(GOLDEN_SEED + 1)

@@ -20,7 +20,10 @@ prints (and with ``--out`` also writes) one JSON object:
   ``_drop_to_ground`` (with its rounds) and in what ``init`` does besides
   (escape's terrain draw); the rounds of the reset's rejection loop;
 - one ``collision.collision`` of the model: its device kernels, and how
-  many of them the ellipsoid's closest-point iteration launches.
+  many of them the ellipsoid's closest-point iteration launches;
+- the peak device memory of the reset and the steps
+  (``torch.cuda.max_memory_allocated``), and for a model with noslip the
+  contacts its sweep visited a substep.
 
 Needs a CUDA device and no JAX.
 """
@@ -28,6 +31,7 @@ Needs a CUDA device and no JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -90,8 +94,11 @@ STAGES = (
     ("sensors", "sensor_pos"), ("engine", "fwd_velocity"),
     ("sensors", "sensor_vel"), ("engine", "fwd_actuation"),
     ("engine", "fwd_acceleration"), ("constraints", "make_constraint"),
-    ("solver", "solve"), ("sensors", "sensor_acc"), ("engine", "euler"),
+    ("solver", "solve"), ("solver", "noslip"), ("sensors", "sensor_acc"),
+    ("engine", "euler"),
 )
+#: stages timed inside another one (noslip inside solve)
+NESTED = ("noslip",)
 
 
 def stage_times(env, state, act):
@@ -108,12 +115,13 @@ def stage_times(env, state, act):
     in_observe = [False]
 
     def timed(name, fn):
-        def wrapper(*args):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
             if in_observe[0]:
-                return fn(*args)
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             stages[name] = stages.get(name, 0.0) \
                 + (time.perf_counter() - t) * 1e3
@@ -151,7 +159,8 @@ def stage_times(env, state, act):
         for (mod, fn), f in real.items():
             setattr(physics[mod], fn, f)
         del env._observe
-    stages["other"] = total - sum(stages.values())
+    stages["other"] = total - sum(v for k, v in stages.items()
+                                  if k not in NESTED)
     out = {"stage_ms_one_step": stages, "stage_ms_sum": total,
            "nefc": nefc[0], "solves_per_step": len(niters)}
     if niters:
@@ -281,6 +290,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from dm_control_torch import suite
     from dm_control_torch.ops import linalg
+    from dm_control_torch.physics import solver
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -288,7 +298,9 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     linalg.build()
     env = suite.load_batch(args.domain, args.task, device="cuda",
-                           dtype=torch.float32)
+                           dtype=torch.float32,
+                           task_kwargs={"random": 0}
+                           if args.domain == "lqr" else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
     act_gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -296,14 +308,21 @@ def main() -> int:
         return 2 * torch.rand(args.batch, env.model.nu, generator=act_gen,
                               device="cuda") - 1
 
+    torch.cuda.reset_peak_memory_stats()
     state, reset = reset_times(env, args.batch, gen)
     out = {"card": card, "domain": args.domain, "task": args.task,
            "batch": args.batch, "nv": env.model.nv,
            "substeps_per_step": env.n_sub_steps, **reset}
     out.update(collision_kernels(env, state))
+    solver.noslip.slots = 0
     for _ in range(2):  # warm-up
         state, _ = env.step(state, act())
     torch.cuda.synchronize()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["contact_cap"] = env.model.opt.contact_cap
+    if env.model.opt.noslip_iterations:
+        out["noslip_contacts_per_substep"] = (
+            solver.noslip.slots / (2 * env.n_sub_steps))
     # an environment that just diverged must not pull a whole reset (for
     # cheetah, 200 settle steps) into the one step that is measured
     state = state.replace(needs_reset=torch.zeros_like(state.needs_reset))
