@@ -18,7 +18,11 @@ insert_peg, stacker:stack_4 and nine more at B = 1024, cartpole:swingup
 at B = 8192, cheetah:run at B = 4096, dog:run and dog:fetch with the
 noslip post-pass at B = ``DOG_BATCH``) and checks that every dense solve
 on it went through the kernel, then compares a short rollout with and
-without the kernel.  Each phase prints
+without the kernel, and last trains PPO on the card (``rl/ppo.py``:
+``init_train_state`` and ``train_step`` on cartpole:swingup at B = 2048,
+T = 32 and humanoid:run at B = 512, T = 16, the JAX package's bench
+sizes; one float64 train step of pendulum:swingup with and without the
+kernel).  Each phase prints
 one line; any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
@@ -26,6 +30,8 @@ and prints no result without one.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -78,6 +84,12 @@ GOLDENS = tuple(
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+#: phase 7's training paths in float32, (domain, task, batch,
+#: steps_per_batch), at the sizes of the JAX package's ppo_train and
+#: ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4 minibatches
+TRAIN_PATHS = (("cartpole", "swingup", 2048, 32),
+               ("humanoid", "run", 512, 16))
+TRAIN_TIMED = 2  # timed train steps per path, after one warm-up
 
 
 class PhaseError(RuntimeError):
@@ -424,6 +436,131 @@ def phase_selfcheck(suite, linalg, engine, make_data, batch=256, steps=5):
     return dq
 
 
+class _TimedEnv:
+    """An env whose ``step`` is the wrapped env's followed by a
+    synchronize: ``end`` is when the last step ended; with ``flatten``,
+    ``obs`` holds each step's flat observation."""
+
+    def __init__(self, env, flatten=None):
+        self.env, self.flatten = env, flatten
+        self.end, self.obs = None, []
+
+    def step(self, state, action):
+        state, ts = self.env.step(state, action)
+        torch.cuda.synchronize()
+        self.end = time.perf_counter()
+        if self.flatten is not None:
+            self.obs.append(self.flatten(ts.observation))
+        return state, ts
+
+
+def phase_train(suite, linalg, ppo, domain, task, batch, steps):
+    """PPO on one training path in float32 through the user's entry points
+    (``load_batch`` on its default device, ``make_train_step``,
+    ``init_train_state``): one warm-up train step, then ``TRAIN_TIMED``
+    timed ones, with the kernel's launch count set to 0 just before
+    ``init_train_state`` and read after the last step."""
+    env = suite.load_batch(domain, task, dtype=torch.float32)
+    check(env.model.device.type == "cuda", "load_batch left the card")
+    cfg = ppo.PPOConfig(steps_per_batch=steps, update_epochs=2,
+                        num_minibatches=4)
+    clock = _TimedEnv(env)
+    train_step, optimizer = ppo.make_train_step(clock, cfg)
+    min_solves = min_solves_per_substep(env)
+    what = f"ppo {domain}:{task} B={batch} T={steps}"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    linalg.chol_solve.launches = 0
+    t0 = time.perf_counter()
+    state = ppo.init_train_state(
+        env, torch.Generator(device="cuda").manual_seed(0), batch,
+        optimizer)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _ = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = linalg.chol_solve.launches
+    rollout_ms, update_ms, step_s = [], [], []
+    for _ in range(TRAIN_TIMED):
+        before = [p.detach().clone() for p in state.module.parameters()]
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_s.append(t1 - t0)
+        rollout_ms.append(1e3 * (clock.end - t0))
+        update_ms.append(1e3 * (t1 - clock.end))
+        after = list(state.module.parameters())
+        check(any(not torch.equal(a, b) for a, b in zip(before, after)),
+              f"{what}: a train step left the parameters as they were")
+    launches = linalg.chol_solve.launches
+    per_step = (launches - warm_launches) / TRAIN_TIMED
+    substeps = steps * env.n_sub_steps
+    check(per_step >= min_solves * substeps,
+          f"{what}: chol_solve launched {per_step} times a train step of "
+          f"{substeps} substeps (expected >= {min_solves} a substep)")
+    values = {k: float(metrics[k]) for k in ("pi_loss", "v_loss",
+                                             "approx_kl", "mean_reward")}
+    check(all(np.isfinite(v) for v in values.values()),
+          f"{what}: non-finite metrics {values}")
+    check(all(bool(torch.isfinite(p).all())
+              for p in state.module.parameters()),
+          f"{what}: non-finite parameters")
+    check(metrics["env_steps"] == batch * steps,
+          f"{what}: env_steps {metrics['env_steps']}")
+    return dict(domain=domain, task=task, batch=batch, steps=steps,
+                launches=launches, per_step=per_step, substeps=substeps,
+                min_solves=min_solves, init_s=init_s, warm_s=warm_s,
+                env_steps_per_s=batch * steps * TRAIN_TIMED / sum(step_s),
+                rollout_ms=rollout_ms, update_ms=update_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, **values)
+
+
+def phase_train_selfcheck(suite, linalg, ppo, batch=64, steps=8):
+    """One float64 train step of pendulum:swingup twice from one saved
+    state (so with the same draws): through the kernel and under
+    ``reference_solves()``.  Returns the largest parameter and observation
+    differences and the kernel's launches in each run."""
+    env = suite.load_batch("pendulum", "swingup", dtype=torch.float64)
+    cfg = ppo.PPOConfig(steps_per_batch=steps, update_epochs=2,
+                        num_minibatches=4)
+    rec = _TimedEnv(env, flatten=ppo.flatten_obs)
+    train_step, optimizer = ppo.make_train_step(rec, cfg,
+                                                obs_dtype=torch.float64)
+
+    def fresh(seed):
+        return ppo.init_train_state(
+            env, torch.Generator(device="cuda").manual_seed(seed), batch,
+            optimizer, obs_dtype=torch.float64)
+
+    saved = io.BytesIO()
+    ppo.save_train_state(saved, fresh(0))
+    runs = []
+    for plain in (False, True):
+        saved.seek(0)
+        state = ppo.restore_train_state(saved, fresh(1))
+        rec.obs = []
+        n0 = linalg.chol_solve.launches
+        with linalg.reference_solves() if plain else contextlib.nullcontext():
+            state, _ = train_step(state)
+        runs.append((torch.cat([p.detach().flatten()
+                                for p in state.module.parameters()]),
+                     torch.stack(rec.obs), linalg.chol_solve.launches - n0))
+    (p_k, obs_k, n_k), (p_p, obs_p, n_p) = runs
+    check(n_k >= steps and n_p == 0,
+          f"train selfcheck: {n_k} kernel launches through the kernel, "
+          f"{n_p} under reference_solves()")
+    dp = float((p_k - p_p).abs().max())
+    dobs = float((obs_k - obs_p).abs().max())
+    check(dp <= 1e-8 and dobs <= 1e-9,
+          f"train selfcheck: kernel vs plain max |dparams| {dp:.3e} "
+          f"(<= 1e-8), max |dobs| {dobs:.3e} (<= 1e-9)")
+    return dp, dobs, n_k
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -435,6 +572,8 @@ def main() -> int:
     from dm_control_torch.ops import _cuda_build, linalg
     from dm_control_torch.physics import engine, solver
     from dm_control_torch.physics.model import make_data
+    from dm_control_torch.rl import ppo
+    from dm_control_torch.rl import ppo
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -512,7 +651,32 @@ def main() -> int:
 
     dq = phase_selfcheck(suite, linalg, engine, make_data)
     print(f"phase 6 selfcheck: humanoid B=256, 5 engine.steps, kernel vs "
-          f"plain max |dqpos| {dq:.3e} <= 1e-4; all phases in "
+          f"plain max |dqpos| {dq:.3e} <= 1e-4", flush=True)
+
+    trains = []
+    for domain, task, batch, steps in TRAIN_PATHS:
+        run = phase_train(suite, linalg, ppo, domain, task, batch, steps)
+        trains.append(run)
+        print(f"phase 7 train: ppo {domain}:{task} B={batch} T={steps} "
+              f"float32, 2 epochs x 4 minibatches: "
+              f"{run['env_steps_per_s']:.1f} env-steps/s through the learner "
+              f"over {TRAIN_TIMED} train steps after a warm-up "
+              f"({run['warm_s']:.2f} s; init_train_state "
+              f"{run['init_s']:.2f} s), rollout ms "
+              f"{[round(t, 1) for t in run['rollout_ms']]}, update ms "
+              f"{[round(t, 1) for t in run['update_ms']]}, chol_solve "
+              f"launches {run['per_step']:.1f} a train step (>= "
+              f"{run['min_solves']} x {run['substeps']} substeps; "
+              f"{run['launches']} in the path), pi_loss "
+              f"{run['pi_loss']:.4e} v_loss {run['v_loss']:.4e} approx_kl "
+              f"{run['approx_kl']:.4e} mean_reward {run['mean_reward']:.4f}, "
+              f"parameters changed, peak {run['peak_gb']:.2f} GB | {card}",
+              flush=True)
+    dp, dobs, n_k = phase_train_selfcheck(suite, linalg, ppo)
+    print(f"phase 7 train selfcheck: pendulum:swingup B=64 T=8 float64, one "
+          f"train step from one saved state, kernel ({n_k} launches) vs "
+          f"reference_solves(): max |dparams| {dp:.3e} <= 1e-8, max |dobs| "
+          f"{dobs:.3e} <= 1e-9; all phases in "
           f"{time.perf_counter() - started:.1f} s", flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
@@ -524,8 +688,10 @@ def main() -> int:
         "source": "dm_control_torch/csrc/chol_solve.cu",
         "replaces": "dm_control_tpu/ops/linalg.py:69",
         "launches": runs[0]["launches"],
-        "launches_by_path": {f"{r['domain']}:{r['task']}": r["launches"]
-                             for r in runs},
+        "launches_by_path": {
+            **{f"{r['domain']}:{r['task']}": r["launches"] for r in runs},
+            **{f"ppo {r['domain']}:{r['task']}": r["launches"]
+               for r in trains}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

@@ -269,3 +269,18 @@ class BatchEnv:
                 (k, sel(new_ts.observation[k], v))
                 for k, v in stepped_ts.observation.items()))
         return state, ts
+
+
+def rollout(env: BatchEnv, policy_fn, generator: torch.Generator,
+            batch_size: int, n_steps: int):
+    """Rolls ``batch_size`` new episodes out for ``n_steps`` with ``action =
+    policy_fn(generator, obs)``; returns (final_state, per-env summed
+    reward).  The reset, the autoresets and the policy all draw from
+    ``generator``.  Utility for tests and benchmarks."""
+    state, ts = env.reset(batch_size, generator)
+    total = torch.zeros(batch_size, dtype=env.model.dtype,
+                        device=env.model.device)
+    for _ in range(n_steps):
+        state, ts = env.step(state, policy_fn(generator, ts.observation))
+        total = total + ts.reward
+    return state, total

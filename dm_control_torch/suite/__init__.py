@@ -27,14 +27,22 @@ DOMAINS = {
 ALL_TASKS = tuple((d, t) for d in sorted(DOMAINS) for t in DOMAINS[d].TASKS)
 
 
-def load_batch(domain_name, task_name, *, device, dtype: torch.dtype,
-               autoreset=True, task_kwargs=None, contact_cap=None):
+def load_batch(domain_name, task_name, *, device="cuda",
+               dtype: torch.dtype, autoreset=True, task_kwargs=None,
+               contact_cap=None):
     """A ``BatchEnv`` for a suite task, with its model on ``device`` in
-    ``dtype``.  There is no default device: on a CUDA device every tensor
-    of the model and of the batch lives on the card.  ``task_kwargs`` go
-    to the task's constructor (lqr's ``random``: the seed of its model);
+    ``dtype``.  The device is the card unless the caller asks for another
+    (``device="cpu"``): every tensor of the model and of the batch lives
+    there.  Without CUDA the default raises.  ``task_kwargs`` go to the
+    task's constructor (lqr's ``random``: the seed of its model);
     ``contact_cap`` to ``BatchEnv``."""
     from dm_control_torch.rl.batch_env import BatchEnv
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"load_batch({domain_name!r}, {task_name!r}): device "
+            f"{str(device)!r} but CUDA is not available; pass device='cpu' "
+            f"to run on the CPU")
 
     if domain_name not in DOMAINS:
         raise ValueError(f"Domain {domain_name!r} does not exist.")
