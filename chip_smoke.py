@@ -22,8 +22,12 @@ without the kernel, and last trains PPO on the card (``rl/ppo.py``:
 ``init_train_state`` and ``train_step`` on cartpole:swingup at B = 2048,
 T = 32 and humanoid:run at B = 512, T = 16, the JAX package's bench
 sizes; one float64 train step of pendulum:swingup with and without the
-kernel).  Each phase prints
-one line; any failure exits with a non-zero code.  The last line is a
+kernel), and last drives the single environment (``suite.load(domain,
+task)`` -> ``Environment.reset`` and ``step``): six recorded float64
+episodes of the JAX package's ``suite.load`` against the port's on the
+card, humanoid:run in float32 with its rate, launches and idle share,
+and humanoid:run in float64 with and without the kernel.  Each phase
+prints one line; any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -83,7 +87,18 @@ GOLDENS = tuple(
 #: quadruped's, stacker:stack_4's, humanoid_CMU's and dog:fetch's
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85))
+#: (B, n, dtype) the kernel is also timed at: the single environment's
+#: humanoid solve, in the single environment's float64 and in float32
+TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+#: phase 8: the single-environment episode goldens
+#: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
+#: steps of the JAX package's suite.load with task_kwargs={"random": 11})
+ENV_GOLDENS = (("cartpole", "swingup"), ("cheetah", "run"),
+               ("humanoid", "run"), ("hopper", "hop"),
+               ("manipulator", "bring_ball"), ("swimmer", "swimmer6"))
+ENV_SEED = 11
+SINGLE_STEPS = 20  # phase 8's float32 humanoid:run control steps
 #: phase 7's training paths in float32, (domain, task, batch,
 #: steps_per_batch), at the sizes of the JAX package's ppo_train and
 #: ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4 minibatches
@@ -117,6 +132,8 @@ SHARED_NS = (27, 32, 33, 64, 65)
 LOWER_NS = (27, 32, 33, 64, 65)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FLOAT32_FLOPS = 67e12      # H100 SXM, outside the tensor cores
+FLOAT64_FLOPS = 34e12      # H100 SXM data sheet, outside the tensor cores
+PEAK_FLOPS = {torch.float32: FLOAT32_FLOPS, torch.float64: FLOAT64_FLOPS}
 
 
 def spd(gen, b, n, dtype):
@@ -236,17 +253,17 @@ def phase_kernel(linalg):
     return worst
 
 
-def time_shape(linalg, batch, n):
-    """The kernel at one main-path shape in float32: its error, and its
-    time beside the bound, the plain version and the library calls.  A
-    stays warm in L2 between calls, as on the main path, where the
-    product that writes H runs just before the solve."""
+def time_shape(linalg, batch, n, dtype=torch.float32):
+    """The kernel at one main-path shape: its error, and its time beside
+    the bound, the plain version and the library calls.  A stays warm in
+    L2 between calls, as on the main path, where the product that writes H
+    runs just before the solve."""
     gen = torch.Generator(device="cuda").manual_seed(n)
-    a = spd(gen, batch, n, torch.float32)
-    rhs = randn(gen, (batch, n), torch.float32)
+    a = spd(gen, batch, n, dtype)
+    rhs = randn(gen, (batch, n), dtype)
     err = check_close(linalg.chol_solve_cuda(a, rhs),
-                      linalg.chol_solve_reference(a, rhs), torch.float32,
-                      f"timed shape B={batch} n={n}")
+                      linalg.chol_solve_reference(a, rhs), dtype,
+                      f"timed shape B={batch} n={n} {dtype}")
 
     def library(a, rhs):
         return torch.linalg.solve(a, rhs)
@@ -257,7 +274,7 @@ def time_shape(linalg, batch, n):
 
     lib_err = float((library(a, rhs)
                      - linalg.chol_solve_reference(a, rhs)).abs().max())
-    check(lib_err <= TOL[torch.float32], f"library call != plain: {lib_err}")
+    check(lib_err <= TOL[dtype], f"library call != plain: {lib_err}")
     fns = {"ms": linalg.chol_solve_cuda, "plain_ms":
            linalg.chol_solve_reference, "library_ms": library,
            "library_cholesky_ms": library_cholesky}
@@ -270,12 +287,14 @@ def time_shape(linalg, batch, n):
     # version), so the bound counts its bytes, b and x at the rate of device
     # memory; an a that is warm in L2 comes at a higher rate, so the true
     # floor is lower still.  The dense a is kept beside it.
-    byte_ms = (1e3 * 4 * batch * (n * (n + 1) // 2 + 2 * n)
+    width = torch.finfo(dtype).bits // 8
+    byte_ms = (1e3 * width * batch * (n * (n + 1) // 2 + 2 * n)
                / HBM_BYTES_PER_S)
-    dense_ms = 1e3 * 4 * batch * (n * n + 2 * n) / HBM_BYTES_PER_S
-    flop_ms = 1e3 * batch * (n ** 3 / 3 + 2 * n * n) / FLOAT32_FLOPS
+    dense_ms = 1e3 * width * batch * (n * n + 2 * n) / HBM_BYTES_PER_S
+    flop_ms = 1e3 * batch * (n ** 3 / 3 + 2 * n * n) / PEAK_FLOPS[dtype]
     out = {k: min(v) for k, v in runs.items()}
-    out.update(B=batch, n=n, max_abs_err=err, device_ms=dev_ms,
+    out.update(B=batch, n=n, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, device_ms=dev_ms,
                bound_ms=max(byte_ms, flop_ms),
                dense_bound_ms=max(dense_ms, flop_ms),
                bound_by="bytes" if byte_ms >= flop_ms else "operations",
@@ -561,6 +580,135 @@ def phase_train_selfcheck(suite, linalg, ppo, batch=64, steps=8):
     return dp, dobs, n_k
 
 
+def phase_env_golden(suite, domain, task):
+    """One recorded single-environment episode on the card in float64:
+    ``suite.load(domain, task, task_kwargs={"random": 11})``, its reset
+    and the recorded actions, every timestep through the golden gate
+    (``rl/golden.py::episode_gate``).  Returns the largest of each of the
+    gate's two figures over the episode."""
+    from dm_control_torch.rl import golden
+
+    name = f"{domain}_{task}"
+    with np.load(os.path.join(ROOT, "tests", "data",
+                              f"torch_env_{name}_f64.npz"),
+                 allow_pickle=False) as z:
+        gold = {k: z[k] for k in z.files}
+    env = suite.load(domain, task, task_kwargs={"random": ENV_SEED},
+                     device="cuda", dtype=torch.float64)
+    check(env.physics.model.device.type == "cuda", "load left the card")
+    errs = golden.episode_errors(env, gold)
+    figures, ok = golden.episode_gate(errs, gold, name)
+    rest = max(f[0] for f in figures)
+    rel = max(f[1] for t, f in enumerate(figures)
+              if (name, t) not in golden.EPISODE_WARMSTART_MISSES)
+    missed = [f"t={t}: {f[1]:.3e}" for t, f in enumerate(figures)
+              if (name, t) in golden.EPISODE_WARMSTART_MISSES]
+    check(ok, f"episode golden {name}: gate failed, figures "
+              f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in figures]}")
+    return rest, rel, missed
+
+
+def _idle_share(step):
+    """(device kernels, device busy ms, wall ms) of one profiled call of
+    ``step``: the kernels ``torch.profiler`` saw on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_us = sum(getattr(e, "device_time", None) or e.cuda_time
+                  for e in kernels)
+    check(busy_us > 0, "torch.profiler saw no kernel on the device")
+    return len(kernels), busy_us / 1e3, wall * 1e3
+
+
+def phase_single(suite, linalg):
+    """The single-environment path: ``suite.load("humanoid", "run")`` on
+    its default device in float32, a reset and ``SINGLE_STEPS`` control
+    steps, with the kernel's launch count set to 0 just before the reset
+    and read after the last step; then one more control step under
+    ``torch.profiler``."""
+    env = suite.load("humanoid", "run", task_kwargs={"random": 0},
+                     dtype=torch.float32)
+    check(env.physics.model.device.type == "cuda", "load left the card")
+    spec = env.action_spec()
+    rng = np.random.RandomState(1)
+
+    def action():
+        return rng.uniform(spec.minimum, spec.maximum)
+
+    torch.cuda.synchronize()
+    linalg.chol_solve.launches = 0
+    t0 = time.perf_counter()
+    ts = env.reset()
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    reset_launches = linalg.chol_solve.launches
+    times, rewards = [], []
+    for _ in range(SINGLE_STEPS):
+        t0 = time.perf_counter()
+        ts = env.step(action())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rewards.append(ts.reward)
+        check(all(np.isfinite(v).all() for v in ts.observation.values()),
+              "single humanoid:run: non-finite observation")
+    launches = linalg.chol_solve.launches
+    check(int(ts.step_type) == 1 and np.isfinite(rewards).all()
+          and all(0 <= r <= 1 for r in rewards),
+          f"single humanoid:run: step type {ts.step_type}, rewards "
+          f"{rewards}")
+    substeps = SINGLE_STEPS * env._n_sub_steps
+    check(launches - reset_launches >= 2 * substeps,
+          f"single humanoid:run: chol_solve launched "
+          f"{launches - reset_launches} times in {substeps} substeps")
+    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()))
+    warm = times[1:]
+    return dict(launches=launches, reset_launches=reset_launches,
+                per_step=(launches - reset_launches) / SINGLE_STEPS,
+                steps_per_s=len(warm) / sum(warm),
+                first_ms=1e3 * times[0], reset_s=reset_s,
+                rejection_rounds=env.last_reset_attempts - 1,
+                kernels_per_step=kernels, busy_ms=busy_ms,
+                profiled_ms=wall_ms, idle_share=1 - busy_ms / wall_ms)
+
+
+def phase_single_selfcheck(suite, linalg, steps=5):
+    """humanoid:run in float64 on the card, a reset and ``steps`` control
+    steps, through the kernel and again under ``reference_solves()`` with
+    the same seed and actions.  Returns the largest observation and reward
+    difference, and the kernel's launches in each run."""
+    runs = []
+    for plain in (False, True):
+        env = suite.load("humanoid", "run", task_kwargs={"random": 3},
+                         dtype=torch.float64)
+        spec = env.action_spec()
+        rng = np.random.RandomState(2)
+        n0 = linalg.chol_solve.launches
+        with linalg.reference_solves() if plain else contextlib.nullcontext():
+            out = [env.reset()]
+            for _ in range(steps):
+                out.append(env.step(rng.uniform(spec.minimum, spec.maximum)))
+        runs.append((out, linalg.chol_solve.launches - n0))
+    (k_out, n_k), (p_out, n_p) = runs
+    check(n_k >= 2 * steps and n_p == 0,
+          f"single selfcheck: {n_k} kernel launches through the kernel, "
+          f"{n_p} under reference_solves()")
+    dobs = max(float(np.abs(a.observation[k] - b.observation[k]).max())
+               for a, b in zip(k_out, p_out) for k in a.observation)
+    drew = max(abs(a.reward - b.reward) for a, b in zip(k_out[1:], p_out[1:]))
+    check(dobs <= 1e-10 and drew <= 1e-10,
+          f"single selfcheck: kernel vs plain max |dobs| {dobs:.3e}, "
+          f"|dreward| {drew:.3e} (<= 1e-10)")
+    return dobs, drew, n_k
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -595,17 +743,20 @@ def main() -> int:
 
     worst = phase_kernel(linalg)
     shapes = [time_shape(linalg, b, n) for b, n in TIMED_SHAPES]
+    singles = [time_shape(linalg, b, n, dtype)
+               for b, n, dtype in TIMED_SINGLE]
     print(f"phase 3 kernel vs plain: ok over n in {KERNEL_NS}, B in "
           f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower "
           f"triangle only n in {LOWER_NS}, max |dx| f32 "
           f"{worst[torch.float32]:.3e} f64 {worst[torch.float64]:.3e}, "
           f"non-SPD row NaN only | {card}", flush=True)
-    for k in shapes:
-        print(f"phase 3 timing B={k['B']} n={k['n']} f32 A warm in L2: "
+    for k in shapes + singles:
+        print(f"phase 3 timing B={k['B']} n={k['n']} {k['dtype']} A warm "
+              f"in L2: "
               f"kernel {k['ms']:.4f} ms per call (device "
               f"{k['device_ms']:.5f} ms by torch.profiler), bound "
-              f"{k['bound_ms']:.5f} ms by {k['bound_by']} "
-              f"({k['dense_bound_ms']:.5f} ms were the dense a counted), "
+              f"{k['bound_ms']:.3e} ms by {k['bound_by']} "
+              f"({k['dense_bound_ms']:.3e} ms were the dense a counted), "
               f"plain {k['plain_ms']:.4f} ms, torch.linalg.solve "
               f"{k['library_ms']:.4f} ms, cholesky_ex + cholesky_solve "
               f"{k['library_cholesky_ms']:.4f} ms, max |dx| "
@@ -676,13 +827,37 @@ def main() -> int:
     print(f"phase 7 train selfcheck: pendulum:swingup B=64 T=8 float64, one "
           f"train step from one saved state, kernel ({n_k} launches) vs "
           f"reference_solves(): max |dparams| {dp:.3e} <= 1e-8, max |dobs| "
-          f"{dobs:.3e} <= 1e-9; all phases in "
-          f"{time.perf_counter() - started:.1f} s", flush=True)
+          f"{dobs:.3e} <= 1e-9 | {card}", flush=True)
+
+    for domain, task in ENV_GOLDENS:
+        rest, rel, missed = phase_env_golden(suite, domain, task)
+        note = (f"; recorded miss {', '.join(missed)} of its own scale, "
+                f"within 1e-12 of the episode's" if missed else "")
+        print(f"phase 8 single env golden: float64 {domain}:{task} reset "
+              f"and 5 steps on the card vs the JAX episode, gate: all but "
+              f"qacc_warmstart {rest:.3e} <= 1e-9, qacc_warmstart "
+              f"{rel:.3e} of its scale <= 1e-12{note} | {card}", flush=True)
+    single = phase_single(suite, linalg)
+    print(f"phase 8 single env: humanoid:run float32 B=1, reset "
+          f"{single['reset_s']:.2f} s ({single['rejection_rounds']} "
+          f"rejection rounds, {single['reset_launches']} chol_solve "
+          f"launches), {SINGLE_STEPS} control steps: "
+          f"{single['steps_per_s']:.2f} control steps/s after the first "
+          f"({single['first_ms']:.1f} ms), chol_solve launches "
+          f"{single['per_step']:.1f} a control step; one profiled control "
+          f"step: {single['kernels_per_step']} device kernels, busy "
+          f"{single['busy_ms']:.3f} ms of {single['profiled_ms']:.1f} ms, "
+          f"idle share {single['idle_share']:.4f} | {card}", flush=True)
+    dobs, drew, n_k = phase_single_selfcheck(suite, linalg)
+    print(f"phase 8 single env selfcheck: humanoid:run float64, reset and 5 "
+          f"steps, kernel ({n_k} launches) vs reference_solves(): max "
+          f"|dobs| {dobs:.3e}, |dreward| {drew:.3e} <= 1e-10; all phases in "
+          f"{time.perf_counter() - started:.1f} s | {card}", flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
-    shape_keys = ("B", "n", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                  "dense_bound_ms", "bound_by", "library_ms", "library_cholesky_ms",
-                  "device_ms")
+    shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
+                  "bound_ms", "dense_bound_ms", "bound_by", "library_ms",
+                  "library_cholesky_ms", "device_ms")
     print(json.dumps({"kernels": [{
         "name": "chol_solve", "route": "cuda",
         "source": "dm_control_torch/csrc/chol_solve.cu",
@@ -691,7 +866,8 @@ def main() -> int:
         "launches_by_path": {
             **{f"{r['domain']}:{r['task']}": r["launches"] for r in runs},
             **{f"ppo {r['domain']}:{r['task']}": r["launches"]
-               for r in trains}},
+               for r in trains},
+            "single humanoid:run": single["launches"]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],
@@ -699,7 +875,8 @@ def main() -> int:
         "library_call": "torch.linalg.solve",
         "library_cholesky_ms": k["library_cholesky_ms"],
         "device_ms": k["device_ms"],
-        "shapes": [{key: x[key] for key in shape_keys} for x in shapes]}]}))
+        "shapes": [{key: x[key] for key in shape_keys}
+                   for x in shapes + singles]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -194,6 +194,18 @@ def com_vel(m: Model, d: Data) -> Data:
     return d.replace(cvel=cvel, cdof_dot=cdof_dot)
 
 
+def jac(m: Model, d: Data, point, bodyid: int):
+    """mj_jac: translational and rotational Jacobians (B, 3, nv) of the
+    world point ``point`` (B, 3) on body ``bodyid``."""
+    jacp, jacr = jac_points(m, d, point.unsqueeze(1), [bodyid])
+    return jacp[:, 0], jacr[:, 0]
+
+
+def jac_site(m: Model, d: Data, siteid: int):
+    """mj_jacSite: the Jacobians (B, 3, nv) of a site."""
+    return jac(m, d, d.site_xpos[:, siteid], m.site_bodyid[siteid])
+
+
 def jac_points(m: Model, d: Data, points, bodyids):
     """mj_jac over K world points: (jacp, jacr), each (B, K, 3, nv).
     ``points`` is (B, K, 3); ``bodyids`` is a sequence of K static body

@@ -565,6 +565,24 @@ def make_data(m: Model, batch: int, dtype: Optional[torch.dtype] = None
     )
 
 
+def map_tensors(d: Data, fn) -> Data:
+    """A Data with ``fn`` applied to every tensor of ``d`` (the contacts'
+    too)."""
+    def one(obj):
+        return dataclasses.replace(obj, **{
+            f.name: (fn(v) if isinstance(v, torch.Tensor)
+                     else one(v) if isinstance(v, Contact) else v)
+            for f in dataclasses.fields(obj)
+            for v in (getattr(obj, f.name),)})
+    return one(d)
+
+
+def env_view(d: Data, i: int = 0) -> Data:
+    """Environment ``i`` of a batched Data without its batch axis: every
+    tensor a view into ``d``'s, no copy."""
+    return map_tensors(d, lambda v: v[i])
+
+
 # ---------------------------------------------------------------------------
 # Static tree masks: subtree and ancestor sums become one masked matmul.
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ import math
 import torch
 
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = None
@@ -46,7 +46,14 @@ class Balance(base.Task):
                                  margin=0 if self._sparse else 1)
 
 
-TASKS = {
-    "swingup": lambda: ("acrobot", Balance(sparse=False)),
-    "swingup_sparse": lambda: ("acrobot", Balance(sparse=True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def swingup():
+    return "acrobot", Balance(sparse=False)
+
+
+@TASKS.add("benchmarking")
+def swingup_sparse():
+    return "acrobot", Balance(sparse=True)

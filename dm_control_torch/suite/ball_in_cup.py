@@ -10,6 +10,7 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.utils import containers
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = 0.02
@@ -47,4 +48,9 @@ class BallInCup(base.Task):
         return (ball_to_target < room).all(-1).to(d.qpos.dtype)
 
 
-TASKS = {"catch": lambda: ("ball_in_cup", BallInCup())}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking", "easy")
+def catch():
+    return "ball_in_cup", BallInCup()

@@ -2,10 +2,12 @@
 Counterpart of ``dm_control_tpu/suite/base.py``.
 
 Every domain module of the suite has the same small interface, which
-``suite.load_batch`` reads: ``TASKS`` (task name -> a constructor, called
+``suite.load`` and ``suite.load_batch`` read: ``TASKS`` (a
+``utils.containers.TaggedTasks``: task name -> a constructor, called
 with the task's keyword arguments, of ``(asset name, task object)`` or
-``(asset name, task object, edit)``), ``TIME_LIMIT`` and
-``CONTROL_TIMESTEP`` (``None``: the model's own timestep).  The asset
+``(asset name, task object, edit)``, tagged as the JAX package tags the
+task), ``TIME_LIMIT`` and ``CONTROL_TIMESTEP`` (``None``: the model's own
+timestep).  The asset
 name is a compiled model under ``assets/``, written by
 ``tools/export_torch_assets.py`` from the JAX package's compiler; the
 edit (``Model -> Model``) replaces the fields in which a task's model

@@ -13,10 +13,12 @@ import math
 import torch
 
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = None
+#: pole count -> the compiled model
+_POLE_ASSETS = {1: "cartpole", 2: "cartpole_2", 3: "cartpole_3"}
 
 
 class Balance(base.Task):
@@ -73,11 +75,39 @@ class Balance(base.Task):
             * centered
 
 
-TASKS = {
-    "balance": lambda: ("cartpole", Balance(False, False)),
-    "balance_sparse": lambda: ("cartpole", Balance(False, True)),
-    "swingup": lambda: ("cartpole", Balance(True, False)),
-    "swingup_sparse": lambda: ("cartpole", Balance(True, True)),
-    "two_poles": lambda: ("cartpole_2", Balance(True, False)),
-    "three_poles": lambda: ("cartpole_3", Balance(True, False)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def balance():
+    return "cartpole", Balance(False, False)
+
+
+@TASKS.add("benchmarking")
+def balance_sparse():
+    return "cartpole", Balance(False, True)
+
+
+@TASKS.add("benchmarking")
+def swingup():
+    return "cartpole", Balance(True, False)
+
+
+@TASKS.add("benchmarking")
+def swingup_sparse():
+    return "cartpole", Balance(True, True)
+
+
+@TASKS.add()
+def two_poles():
+    return "cartpole_2", Balance(True, False)
+
+
+@TASKS.add()
+def three_poles(num_poles=3, sparse=False):
+    if num_poles not in _POLE_ASSETS:
+        raise NotImplementedError(
+            f"three_poles(num_poles={num_poles}): the port has the models "
+            f"of {sorted(_POLE_ASSETS)} poles; others need the MJCF "
+            f"compiler (ROADMAP A9)")
+    return _POLE_ASSETS[num_poles], Balance(True, sparse)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import collections
 
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 _RUN_SPEED = 10
 
@@ -40,4 +40,9 @@ class Cheetah(base.Task):
                                  sigmoid="linear")
 
 
-TASKS = {"run": lambda: ("cheetah", Cheetah())}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def run():
+    return "cheetah", Cheetah()

@@ -19,7 +19,7 @@ from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import JointType, make_data
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 15
 CONTROL_TIMESTEP = .015
@@ -247,11 +247,29 @@ def _floor(half_size):
     return edit
 
 
-TASKS = {
-    "stand": lambda: ("dog", Stand()),
-    "walk": lambda: ("dog", Move(_WALK_SPEED)),
-    "trot": lambda: ("dog", Move(_TROT_SPEED), _floor(_TROT_SPEED
-                                                       * TIME_LIMIT)),
-    "run": lambda: ("dog", Move(_RUN_SPEED), _floor(_RUN_SPEED * TIME_LIMIT)),
-    "fetch": lambda: ("dog_fetch", Fetch()),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("no_reward_visualization")
+def stand():
+    return "dog", Stand()
+
+
+@TASKS.add("no_reward_visualization")
+def walk():
+    return "dog", Move(_WALK_SPEED)
+
+
+@TASKS.add("no_reward_visualization")
+def trot():
+    return "dog", Move(_TROT_SPEED), _floor(_TROT_SPEED * TIME_LIMIT)
+
+
+@TASKS.add("no_reward_visualization")
+def run():
+    return "dog", Move(_RUN_SPEED), _floor(_RUN_SPEED * TIME_LIMIT)
+
+
+@TASKS.add("no_reward_visualization", "hard")
+def fetch():
+    return "dog_fetch", Fetch()

@@ -16,6 +16,7 @@ import torch
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
+from dm_control_torch.utils import containers
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = 0.02
@@ -46,6 +47,10 @@ class _FingerTask(base.Task):
     def reject(self, m, d):
         d = engine.fwd_position(m, d)
         return (d.contact.dist < 0).any(-1)
+
+    def reject_reinit(self, m, qpos, qvel, rc, diff):
+        """The reference draws the joints again, not the target."""
+        return _FingerTask.init(self, m, qpos, qvel, rc, diff)
 
     def _xz(self, m, d, sensor):
         return self.sensordata(m, d, sensor)[:, m.idx([0, 2])]
@@ -135,8 +140,19 @@ class Turn(_FingerTask):
         return (self._dist_to_target(m, d) <= 0).to(d.qpos.dtype)
 
 
-TASKS = {
-    "spin": lambda: ("finger", Spin()),
-    "turn_easy": lambda: ("finger", Turn(_EASY_TARGET_SIZE)),
-    "turn_hard": lambda: ("finger", Turn(_HARD_TARGET_SIZE)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def spin():
+    return "finger", Spin()
+
+
+@TASKS.add("benchmarking")
+def turn_easy():
+    return "finger", Turn(_EASY_TARGET_SIZE)
+
+
+@TASKS.add("benchmarking")
+def turn_hard():
+    return "finger", Turn(_HARD_TARGET_SIZE)

@@ -14,7 +14,7 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 40
 CONTROL_TIMESTEP = 0.04
@@ -97,7 +97,14 @@ class Swim(_FishTask):
         return (7 * in_target + is_upright) / 8
 
 
-TASKS = {
-    "upright": lambda: ("fish", Upright()),
-    "swim": lambda: ("fish", Swim()),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def upright():
+    return "fish", Upright()
+
+
+@TASKS.add("benchmarking")
+def swim():
+    return "fish", Swim()

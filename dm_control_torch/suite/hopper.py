@@ -8,7 +8,7 @@ import torch
 
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 _STAND_HEIGHT = 0.6
 _HOP_SPEED = 2
@@ -57,7 +57,14 @@ class Hopper(base.Task):
         return standing * (small_control + 4) / 5
 
 
-TASKS = {
-    "stand": lambda: ("hopper", Hopper(hopping=False)),
-    "hop": lambda: ("hopper", Hopper(hopping=True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def stand():
+    return "hopper", Hopper(hopping=False)
+
+
+@TASKS.add("benchmarking")
+def hop():
+    return "hopper", Hopper(hopping=True)

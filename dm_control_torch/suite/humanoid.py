@@ -9,7 +9,7 @@ import torch
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 _DEFAULT_TIME_LIMIT = 25
 _CONTROL_TIMESTEP = 0.025
@@ -95,9 +95,24 @@ class Humanoid(base.Task):
         return small_control * stand_reward * move
 
 
-TASKS = {
-    "stand": lambda: ("humanoid", Humanoid(0, False)),
-    "walk": lambda: ("humanoid", Humanoid(_WALK_SPEED, False)),
-    "run": lambda: ("humanoid", Humanoid(_RUN_SPEED, False)),
-    "run_pure_state": lambda: ("humanoid", Humanoid(_RUN_SPEED, True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def stand():
+    return "humanoid", Humanoid(0, False)
+
+
+@TASKS.add("benchmarking")
+def walk():
+    return "humanoid", Humanoid(_WALK_SPEED, False)
+
+
+@TASKS.add("benchmarking")
+def run():
+    return "humanoid", Humanoid(_RUN_SPEED, False)
+
+
+@TASKS.add()
+def run_pure_state():
+    return "humanoid", Humanoid(_RUN_SPEED, True)

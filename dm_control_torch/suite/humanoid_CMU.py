@@ -10,7 +10,7 @@ import torch
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = 0.02
@@ -84,8 +84,19 @@ class HumanoidCMU(base.Task):
         return small_control * stand_reward * move
 
 
-TASKS = {
-    "stand": lambda: ("humanoid_CMU", HumanoidCMU(0)),
-    "walk": lambda: ("humanoid_CMU", HumanoidCMU(_WALK_SPEED)),
-    "run": lambda: ("humanoid_CMU", HumanoidCMU(_RUN_SPEED)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add()
+def stand():
+    return "humanoid_CMU", HumanoidCMU(0)
+
+
+@TASKS.add()
+def walk():
+    return "humanoid_CMU", HumanoidCMU(_WALK_SPEED)
+
+
+@TASKS.add()
+def run():
+    return "humanoid_CMU", HumanoidCMU(_RUN_SPEED)

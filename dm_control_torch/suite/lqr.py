@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.utils import containers
 
 TIME_LIMIT = float("inf")
 CONTROL_TIMESTEP = None
@@ -82,7 +83,14 @@ def _make(n_bodies, n_actuators, random=None):
             edit)
 
 
-TASKS = {
-    "lqr_2_1": lambda random=None: _make(2, 1, random),
-    "lqr_6_2": lambda random=None: _make(6, 2, random),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add()
+def lqr_2_1(random=None):
+    return _make(2, 1, random)
+
+
+@TASKS.add()
+def lqr_6_2(random=None):
+    return _make(6, 2, random)

@@ -4,9 +4,11 @@ A planar arm brings a ball or a peg to a target, or into a cup or slot.
 The four tasks are four assets (each model holds only its own props).
 Every episode places the target, and the receptacle in the insert tasks,
 anew: the task overrides ``body_pos`` and ``body_quat`` per environment,
-(B, nbody, .).  The episode start is the JAX package's batched one: the
-prop starts in the hand, in the target or anywhere, chosen per
-environment from one draw.
+(B, nbody, .).  The prop starts in the hand, in the target or anywhere.
+With a torch generator the start is the JAX package's batched one, chosen
+per environment from one draw, with every draw made; with a numpy
+RandomState it is the reference's: a ``choice`` of the three, and the
+draws of a start anywhere only where it is chosen.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics.model import make_data
 from dm_control_torch.rl.control import apply_model_diff
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = 0.01
@@ -131,6 +133,9 @@ class Bring(base.Task):
             bq[:, b, 2] = torch.sin(target_angle / 2)
         diff = dict(diff, body_pos=bp, body_quat=bq)
 
+        if rc.is_numpy:
+            return self._init_numpy(m, qpos, qvel, rc, diff, target_x,
+                                    target_z, target_angle)
         u = rc.rand()
         spos, smat = self._grasp_site(m, qpos, diff)
         hand_angle = math.pi - torch.atan2(smat[:, 2, 0], smat[:, 0, 0])
@@ -152,6 +157,28 @@ class Bring(base.Task):
         vdof = m.jnt_dofadr[m.names.joint[self._object + "_x"]]
         qvel[:, vdof] = torch.where(in_hand | in_target,
                                     torch.zeros_like(vel_draw), vel_draw)
+        for name, val in zip(self._object_joints, values):
+            qpos = self.set_joint_qpos(m, qpos, name, val)
+        return qpos, qvel, diff
+
+    def _init_numpy(self, m, qpos, qvel, rc, diff, target_x, target_z,
+                    target_angle):
+        """The prop's start as the reference draws it (one environment)."""
+        init_type = rc.np_random.choice(
+            ["in_hand", "in_target", "uniform"],
+            p=[_P_IN_HAND, _P_IN_TARGET, 1 - _P_IN_HAND - _P_IN_TARGET])
+        qvel = qvel.clone()
+        if init_type == "in_target":
+            values = (target_x, target_z, target_angle)
+        elif init_type == "in_hand":
+            spos, smat = self._grasp_site(m, qpos, diff)
+            values = (spos[:, 0], spos[:, 2],
+                      math.pi - torch.atan2(smat[:, 2, 0], smat[:, 0, 0]))
+        else:
+            values = (rc.uniform(-0.5, 0.5), rc.uniform(0, 0.7),
+                      rc.uniform(0, 2 * math.pi))
+            vdof = m.jnt_dofadr[m.names.joint[self._object + "_x"]]
+            qvel[:, vdof] = rc.uniform(-5, 5)
         for name, val in zip(self._object_joints, values):
             qpos = self.set_joint_qpos(m, qpos, name, val)
         return qpos, qvel, diff
@@ -193,12 +220,24 @@ class Bring(base.Task):
                                                   "target_ball"))
 
 
-TASKS = {
-    "bring_ball": lambda: ("manipulator_bring_ball", Bring(False, False,
-                                                           True)),
-    "bring_peg": lambda: ("manipulator_bring_peg", Bring(True, False, True)),
-    "insert_ball": lambda: ("manipulator_insert_ball", Bring(False, True,
-                                                             True)),
-    "insert_peg": lambda: ("manipulator_insert_peg", Bring(True, True,
-                                                           True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking", "hard")
+def bring_ball(fully_observable=True):
+    return "manipulator_bring_ball", Bring(False, False, fully_observable)
+
+
+@TASKS.add("hard")
+def bring_peg(fully_observable=True):
+    return "manipulator_bring_peg", Bring(True, False, fully_observable)
+
+
+@TASKS.add("hard")
+def insert_ball(fully_observable=True):
+    return "manipulator_insert_ball", Bring(False, True, fully_observable)
+
+
+@TASKS.add("hard")
+def insert_peg(fully_observable=True):
+    return "manipulator_insert_peg", Bring(True, True, fully_observable)

@@ -8,7 +8,7 @@ import math
 import torch
 
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 _ANGLE_BOUND = 8
 _COSINE_BOUND = math.cos(math.radians(_ANGLE_BOUND))
@@ -37,4 +37,9 @@ class SwingUp(base.Task):
                                  (_COSINE_BOUND, 1))
 
 
-TASKS = {"swingup": lambda: ("pendulum", SwingUp())}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def swingup():
+    return "pendulum", SwingUp()

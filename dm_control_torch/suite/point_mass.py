@@ -14,7 +14,7 @@ import torch
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = None
@@ -36,11 +36,15 @@ class PointMass(base.Task):
             m, qpos, rc)
         if self._randomize_gains:
             # two directions; a second one nearly parallel to the first is
+            # drawn again (numpy: the reference's loop) or, batched,
             # replaced by the first turned a quarter (the JAX package's
-            # traced rule, in place of the reference's redraw loop)
+            # traced rule)
             dir1 = mx.normalize(rc.randn(2), eps=0.0)
             dir2 = mx.normalize(rc.randn(2), eps=0.0)
             parallel = torch.abs(mx.dot(dir1, dir2)) > 0.9
+            while rc.is_numpy and bool(parallel):
+                dir2 = mx.normalize(rc.randn(2), eps=0.0)
+                parallel = torch.abs(mx.dot(dir1, dir2)) > 0.9
             ortho = torch.stack([-dir1[:, 1], dir1[:, 0]], -1)
             dir2 = torch.where(parallel.unsqueeze(-1), ortho, dir2)
             wrap = diff["wrap_prm"].expand(rc.batch, m.nwrap).clone()
@@ -69,7 +73,14 @@ class PointMass(base.Task):
         return near_target * (control_reward + 4) / 5
 
 
-TASKS = {
-    "easy": lambda: ("point_mass", PointMass(randomize_gains=False)),
-    "hard": lambda: ("point_mass", PointMass(randomize_gains=True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking", "easy")
+def easy():
+    return "point_mass", PointMass(randomize_gains=False)
+
+
+@TASKS.add()
+def hard():
+    return "point_mass", PointMass(randomize_gains=True)

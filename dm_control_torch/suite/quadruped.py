@@ -21,7 +21,7 @@ from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import JointType, SensorType, make_data
 from dm_control_torch.rl.control import apply_model_diff
 from dm_control_torch.suite import base
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = 0.02
@@ -171,7 +171,14 @@ class Escape(_QuadrupedTask):
         resize, bowl = m.cached("quadruped_terrain", lambda: (
             m.const("cubic_resize", cubic_resize_matrix(bump_res, res)),
             m.const("quadruped_bowl", _bowl(m))))
-        smooth = torch.einsum("oi,bij,pj->bop", resize, bumps, resize)
+        if rc.is_numpy:  # the reference's spline zoom, on the host
+            from scipy import ndimage
+
+            smooth = torch.as_tensor(ndimage.zoom(
+                bumps[0].cpu().numpy(), res / float(bump_res))).to(
+                    bowl).unsqueeze(0)
+        else:
+            smooth = torch.einsum("oi,bij,pj->bop", resize, bumps, resize)
         terrain = bowl * smooth
         diff = dict(diff, hfield_data=terrain.to(m.hfield_data.dtype))
         orientation = mx.normalize(rc.randn(4), eps=0.0)
@@ -259,9 +266,24 @@ class Fetch(_QuadrupedTask):
         return self._upright_reward(m, d) * reach_then_fetch
 
 
-TASKS = {
-    "walk": lambda: ("quadruped_walk", Move(_WALK_SPEED)),
-    "run": lambda: ("quadruped_run", Move(_RUN_SPEED)),
-    "escape": lambda: ("quadruped_escape", Escape()),
-    "fetch": lambda: ("quadruped_fetch", Fetch()),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add()
+def walk():
+    return "quadruped_walk", Move(_WALK_SPEED)
+
+
+@TASKS.add()
+def run():
+    return "quadruped_run", Move(_RUN_SPEED)
+
+
+@TASKS.add()
+def escape():
+    return "quadruped_escape", Escape()
+
+
+@TASKS.add()
+def fetch():
+    return "quadruped_fetch", Fetch()

@@ -13,7 +13,7 @@ import torch
 
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = None
@@ -55,7 +55,14 @@ class Reacher(base.Task):
         return rewards.tolerance(dist, (0, radii))
 
 
-TASKS = {
-    "easy": lambda: ("reacher_easy", Reacher()),
-    "hard": lambda: ("reacher_hard", Reacher()),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking", "easy")
+def easy():
+    return "reacher_easy", Reacher()
+
+
+@TASKS.add("benchmarking")
+def hard():
+    return "reacher_hard", Reacher()

@@ -17,7 +17,7 @@ from dm_control_torch.suite import base
 from dm_control_torch.suite.manipulator import (
     arm_observations, body_2d_pose, init_arm,
 )
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = 0.01
@@ -51,7 +51,8 @@ class Stack(base.Task):
 
     def init(self, m, qpos, qvel, rc, diff):
         qpos = init_arm(m, qpos, rc)
-        target_height = 2 * rc.randint(0, self._n_boxes) + 1
+        target_height = (2 * rc.randint(0, self._n_boxes) + 1).to(
+            qpos.dtype)
         tgt = m.names.body["target"]
         bp = diff["body_pos"].expand(rc.batch, m.nbody, 3).clone()
         bp[:, tgt, 2] = self._box_size(m) * target_height
@@ -94,7 +95,14 @@ class Stack(base.Task):
         return box_is_close * hand_is_far
 
 
-TASKS = {
-    "stack_2": lambda: ("stacker_2", Stack(2, True)),
-    "stack_4": lambda: ("stacker_4", Stack(4, True)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("hard")
+def stack_2(fully_observable=True):
+    return "stacker_2", Stack(2, fully_observable)
+
+
+@TASKS.add("hard")
+def stack_4(fully_observable=True):
+    return "stacker_4", Stack(4, fully_observable)

@@ -15,7 +15,7 @@ import torch
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 30
 CONTROL_TIMESTEP = 0.03
@@ -33,10 +33,15 @@ class Swimmer(base.Task):
         qpos = randomizers.randomize_limited_and_rotational_joints(
             m, qpos, rc)
         # one episode in five has the target close by
-        target_box = torch.where(rc.rand() < 0.2, 0.3, 2.0).to(qpos.dtype)
+        close = rc.rand() < 0.2
         tid = m.names.geom["target"]
         gp = diff["geom_pos"].expand(rc.batch, m.ngeom, 3).clone()
-        gp[:, tid, :2] = rc.uniform(-1.0, 1.0, 2) * target_box.unsqueeze(-1)
+        if rc.is_numpy:  # the reference's draw, which rounds otherwise
+            box = 0.3 if bool(close) else 2.0
+            gp[:, tid, :2] = rc.uniform(-box, box, 2)
+        else:
+            box = torch.where(close, 0.3, 2.0).to(qpos.dtype)
+            gp[:, tid, :2] = rc.uniform(-1.0, 1.0, 2) * box.unsqueeze(-1)
         return qpos, qvel, dict(diff, geom_pos=gp)
 
     def _nose_to_target(self, m, d):
@@ -63,7 +68,14 @@ class Swimmer(base.Task):
             margin=5 * target_size, sigmoid="long_tail")
 
 
-TASKS = {
-    "swimmer6": lambda: ("swimmer6", Swimmer()),
-    "swimmer15": lambda: ("swimmer15", Swimmer()),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def swimmer6():
+    return "swimmer6", Swimmer()
+
+
+@TASKS.add("benchmarking")
+def swimmer15():
+    return "swimmer15", Swimmer()

@@ -8,7 +8,7 @@ import torch
 
 from dm_control_torch.suite import base
 from dm_control_torch.suite.utils import randomizers
-from dm_control_torch.utils import rewards
+from dm_control_torch.utils import containers, rewards
 
 _STAND_HEIGHT = 1.2
 _WALK_SPEED = 1
@@ -54,8 +54,19 @@ class PlanarWalker(base.Task):
         return stand_reward * (5 * move_reward + 1) / 6
 
 
-TASKS = {
-    "stand": lambda: ("walker", PlanarWalker(0)),
-    "walk": lambda: ("walker", PlanarWalker(_WALK_SPEED)),
-    "run": lambda: ("walker", PlanarWalker(_RUN_SPEED)),
-}
+TASKS = containers.TaggedTasks()
+
+
+@TASKS.add("benchmarking")
+def stand():
+    return "walker", PlanarWalker(0)
+
+
+@TASKS.add("benchmarking")
+def walk():
+    return "walker", PlanarWalker(_WALK_SPEED)
+
+
+@TASKS.add("benchmarking")
+def run():
+    return "walker", PlanarWalker(_RUN_SPEED)

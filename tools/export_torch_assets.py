@@ -7,7 +7,9 @@ tool lives outside the port because it imports ``dm_control_tpu`` and JAX.
     JAX_PLATFORMS=cpu python tools/export_torch_assets.py [domain ...]
 
 (``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
-alone).
+alone; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
+single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
+six).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -39,7 +41,17 @@ It writes, for every ported domain (or only the ones named),
   overrides (``<prefix>_diff_<field>``), actions drawn with numpy seed
   ``GOLDEN_SEED`` and the JAX state, observation, reward, discount and
   step type after one control step (keys ``<prefix>_actions``,
-  ``<prefix>_step_*``, ``<prefix>_obs_*``, ``<prefix>_reward``, ...).
+  ``<prefix>_step_*``, ``<prefix>_obs_*``, ``<prefix>_reward``, ...);
+- on request, ``tests/data/torch_env_<domain>_<task>_f64.npz`` for the
+  single-environment episodes of ``ENV_GOLDENS``: the JAX package's
+  ``suite.load(domain, task, task_kwargs={"random": ENV_SEED})`` in
+  float64, its reset and ``ENV_STEPS`` control steps with actions drawn
+  from ``numpy.random.RandomState(ENV_ACTION_SEED)`` uniform within the
+  action spec's bounds, -1 and 1 where a bound is infinite
+  (``actions``); for each timestep ``t`` its step type, reward and
+  discount (not at the reset, where they are None), every observation
+  and the physics state after it (``t<t>_step_type``, ``t<t>_reward``,
+  ``t<t>_obs_<name>``, ``t<t>_step_<field>``, ...).
 """
 
 from __future__ import annotations
@@ -119,6 +131,18 @@ ASSETS = {
 }
 DOMAINS = tuple(ASSETS)
 GOLDENS = tuple(GOLDEN_TASKS)
+#: (domain, task) of each single-environment episode golden: RK4
+#: (cartpole), 200 settle steps (cheetah), the rejection loop at the
+#: slice's full width (humanoid), touch sensors at the reset (hopper), the
+#: host choice of the start (manipulator), a drawn target (swimmer)
+ENV_GOLDENS = (("cartpole", "swingup"), ("cheetah", "run"),
+               ("humanoid", "run"), ("hopper", "hop"),
+               ("manipulator", "bring_ball"), ("swimmer", "swimmer6"))
+ENV_SEED = 11
+ENV_ACTION_SEED = 1
+ENV_STEPS = 5
+#: the physics state recorded after each timestep of an episode golden
+ENV_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "time")
 
 
 def golden_domain(golden):
@@ -136,6 +160,46 @@ def asset_path(asset):
 def golden_path(domain):
     return os.path.join(ROOT, "tests", "data",
                         f"torch_{domain}_golden_f64.npz")
+
+
+def env_golden_name(domain, task):
+    return f"{domain}_{task}"
+
+
+def env_golden_path(name):
+    return os.path.join(ROOT, "tests", "data", f"torch_env_{name}_f64.npz")
+
+
+def make_env_golden(domain, task):
+    """One float64 episode of the JAX package's ``suite.load``: the reset
+    and ``ENV_STEPS`` control steps (see the module's docstring)."""
+    from dm_control_tpu import suite
+
+    env = suite.load(domain, task, task_kwargs={"random": ENV_SEED})
+    spec = env.action_spec()
+    low = np.where(np.isfinite(spec.minimum), spec.minimum, -1.0)
+    high = np.where(np.isfinite(spec.maximum), spec.maximum, 1.0)
+    rng = np.random.RandomState(ENV_ACTION_SEED)
+    actions = np.stack([rng.uniform(low, high) for _ in range(ENV_STEPS)])
+    out = {"actions": actions}
+    for t in range(ENV_STEPS + 1):
+        ts = env.step(actions[t - 1]) if t else env.reset()
+        out[f"t{t}_step_type"] = np.asarray(int(ts.step_type))
+        if t:
+            out[f"t{t}_reward"] = np.asarray(ts.reward)
+            out[f"t{t}_discount"] = np.asarray(ts.discount)
+        out.update({f"t{t}_obs_{k}": np.asarray(v)
+                    for k, v in ts.observation.items()})
+        data = env.physics.data
+        out.update({f"t{t}_step_{f}": np.asarray(getattr(data, f))
+                    for f in ENV_STATE_FIELDS})
+    return out
+
+
+def write_env_golden(name):
+    pairs = {env_golden_name(*p): p for p in ENV_GOLDENS}
+    np.savez(env_golden_path(name), **make_env_golden(*pairs[name]))
+    print("wrote", os.path.relpath(env_golden_path(name), ROOT), flush=True)
 
 
 def jax_model(asset):
@@ -298,6 +362,13 @@ def main(argv=None):
 
     jax.config.update("jax_enable_x64", True)
     for domain in args or DOMAINS:
+        if domain == "env_goldens":
+            for pair in ENV_GOLDENS:
+                write_env_golden(env_golden_name(*pair))
+            continue
+        if domain.startswith("env_golden:"):
+            write_env_golden(domain[len("env_golden:"):])
+            continue
         if domain.startswith("golden:"):
             golden = domain[len("golden:"):]
             np.savez(golden_path(golden), **make_golden(golden))
