@@ -26,7 +26,12 @@ kernel), and last drives the single environment (``suite.load(domain,
 task)`` -> ``Environment.reset`` and ``step``): six recorded float64
 episodes of the JAX package's ``suite.load`` against the port's on the
 card, humanoid:run in float32 with its rate, launches and idle share,
-and humanoid:run in float64 with and without the kernel.  Each phase
+and humanoid:run in float64 with and without the kernel; and last the
+batched manipulation path (``manipulation.load_batch(name)``): one
+float64 golden step of each of its four models (reach_site, reach_duplo,
+lift_brick, lift_large_box), each in float32 at B = 1024 with its rate,
+launches and idle share, reach_site in float64 with and without the
+kernel, and one PPO train step on reach_site.  Each phase
 prints one line; any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
@@ -84,9 +89,11 @@ GOLDENS = tuple(
     (_OTHER_GOLDENS.get((d, t), d), d, "swimmer6" if d == "swimmer" else t)
     for d, t, _ in MAIN_PATHS)
 #: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's,
-#: quadruped's, stacker:stack_4's, humanoid_CMU's and dog:fetch's
+#: quadruped's, stacker:stack_4's, humanoid_CMU's, dog:fetch's, and the
+#: manipulation paths' (reach_site's arm; the arm and a free prop)
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
-                (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85))
+                (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85),
+                (MAIN_BATCH, 9), (MAIN_BATCH, 15))
 #: (B, n, dtype) the kernel is also timed at: the single environment's
 #: humanoid solve, in the single environment's float64 and in float32
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32))
@@ -105,6 +112,17 @@ SINGLE_STEPS = 20  # phase 8's float32 humanoid:run control steps
 TRAIN_PATHS = (("cartpole", "swingup", 2048, 32),
                ("humanoid", "run", 512, 16))
 TRAIN_TIMED = 2  # timed train steps per path, after one warm-up
+#: phase 9: the batched manipulation path (``manipulation.load_batch``):
+#: (asset, task) of each distinct physics, stepped in float32 at
+#: MANIP_BATCH (the JAX package's manipulation bench rung's batch) and
+#: held to its float64 golden
+#: (tests/data/torch_manipulation_<asset>_golden_f64.npz)
+MANIP_PATHS = (("reach_site", "reach_site_features"),
+               ("reach_duplo", "reach_duplo_features"),
+               ("lift_brick", "lift_brick_features"),
+               ("lift_large_box", "lift_large_box_features"))
+MANIP_BATCH = MAIN_BATCH
+MANIP_TRAIN = ("reach_site_features", 256, 8)  # (task, batch, steps)
 
 
 class PhaseError(RuntimeError):
@@ -302,7 +320,7 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     return out
 
 
-def phase_golden(suite, name, domain, task):
+def phase_golden(suite, name, domain, task, env=None):
     """One float64 control step from the golden's start states (after a
     reset, and some steps later: on the floor, the string taut, the ball at
     rest, the feet loaded) with the golden's per-episode model overrides,
@@ -316,9 +334,10 @@ def phase_golden(suite, name, domain, task):
                               f"torch_{name}_golden_f64.npz"),
                  allow_pickle=False) as z:
         gold = {k: z[k] for k in z.files}
-    env = suite.load_batch(domain, task, device="cuda", dtype=torch.float64,
-                           autoreset=False,
-                           task_kwargs=TASK_KWARGS.get(domain))
+    if env is None:
+        env = suite.load_batch(domain, task, device="cuda",
+                               dtype=torch.float64, autoreset=False,
+                               task_kwargs=TASK_KWARGS.get(domain))
     errs, rest, rel = {}, 0.0, 0.0
     for p in golden.PREFIXES:
         one = golden.step_errors(env, gold, p)
@@ -357,12 +376,18 @@ def min_solves_per_substep(env):
     return per_forward + (1 if bool((damping != 0).any()) else 0)
 
 
-def phase_main(suite, linalg, solver, domain, task, batch):
+def phase_main(suite, linalg, solver, domain, task, batch, env=None,
+               profile=False):
     """``reset`` and MAIN_STEPS control steps of one main path in float32,
     with the kernel's launch count (and the noslip sweep's slot count) set
-    to 0 just before and read just after."""
-    env = suite.load_batch(domain, task, device="cuda", dtype=torch.float32,
-                           task_kwargs=TASK_KWARGS.get(domain))
+    to 0 just before and read just after; ``env``: the path's env where it
+    is not ``suite.load_batch(domain, task)``'s.  With ``profile``, one
+    more control step under ``torch.profiler`` after the counts are read:
+    its device kernels and the card's idle share."""
+    if env is None:
+        env = suite.load_batch(domain, task, device="cuda",
+                               dtype=torch.float32,
+                               task_kwargs=TASK_KWARGS.get(domain))
     gen = torch.Generator(device="cuda").manual_seed(0)
     act_gen = torch.Generator(device="cuda").manual_seed(1)
     nu = env.model.nu
@@ -420,6 +445,21 @@ def phase_main(suite, linalg, solver, domain, task, batch):
               f"contact")
     warm = step_times[1:]  # first step is the warm-up
     sps = batch * len(warm) / sum(warm)
+    profiled = {}
+    if profile:
+        box = [state]
+
+        def one_step():
+            box[0], _ = env.step(box[0], actions())
+
+        kernels, busy_ms, wall_ms = _idle_share(one_step)
+        # the profiler slows the host: the share is also taken of the
+        # unprofiled steps' median
+        median_ms = 1e3 * float(np.median(step_times[1:]))
+        profiled = dict(kernels_per_step=kernels, busy_ms=busy_ms,
+                        profiled_ms=wall_ms, idle_share=1 - busy_ms / wall_ms,
+                        step_median_ms=median_ms,
+                        idle_share_unprofiled=1 - busy_ms / median_ms)
     return dict(domain=domain, task=task, batch=batch, launches=launches,
                 reset_launches=reset_launches, substeps=substeps,
                 min_solves=min_solves, env_steps_per_s=sps,
@@ -431,7 +471,8 @@ def phase_main(suite, linalg, solver, domain, task, batch):
                 contact_cap=env.model.opt.contact_cap,
                 noslip_slots_per_substep=(
                     noslip_slots / substeps
-                    if env.model.opt.noslip_iterations else None))
+                    if env.model.opt.noslip_iterations else None),
+                **profiled)
 
 
 def phase_selfcheck(suite, linalg, engine, make_data, batch=256, steps=5):
@@ -473,13 +514,15 @@ class _TimedEnv:
         return state, ts
 
 
-def phase_train(suite, linalg, ppo, domain, task, batch, steps):
+def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
     """PPO on one training path in float32 through the user's entry points
     (``load_batch`` on its default device, ``make_train_step``,
     ``init_train_state``): one warm-up train step, then ``TRAIN_TIMED``
     timed ones, with the kernel's launch count set to 0 just before
-    ``init_train_state`` and read after the last step."""
-    env = suite.load_batch(domain, task, dtype=torch.float32)
+    ``init_train_state`` and read after the last step; ``env``: the path's
+    env where it is not ``suite.load_batch(domain, task)``'s."""
+    if env is None:
+        env = suite.load_batch(domain, task, dtype=torch.float32)
     check(env.model.device.type == "cuda", "load_batch left the card")
     cfg = ppo.PPOConfig(steps_per_batch=steps, update_epochs=2,
                         num_minibatches=4)
@@ -610,20 +653,22 @@ def phase_env_golden(suite, domain, task):
 
 def _idle_share(step):
     """(device kernels, device busy ms, wall ms) of one profiled call of
-    ``step``: the kernels ``torch.profiler`` saw on the card."""
+    ``step``: the kernels ``torch.profiler`` saw on the card.  It records
+    the card's activity alone and reads the profiler's raw events: turning
+    a manipulation step's ~190,000 kernels into ``prof.events()`` takes
+    longer than the step, and recording the host's activity too lengthens
+    the profiled step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if "CUDA" in str(getattr(e, "device_type", ""))]
-    busy_us = sum(getattr(e, "device_time", None) or e.cuda_time
-                  for e in kernels)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if "CUDA" in str(e.device_type())]
+    busy_us = sum(e.duration_ns() for e in kernels) / 1e3
     check(busy_us > 0, "torch.profiler saw no kernel on the device")
     return len(kernels), busy_us / 1e3, wall * 1e3
 
@@ -709,6 +754,120 @@ def phase_single_selfcheck(suite, linalg, steps=5):
     return dobs, drew, n_k
 
 
+def phase_manip_selfcheck(manipulation, linalg):
+    """reach_site_features in float64 on the card: one control step from
+    each of its golden's start states (after a reset, and 5 steps later)
+    with the golden's actions, through the kernel and again under
+    ``reference_solves()``.  Those are states where a step does not jump
+    with rounding; at most of the arm's states a change of one rounding
+    moves the next control step by up to 3e-5 (the hand touches link 4
+    with forces of 1e4-1e5).  Returns the largest observation, reward and
+    state difference, and the kernel's launches in each run."""
+    from dm_control_torch.rl import golden
+
+    with np.load(os.path.join(ROOT, "tests", "data", "torch_manipulation_"
+                              "reach_site_golden_f64.npz"),
+                 allow_pickle=False) as z:
+        gold = {k: z[k] for k in z.files}
+    env = manipulation.load_batch("reach_site_features", dtype=torch.float64,
+                                  autoreset=False)
+    worst = {"obs": 0.0, "reward": 0.0, "state": 0.0}
+    n_k = n_p = 0
+    for prefix in golden.PREFIXES:
+        state = golden.start_state(env, gold, prefix)
+        action = torch.as_tensor(gold[f"{prefix}_actions"], device="cuda")
+        n0 = linalg.chol_solve.launches
+        s_k, ts_k = env.step(state, action)
+        n1 = linalg.chol_solve.launches
+        with linalg.reference_solves():
+            s_p, ts_p = env.step(state, action)
+        n_k += n1 - n0
+        n_p += linalg.chol_solve.launches - n1
+        worst["obs"] = max(worst["obs"], max(
+            float((ts_k.observation[k] - ts_p.observation[k]).abs().max())
+            for k in ts_k.observation))
+        worst["reward"] = max(worst["reward"], float(
+            (ts_k.reward - ts_p.reward).abs().max()))
+        worst["state"] = max(worst["state"], max(
+            float((getattr(s_k.data, f) - getattr(s_p.data, f)).abs().max())
+            for f in ("qpos", "qvel")))
+    steps = len(golden.PREFIXES)
+    check(n_k >= 2 * steps * env.n_sub_steps and n_p == 0,
+          f"manipulation selfcheck: {n_k} kernel launches through the "
+          f"kernel, {n_p} under reference_solves()")
+    check(max(worst.values()) <= 1e-9,
+          f"manipulation selfcheck: kernel vs plain {worst} (<= 1e-9)")
+    return worst, n_k
+
+
+def phase_manipulation(manipulation, suite, linalg, solver, ppo, card,
+                       trains, started):
+    """Phase 9, the batched manipulation path: the float64 goldens, the
+    four float32 paths with a profiled step each, the kernel against
+    ``reference_solves()`` and one PPO train step (appended to
+    ``trains``).  Returns the four paths' runs."""
+    t9 = time.perf_counter()
+    for asset, task in MANIP_PATHS:
+        env = manipulation.load_batch(task, dtype=torch.float64,
+                                      autoreset=False)
+        check(env.model.device.type == "cuda", "load_batch left the card")
+        gerr, gworst, rest, rel = phase_golden(
+            suite, f"manipulation_{asset}", "manipulation", task, env=env)
+        print(f"phase 9 golden: float64 {task} step on the card vs JAX "
+              f"golden manipulation_{asset} (reset and later states), max "
+              f"|d| {gerr:.3e} ({gworst}); gate: all but qacc_warmstart "
+              f"{rest:.3e} <= 1e-9, qacc_warmstart {rel:.3e} of its scale "
+              f"<= 1e-12; phase 9 at {time.perf_counter() - t9:.1f} s",
+              flush=True)
+    manips = []
+    for asset, task in MANIP_PATHS:
+        env = manipulation.load_batch(task, dtype=torch.float32)
+        check(env.model.device.type == "cuda", "load_batch left the card")
+        run = phase_main(suite, linalg, solver, "manipulation", task,
+                         MANIP_BATCH, env=env, profile=True)
+        manips.append(run)
+        print(f"phase 9 main path: manipulation.load_batch({task!r}) "
+              f"B={MANIP_BATCH} float32 nv={env.model.nv}, reset "
+              f"{run['reset_s']:.2f} s, {MAIN_STEPS} steps "
+              f"({run['substeps']} substeps), chol_solve launches "
+              f"{run['launches']} (>= {run['min_solves']} a substep), "
+              f"{run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
+              f"diverged share {run['diverged_share']:.4f}, mean reward "
+              f"{run['mean_reward']:.4f}, step ms "
+              f"{[round(t, 1) for t in run['step_ms']]}, peak "
+              f"{run['peak_gb']:.2f} GB, contact cap {run['contact_cap']}; "
+              f"one profiled control step: {run['kernels_per_step']} device "
+              f"kernels, busy {run['busy_ms']:.3f} ms of "
+              f"{run['profiled_ms']:.1f} ms, idle share "
+              f"{run['idle_share']:.4f} (of the unprofiled steps' median "
+              f"{run['step_median_ms']:.1f} ms: "
+              f"{run['idle_share_unprofiled']:.4f}); phase 9 at "
+              f"{time.perf_counter() - t9:.1f} s | {card}", flush=True)
+    worst, n_k = phase_manip_selfcheck(manipulation, linalg)
+    print(f"phase 9 selfcheck: reach_site_features float64, one control "
+          f"step from each of its golden's start states (B=4) through the "
+          f"kernel ({n_k} launches) and under reference_solves(): max "
+          f"|dobs| {worst['obs']:.3e}, |dreward| {worst['reward']:.3e}, "
+          f"|dqpos, dqvel| {worst['state']:.3e} <= 1e-9; phase 9 at "
+          f"{time.perf_counter() - t9:.1f} s | {card}", flush=True)
+    mtask, mbatch, msteps = MANIP_TRAIN
+    run = phase_train(suite, linalg, ppo, "manipulation", mtask, mbatch,
+                      msteps, env=manipulation.load_batch(
+                          mtask, dtype=torch.float32))
+    trains.append(run)
+    print(f"phase 9 train: ppo {mtask} B={mbatch} T={msteps} float32, 2 "
+          f"epochs x 4 minibatches: {run['env_steps_per_s']:.1f} env-steps/s "
+          f"through the learner over {TRAIN_TIMED} train steps after a "
+          f"warm-up ({run['warm_s']:.2f} s), rollout ms "
+          f"{[round(t, 1) for t in run['rollout_ms']]}, update ms "
+          f"{[round(t, 1) for t in run['update_ms']]}, chol_solve launches "
+          f"{run['per_step']:.1f} a train step, pi_loss "
+          f"{run['pi_loss']:.4e} approx_kl {run['approx_kl']:.4e}, peak "
+          f"{run['peak_gb']:.2f} GB; all phases in "
+          f"{time.perf_counter() - started:.1f} s | {card}", flush=True)
+    return manips
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -716,11 +875,10 @@ def main() -> int:
         return 1
     started = time.perf_counter()
     sys.path.insert(0, ROOT)
-    from dm_control_torch import suite
+    from dm_control_torch import manipulation, suite
     from dm_control_torch.ops import _cuda_build, linalg
     from dm_control_torch.physics import engine, solver
     from dm_control_torch.physics.model import make_data
-    from dm_control_torch.rl import ppo
     from dm_control_torch.rl import ppo
 
     card = card_line()
@@ -851,8 +1009,11 @@ def main() -> int:
     dobs, drew, n_k = phase_single_selfcheck(suite, linalg)
     print(f"phase 8 single env selfcheck: humanoid:run float64, reset and 5 "
           f"steps, kernel ({n_k} launches) vs reference_solves(): max "
-          f"|dobs| {dobs:.3e}, |dreward| {drew:.3e} <= 1e-10; all phases in "
+          f"|dobs| {dobs:.3e}, |dreward| {drew:.3e} <= 1e-10; phases 1-8 in "
           f"{time.perf_counter() - started:.1f} s | {card}", flush=True)
+
+    manips = phase_manipulation(manipulation, suite, linalg, solver, ppo,
+                                card, trains, started)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
@@ -867,7 +1028,8 @@ def main() -> int:
             **{f"{r['domain']}:{r['task']}": r["launches"] for r in runs},
             **{f"ppo {r['domain']}:{r['task']}": r["launches"]
                for r in trains},
-            "single humanoid:run": single["launches"]},
+            "single humanoid:run": single["launches"],
+            **{f"manipulation:{r['task']}": r["launches"] for r in manips}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

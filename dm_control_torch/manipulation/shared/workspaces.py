@@ -1,0 +1,16 @@
+"""Workspace boxes and draws in them
+(counterpart of ``dm_control_tpu/manipulation/shared/workspaces.py``)."""
+
+from __future__ import annotations
+
+import collections
+
+BoundingBox = collections.namedtuple("BoundingBox", ["lower", "upper"])
+
+
+def uniform_in_box(m, box: BoundingBox, rc):
+    """Points (B, 3) uniform in ``box``, drawn from ``rc`` (an
+    ``rl.control.RandomContext``), in the model's dtype on its device."""
+    lower = m.const(("box_lower", tuple(box.lower)), box.lower)
+    upper = m.const(("box_upper", tuple(box.upper)), box.upper)
+    return rc.uniform(lower, upper, 3)

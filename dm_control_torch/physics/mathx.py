@@ -75,6 +75,34 @@ def quat_to_mat(q):
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(m):
+    """3x3 rotation matrix -> unit quaternion (Shepperd's method): of the
+    four constructions the one with the largest pivot, the sign made
+    canonical (w >= 0)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    pivots = torch.sqrt(torch.clamp(pivots, min=1e-30)) / 2.0
+    w0, x1, y2, z3 = (pivots[..., i] for i in range(4))
+    cands = torch.stack([
+        torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                     (m10 - m01) / (4 * w0)], -1),
+        torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1),
+                     (m02 + m20) / (4 * x1)], -1),
+        torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2,
+                     (m12 + m21) / (4 * y2)], -1),
+        torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3),
+                     (m12 + m21) / (4 * z3), z3], -1)], -2)
+    pick = torch.argmax(pivots, dim=-1)[..., None, None].expand(
+        pivots.shape[:-1] + (1, 4))
+    q = torch.gather(cands, -2, pick).squeeze(-2)
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return normalize(q)
+
+
 def axis_angle_to_quat(axis, angle):
     half = angle * 0.5
     return torch.cat([torch.cos(half).unsqueeze(-1),

@@ -1,9 +1,10 @@
 """Sensor evaluation (mj_sensorPos/Vel/Acc), batched.
 
 Counterpart of ``dm_control_tpu/physics/sensors.py`` for the sensor types
-the ported domains declare: joint position and velocity, touch,
+the ported models declare: joint position and velocity, touch,
 accelerometer, velocimeter, gyro, force, torque, rangefinder, frame
-position and axes, subtree centre of mass and subtree linear velocity.
+position, orientation, axes and linear and angular velocity, subtree
+centre of mass, subtree linear velocity and angular momentum.
 Sensors of one type are evaluated together and written into
 ``sensordata`` at their static addresses.  A model with any other sensor
 type raises ``NotImplementedError``.
@@ -22,9 +23,12 @@ from dm_control_torch.physics.model import (
 
 _S = SensorType
 _FRAME_AXIS = {_S.FRAMEXAXIS: 0, _S.FRAMEYAXIS: 1, _S.FRAMEZAXIS: 2}
+#: the velocity of a frame's point: the angular or the linear half of its
+#: [ang, lin] 6D motion, in world axes
+_FRAME_VEL = {_S.FRAMEANGVEL: slice(0, 3), _S.FRAMELINVEL: slice(3, 6)}
 #: types whose object is any framed object or a body, not only a site
-_ANY_OBJECT = {_S.FRAMEPOS, _S.SUBTREECOM, _S.SUBTREELINVEL,
-               _S.SUBTREEANGMOM, *_FRAME_AXIS}
+_ANY_OBJECT = {_S.FRAMEPOS, _S.FRAMEQUAT, _S.SUBTREECOM, _S.SUBTREELINVEL,
+               _S.SUBTREEANGMOM, *_FRAME_AXIS, *_FRAME_VEL}
 #: types whose object is a joint
 _OF_JOINT = {_S.JOINTPOS, _S.JOINTVEL}
 _PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
@@ -95,12 +99,27 @@ def _of_objects(m: Model, sensors, site, body, geom):
     return torch.cat([site, body, geom], dim=1)[:, at]
 
 
+def _object_bodies(m: Model, sensors):
+    """The body of each sensor's object (a site's or a geom's, or the body
+    itself) and the root of that body's tree."""
+    def build():
+        bodies = []
+        for s in sensors:
+            kind, i = m.sensor_objtype[s], m.sensor_objid[s]
+            bodies.append(m.site_bodyid[i] if kind == int(ObjType.SITE)
+                          else m.geom_bodyid[i] if kind == int(ObjType.GEOM)
+                          else i)
+        return m.idx(bodies), m.idx([m.body_rootid[b] for b in bodies])
+    return m.cached(("object_bodies", tuple(sensors)), build)
+
+
 def sensor_pos(m: Model, d: Data) -> Data:
     if m.nsensor == 0:
         return d
     groups = _groups(m)
-    if not any(t in groups for t in (_S.JOINTPOS, _S.FRAMEPOS, _S.SUBTREECOM,
-                                     _S.RANGEFINDER, *_FRAME_AXIS)):
+    if not any(t in groups for t in (_S.JOINTPOS, _S.FRAMEPOS, _S.FRAMEQUAT,
+                                     _S.SUBTREECOM, _S.RANGEFINDER,
+                                     *_FRAME_AXIS)):
         return d
     out = d.sensordata.clone()
     for stype, sensors in groups.items():
@@ -111,6 +130,9 @@ def sensor_pos(m: Model, d: Data) -> Data:
         elif stype == _S.FRAMEPOS:
             _put(m, out, sensors, _of_objects(
                 m, sensors, d.site_xpos, d.xpos, d.geom_xpos))
+        elif stype == _S.FRAMEQUAT:
+            _put(m, out, sensors, mx.mat_to_quat(_of_objects(
+                m, sensors, d.site_xmat, d.xmat, d.geom_xmat)))
         elif stype in _FRAME_AXIS:
             mat = _of_objects(m, sensors, d.site_xmat, d.xmat, d.geom_xmat)
             _put(m, out, sensors, mat[..., _FRAME_AXIS[stype]])
@@ -180,6 +202,14 @@ def sensor_vel(m: Model, d: Data) -> Data:
             vel = mx.transform_motion(d.cvel[:, m.idx(bodies)], offset)
             part = vel[..., :3] if stype == _S.GYRO else vel[..., 3:]
             _put(m, out, sensors, mx.mat_t_vec(mat, part))
+        elif stype in _FRAME_VEL:
+            # the velocity of the object's point, carried by its body,
+            # taken about the root subtree's CoM, in world axes
+            bodies, roots = _object_bodies(m, sensors)
+            pos = _of_objects(m, sensors, d.site_xpos, d.xpos, d.geom_xpos)
+            vel = mx.transform_motion(d.cvel[:, bodies],
+                                      pos - d.subtree_com[:, roots])
+            _put(m, out, sensors, vel[..., _FRAME_VEL[stype]])
         elif stype in (_S.SUBTREELINVEL, _S.SUBTREEANGMOM):
             if subtree is None:
                 subtree = _subtree_vel(m, d, [

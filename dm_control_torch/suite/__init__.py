@@ -55,7 +55,7 @@ TASKS_BY_DOMAIN = _get_tasks_by_domain(ALL_TASKS)
 BENCHMARKING_BY_DOMAIN = _get_tasks_by_domain(BENCHMARKING)
 
 
-def _check_device(what, device):
+def check_device(what, device):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"{what}: device {str(device)!r} but CUDA is not available; "
@@ -97,7 +97,7 @@ def build_environment(domain_name, task_name, task_kwargs=None,
                       dtype: torch.dtype = torch.float64):
     """The ``Environment`` of ``load`` (see there)."""
     domain = _domain(domain_name, task_name)
-    _check_device(f"load({domain_name!r}, {task_name!r})", device)
+    check_device(f"load({domain_name!r}, {task_name!r})", device)
     factory = domain.TASKS[task_name]
     kwargs = dict(task_kwargs or {})
     if environment_kwargs is not None:
@@ -131,7 +131,7 @@ def load_batch(domain_name, task_name, *, device="cuda",
     from dm_control_torch.rl.batch_env import BatchEnv
 
     domain = _domain(domain_name, task_name)
-    _check_device(f"load_batch({domain_name!r}, {task_name!r})", device)
+    check_device(f"load_batch({domain_name!r}, {task_name!r})", device)
     asset, task, *edit = domain.TASKS[task_name](**(task_kwargs or {}))
     return BatchEnv(base.load_model(asset, device, dtype, *edit), task,
                     time_limit=domain.TIME_LIMIT,

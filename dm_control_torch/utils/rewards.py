@@ -87,19 +87,25 @@ def sigmoid(x, value_at_1: float, sigmoid: str = "gaussian"):
     return _SIGMOIDS[sigmoid](x, value_at_1)
 
 
+def _number(v) -> bool:
+    return isinstance(v, (int, float))
+
+
 def tolerance(x: torch.Tensor, bounds=(0.0, 0.0), margin=0.0,
               sigmoid: str = "gaussian",
               value_at_margin: float = _DEFAULT_VALUE_AT_MARGIN):
     """1 where ``x`` is in ``bounds``, decaying to ``value_at_margin`` at
-    ``margin`` outside them (``margin == 0``: a hard indicator)."""
+    ``margin`` outside them (``margin == 0``: a hard indicator).  A bound
+    or the margin may be a tensor that broadcasts against ``x`` (one per
+    environment); the checks of their values apply to numbers only."""
     lower, upper = bounds
-    if lower > upper:
+    if _number(lower) and _number(upper) and lower > upper:
         raise ValueError("Lower bound must be <= upper bound.")
-    if margin < 0:
+    if _number(margin) and margin < 0:
         raise ValueError(f"`margin` must be non-negative, got {margin}.")
     in_bounds = (lower <= x) & (x <= upper)
     one = torch.ones_like(x)
-    if margin == 0:
+    if _number(margin) and margin == 0:
         return torch.where(in_bounds, one, torch.zeros_like(x))
     d = torch.where(x < lower, lower - x, x - upper) / margin
     return torch.where(in_bounds, one, _SIGMOIDS[sigmoid](d, value_at_margin))

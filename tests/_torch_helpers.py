@@ -51,9 +51,9 @@ def jax_model_from_asset(asset):
     import jax.numpy as jnp
 
     from dm_control_tpu.physics import model as jmodel
-    from dm_control_torch.suite import base as tbase
+    from dm_control_torch.physics import model_io
 
-    m = tbase.load_model(asset, "cpu", torch.float64)
+    m = model_io.load(export_tool().asset_path(asset), "cpu", torch.float64)
 
     def leaf(v):
         return jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v

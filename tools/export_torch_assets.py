@@ -9,7 +9,7 @@ tool lives outside the port because it imports ``dm_control_tpu`` and JAX.
 (``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
 alone; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
 single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
-six).
+six; ``manipulation`` the four manipulation models and their goldens).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -21,7 +21,8 @@ It writes, for every ported domain (or only the ones named),
   quadruped has three, manipulator and dog two, ``GOLDEN_DOMAINS``; lqr's
   task is seeded, ``GOLDEN_TASK_KWARGS``): float64 start states of the
   golden's task for 4 environments,
-  ``reset_*`` from a JAX ``BatchEnv.reset`` (key ``GOLDEN_KEY``; for dog,
+  ``reset_*`` from a JAX ``BatchEnv.reset`` (key ``GOLDEN_KEY``, or the
+  golden's own in ``GOLDEN_KEYS``; for dog,
   whose JAX task draws its start on the host, numpy seeds as in the JAX
   single-environment reset: ``_host_reset``) and
   ``contact_*`` after ``FALL_STEPS[golden]`` further control steps (for
@@ -42,6 +43,19 @@ It writes, for every ported domain (or only the ones named),
   ``GOLDEN_SEED`` and the JAX state, observation, reward, discount and
   step type after one control step (keys ``<prefix>_actions``,
   ``<prefix>_step_*``, ``<prefix>_obs_*``, ``<prefix>_reward``, ...);
+- on request (``manipulation``),
+  ``dm_control_torch/manipulation/assets/<asset>.npz`` for each distinct
+  physics of the batchable manipulation tasks (``MANIPULATION_ASSETS``:
+  a task's vision variant shares its features variant's model), built as
+  the JAX package's ``composer.batch.compile_task`` builds it (the root
+  entity's MJCF with ``option/timestep`` set to the task's physics
+  timestep, then ``compile_model``), and a golden for each,
+  ``tests/data/torch_manipulation_<asset>_golden_f64.npz``, in the format
+  above: the JAX ``manipulation.load_batch`` in float64 without contact
+  compaction, its ``contact_*`` states ``FALL_STEPS`` control steps in
+  (the arm on its way and, with a prop, the prop resting on the floor:
+  prop-floor contacts active, its frame sensors nonzero) and the
+  per-episode ``site_pos`` (reach_site) or ``_target_height`` (lift);
 - on request, ``tests/data/torch_env_<domain>_<task>_f64.npz`` for the
   single-environment episodes of ``ENV_GOLDENS``: the JAX package's
   ``suite.load(domain, task, task_kwargs={"random": ENV_SEED})`` in
@@ -63,6 +77,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET_DIR = os.path.join(ROOT, "dm_control_torch", "suite", "assets")
+MANIPULATION_ASSET_DIR = os.path.join(ROOT, "dm_control_torch",
+                                      "manipulation", "assets")
 GOLDEN_KEY = 7
 GOLDEN_SEED = 11
 GOLDEN_BATCH = 4
@@ -130,6 +146,38 @@ ASSETS = {
             "dog_fetch": dict(floor_size=10, remove_ball=False)},
 }
 DOMAINS = tuple(ASSETS)
+#: manipulation asset -> the registry task whose physics it is
+MANIPULATION_ASSETS = {
+    "reach_site": "reach_site_features",
+    "reach_duplo": "reach_duplo_features",
+    "lift_brick": "lift_brick_features",
+    "lift_large_box": "lift_large_box_features"}
+#: manipulation golden -> the registry task its file steps
+MANIPULATION_GOLDENS = {f"manipulation_{a}": t
+                        for a, t in MANIPULATION_ASSETS.items()}
+GOLDEN_TASKS.update(MANIPULATION_GOLDENS)
+#: golden -> the key of its reset where it is not ``GOLDEN_KEY``.  The Jaco
+#: arm's hand touches link 4 in every state, with forces of 1e4-1e5 on
+#: light finger links: at the resets of key 7 a relative nudge of 2.2e-16
+#: in qpos and qvel moves the next control step's qacc_warmstart by up to
+#: 3.4e-9 of its largest entry, far past the golden gate.  Key 3's resets
+#: move by at most 7.7e-14 of it and their qpos and qvel by 9e-12 (the
+#: same nudge, every manipulation model; 60 keys searched).
+GOLDEN_KEYS = {g: 3 for g in MANIPULATION_GOLDENS}
+GOLDEN_DOMAINS.update({g: "manipulation" for g in MANIPULATION_GOLDENS})
+#: the manipulation goldens' later states (from the resets of key 3, see
+#: ``GOLDEN_KEYS``): reach_site's arm 5 steps in; the Duplo brick 4 steps
+#: in, landed flat from up to 8 cm and still sliding; the large box 8 steps
+#: in, back on the floor in every environment after the floor pushed it
+#: out (it spawns up to 4 cm deep), one still sliding.  Of the first 30
+#: steps these are states where a relative nudge of 2.2e-16 in qpos and
+#: qvel moves the next step's qacc_warmstart by at most 1.8e-13 of its
+#: largest entry and its qpos and qvel by 2.8e-10; at others the same
+#: nudge moves them by up to 1.8e-7 and 2e-4.
+FALL_STEPS.update({"manipulation_reach_site": 5,
+                   "manipulation_reach_duplo": 4,
+                   "manipulation_lift_brick": 4,
+                   "manipulation_lift_large_box": 8})
 GOLDENS = tuple(GOLDEN_TASKS)
 #: (domain, task) of each single-environment episode golden: RK4
 #: (cartpole), 200 settle steps (cheetah), the rejection loop at the
@@ -154,7 +202,9 @@ def goldens_of(domain):
 
 
 def asset_path(asset):
-    return os.path.join(ASSET_DIR, asset + ".npz")
+    where = MANIPULATION_ASSET_DIR if asset in MANIPULATION_ASSETS \
+        else ASSET_DIR
+    return os.path.join(where, asset + ".npz")
 
 
 def golden_path(domain):
@@ -202,12 +252,36 @@ def write_env_golden(name):
     print("wrote", os.path.relpath(env_golden_path(name), ROOT), flush=True)
 
 
+def _manipulation_task(name):
+    """The JAX package's composer task of a manipulation registry name."""
+    from dm_control_tpu import manipulation  # noqa: F401 (fills the registry)
+    from dm_control_tpu.manipulation.shared import registry
+
+    return registry.get(name)().task
+
+
+def manipulation_model(asset):
+    """The compiled model of a manipulation asset, built as
+    ``dm_control_tpu/composer/batch.py::compile_task`` builds it."""
+    from dm_control_tpu.mjcf.compiler import compile_model
+
+    task = _manipulation_task(MANIPULATION_ASSETS[asset])
+    root = task.root_entity.mjcf_model
+    opt = root.first("option")
+    if opt is None:
+        opt = root.add("option")
+    opt.attrib["timestep"] = str(task.physics_timestep)
+    return compile_model(root)
+
+
 def jax_model(asset):
     """The JAX package's compiled model behind an asset name."""
     import importlib
 
     import numpy as np
 
+    if asset in MANIPULATION_ASSETS:
+        return manipulation_model(asset)
     for domain, assets in ASSETS.items():
         if asset in assets:
             module = importlib.import_module(f"dm_control_tpu.suite.{domain}")
@@ -233,6 +307,15 @@ def export_model(asset):
 def _jax_env(golden):
     from dm_control_tpu import suite
 
+    if golden in MANIPULATION_GOLDENS:
+        # float64 asks for no contact compaction (the JAX BatchEnv engages
+        # it without a dtype); the port's float64 runs without it too
+        import jax.numpy as jnp
+
+        from dm_control_tpu import manipulation
+
+        return manipulation.load_batch(MANIPULATION_GOLDENS[golden],
+                                       dtype=jnp.float64, autoreset=False)
     env = suite.load_batch(golden_domain(golden), GOLDEN_TASKS[golden],
                            task_kwargs=GOLDEN_TASK_KWARGS.get(golden),
                            autoreset=False)
@@ -303,7 +386,8 @@ def golden_states(domain):
         state = _host_reset(env)
     else:
         state, _ = env.reset(jax.random.split(
-            jax.random.PRNGKey(GOLDEN_KEY), GOLDEN_BATCH))
+            jax.random.PRNGKey(GOLDEN_KEYS.get(domain, GOLDEN_KEY)),
+            GOLDEN_BATCH))
     fields = _state_fields(env.model)
     out = _snapshot(state, "reset", fields)
     rng = np.random.default_rng(GOLDEN_SEED + 1)
@@ -368,6 +452,15 @@ def main(argv=None):
             continue
         if domain.startswith("env_golden:"):
             write_env_golden(domain[len("env_golden:"):])
+            continue
+        if domain == "manipulation":
+            for asset in MANIPULATION_ASSETS:
+                export_model(asset)
+            print("wrote", ", ".join(MANIPULATION_ASSETS), flush=True)
+            for golden in MANIPULATION_GOLDENS:
+                np.savez(golden_path(golden), **make_golden(golden))
+                print("wrote", os.path.relpath(golden_path(golden), ROOT),
+                      flush=True)
             continue
         if domain.startswith("golden:"):
             golden = domain[len("golden:"):]
