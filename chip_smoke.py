@@ -31,7 +31,14 @@ batched manipulation path (``manipulation.load_batch(name)``): one
 float64 golden step of each of its four models (reach_site, reach_duplo,
 lift_brick, lift_large_box), each in float32 at B = 1024 with its rate,
 launches and idle share, reach_site in float64 with and without the
-kernel, and one PPO train step on reach_site.  Each phase
+kernel, and one PPO train step on reach_site; and last the batched
+locomotion path: one float64 golden step of each of its four models
+(BoxHead soccer 1 and 2 a side, ``locomotion.soccer.load_batch``, the
+golden's later states scoring a goal; mocap tracking with the rolling ball
+and with the CMU 2020 humanoid, ``MultiClipMocapTracking`` through
+``composer.compile_task``), soccer 2v2 at B = 512 and both tracking tasks
+at B = 1024 in float32 with their rates, launches and idle shares, and
+soccer 2v2 in float64 with and without the kernel.  Each phase
 prints one line; any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
@@ -88,12 +95,22 @@ _OTHER_GOLDENS = {("quadruped", "escape"): "quadruped_escape",
 GOLDENS = tuple(
     (_OTHER_GOLDENS.get((d, t), d), d, "swimmer6" if d == "swimmer" else t)
     for d, t, _ in MAIN_PATHS)
+#: phase 10: the batched locomotion path: (asset, batch) of each path
+#: stepped in float32 (soccer 2v2 at the JAX package's soccer bench rung's
+#: batch, tracking at its tracking rung's), and the assets held to their
+#: float64 goldens (tests/data/torch_locomotion_<asset>_golden_f64.npz)
+LOCO_PATHS = (("soccer_2v2", 512), ("tracking_ball", MAIN_BATCH),
+              ("tracking_cmu2020", MAIN_BATCH))
+LOCO_GOLDENS = ("soccer_1v1", "soccer_2v2", "tracking_ball",
+                "tracking_cmu2020")
 #: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's,
-#: quadruped's, stacker:stack_4's, humanoid_CMU's, dog:fetch's, and the
-#: manipulation paths' (reach_site's arm; the arm and a free prop)
+#: quadruped's, stacker:stack_4's, humanoid_CMU's (and CMU tracking's),
+#: dog:fetch's, the manipulation paths' (reach_site's arm; the arm and a
+#: free prop), soccer 2v2's and ball tracking's
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85),
-                (MAIN_BATCH, 9), (MAIN_BATCH, 15))
+                (MAIN_BATCH, 9), (MAIN_BATCH, 15), (512, 38),
+                (MAIN_BATCH, 8))
 #: (B, n, dtype) the kernel is also timed at: the single environment's
 #: humanoid solve, in the single environment's float64 and in float32
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32))
@@ -376,14 +393,30 @@ def min_solves_per_substep(env):
     return per_forward + (1 if bool((damping != 0).any()) else 0)
 
 
+def rewards_in_unit_range(domain):
+    """The suite's check of a path's rewards (steps, B): within [0, 1], or
+    at most 1 for lqr, whose reward is 1 less a quadratic cost."""
+    low = -float("inf") if domain == "lqr" else 0.0
+
+    def check_rewards(r):
+        return (bool(((r >= low) & (r <= 1)).all()),
+                f"reward outside [{low}, 1]")
+    return check_rewards
+
+
 def phase_main(suite, linalg, solver, domain, task, batch, env=None,
-               profile=False):
+               profile=False, check_rewards=None, inspect=None):
     """``reset`` and MAIN_STEPS control steps of one main path in float32,
     with the kernel's launch count (and the noslip sweep's slot count) set
     to 0 just before and read just after; ``env``: the path's env where it
-    is not ``suite.load_batch(domain, task)``'s.  With ``profile``, one
-    more control step under ``torch.profiler`` after the counts are read:
-    its device kernels and the card's idle share."""
+    is not ``suite.load_batch(domain, task)``'s; ``check_rewards``: a
+    function of the stacked finite rewards that returns (ok, what it
+    holds), by default ``rewards_in_unit_range``; ``inspect(env, state)``
+    is read after the reset and after the last step.  With ``profile``,
+    one more control step under ``torch.profiler`` after the counts are
+    read: its device kernels and the card's idle share."""
+    from dm_control_torch.physics import engine
+
     if env is None:
         env = suite.load_batch(domain, task, device="cuda",
                                dtype=torch.float32,
@@ -406,6 +439,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
     reset_launches = linalg.chol_solve.launches
+    seen = {} if inspect is None else {"reset": inspect(env, state)}
     step_times = []
     diverged = 0
     rewards = []
@@ -414,8 +448,9 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
         state, ts = env.step(state, actions())
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
-        bad = (ts.step_type == 2) & (ts.discount == 0)
-        diverged += int(bad.sum())
+        # divergence, not a termination with discount 0 (a goal, a fall)
+        diverged += int(engine.check_divergence(env.model,
+                                                state.data).sum())
         rewards.append(ts.reward)
         check(all(bool(torch.isfinite(v).all())
                   for v in ts.observation.values()),
@@ -423,15 +458,15 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
     launches = linalg.chol_solve.launches
     noslip_slots = solver.noslip.slots
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if inspect is not None:
+        seen["steps"] = inspect(env, state)
     what = f"{domain}:{task} B={batch}"
     check(all(v.device.type == "cuda" for v in ts.observation.values()),
           f"{what}: observation left the card")
     r = torch.stack(rewards)
     check(bool(torch.isfinite(r).all()), f"{what}: non-finite reward")
-    # lqr's reward is 1 less a quadratic cost: at most 1, unbounded below
-    low = -float("inf") if domain == "lqr" else 0.0
-    check(bool(((r >= low) & (r <= 1)).all()),
-          f"{what}: reward outside [{low}, 1]")
+    ok, holds = (check_rewards or rewards_in_unit_range(domain))(r)
+    check(ok, f"{what}: {holds}")
     share = diverged / (batch * MAIN_STEPS)
     substeps = MAIN_STEPS * env.n_sub_steps
     check(reset_launches >= min_solves * env.task.settle_steps,
@@ -472,7 +507,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                 noslip_slots_per_substep=(
                     noslip_slots / substeps
                     if env.model.opt.noslip_iterations else None),
-                **profiled)
+                seen=seen, **profiled)
 
 
 def phase_selfcheck(suite, linalg, engine, make_data, batch=256, steps=5):
@@ -754,23 +789,20 @@ def phase_single_selfcheck(suite, linalg, steps=5):
     return dobs, drew, n_k
 
 
-def phase_manip_selfcheck(manipulation, linalg):
-    """reach_site_features in float64 on the card: one control step from
-    each of its golden's start states (after a reset, and 5 steps later)
-    with the golden's actions, through the kernel and again under
-    ``reference_solves()``.  Those are states where a step does not jump
-    with rounding; at most of the arm's states a change of one rounding
-    moves the next control step by up to 3e-5 (the hand touches link 4
-    with forces of 1e4-1e5).  Returns the largest observation, reward and
+def phase_golden_selfcheck(env, golden_name, linalg, what):
+    """A float64 env on the card: one control step from each of its
+    golden's start states with the golden's actions, through the kernel
+    and again under ``reference_solves()``.  Those are states where a step
+    does not jump with rounding (for the Jaco arm's, at most of whose
+    states a change of one rounding moves the next control step by up to
+    3e-5, this matters).  Returns the largest observation, reward and
     state difference, and the kernel's launches in each run."""
     from dm_control_torch.rl import golden
 
-    with np.load(os.path.join(ROOT, "tests", "data", "torch_manipulation_"
-                              "reach_site_golden_f64.npz"),
+    with np.load(os.path.join(ROOT, "tests", "data",
+                              f"torch_{golden_name}_golden_f64.npz"),
                  allow_pickle=False) as z:
         gold = {k: z[k] for k in z.files}
-    env = manipulation.load_batch("reach_site_features", dtype=torch.float64,
-                                  autoreset=False)
     worst = {"obs": 0.0, "reward": 0.0, "state": 0.0}
     n_k = n_p = 0
     for prefix in golden.PREFIXES:
@@ -793,10 +825,10 @@ def phase_manip_selfcheck(manipulation, linalg):
             for f in ("qpos", "qvel")))
     steps = len(golden.PREFIXES)
     check(n_k >= 2 * steps * env.n_sub_steps and n_p == 0,
-          f"manipulation selfcheck: {n_k} kernel launches through the "
+          f"{what} selfcheck: {n_k} kernel launches through the "
           f"kernel, {n_p} under reference_solves()")
     check(max(worst.values()) <= 1e-9,
-          f"manipulation selfcheck: kernel vs plain {worst} (<= 1e-9)")
+          f"{what} selfcheck: kernel vs plain {worst} (<= 1e-9)")
     return worst, n_k
 
 
@@ -843,7 +875,10 @@ def phase_manipulation(manipulation, suite, linalg, solver, ppo, card,
               f"{run['step_median_ms']:.1f} ms: "
               f"{run['idle_share_unprofiled']:.4f}); phase 9 at "
               f"{time.perf_counter() - t9:.1f} s | {card}", flush=True)
-    worst, n_k = phase_manip_selfcheck(manipulation, linalg)
+    worst, n_k = phase_golden_selfcheck(
+        manipulation.load_batch("reach_site_features", dtype=torch.float64,
+                                autoreset=False),
+        "manipulation_reach_site", linalg, "manipulation")
     print(f"phase 9 selfcheck: reach_site_features float64, one control "
           f"step from each of its golden's start states (B=4) through the "
           f"kernel ({n_k} launches) and under reference_solves(): max "
@@ -866,6 +901,149 @@ def phase_manipulation(manipulation, suite, linalg, solver, ppo, card,
           f"{run['peak_gb']:.2f} GB; all phases in "
           f"{time.perf_counter() - started:.1f} s | {card}", flush=True)
     return manips
+
+
+def locomotion_env(asset, dtype, autoreset=True):
+    """The env of a locomotion asset on the card: soccer through
+    ``soccer.load_batch``; tracking through ``compile_task`` of
+    ``MultiClipMocapTracking`` as the JAX package builds it, the rolling
+    ball on 4 synthetic clips of 120 frames (seeds 0-3) with threshold 50
+    and a 10 s limit (its tracking bench rung), the CMU 2020 humanoid on 3
+    (seeds 0-2) with ``ref_steps`` 1-5, ``min_steps`` 10 and a 30 s limit
+    (its ``examples/cmu_2020_tracking.py``); the CoMic reward."""
+    from dm_control_torch.composer import compile_task
+    from dm_control_torch.locomotion import soccer
+    from dm_control_torch.locomotion.arenas import Floor
+    from dm_control_torch.locomotion.mocap.loader import (
+        synthetic_walking_trajectory,
+    )
+    from dm_control_torch.locomotion.mocap.types import ClipCollection
+    from dm_control_torch.locomotion.tasks.reference_pose import (
+        MultiClipMocapTracking,
+    )
+    from dm_control_torch.locomotion.walkers import (
+        CMUHumanoidPositionControlledV2020, RollingBallWithHead,
+    )
+
+    if asset.startswith("soccer_"):
+        return soccer.load_batch(team_size=int(asset[-1]), dtype=dtype,
+                                 autoreset=autoreset)
+    if asset == "tracking_ball":
+        walker = RollingBallWithHead()
+        nq = 7 + len(walker.observable_joint_names)
+        clips = {f"clip{i}": synthetic_walking_trajectory(
+            nq=nq, nv=nq - 1, num_steps=120, seed=i) for i in range(4)}
+        task = MultiClipMocapTracking(
+            walker, Floor(), clips, dataset=ClipCollection(ids=tuple(clips)),
+            termination_error_threshold=50.0, reward_type="comic")
+        limit = 10.0
+    else:
+        walker = CMUHumanoidPositionControlledV2020()
+        n = len(walker.mocap_joint_names)
+        clips = {f"synthetic_walk_{k}": synthetic_walking_trajectory(
+            nq=n + 7, nv=n + 6, seed=k, identifier=f"synthetic_walk_{k}")
+            for k in range(3)}
+        task = MultiClipMocapTracking(
+            walker=walker, arena=Floor(), ref_path_or_trajectories=clips,
+            ref_steps=(1, 2, 3, 4, 5), min_steps=10, reward_type="comic")
+        limit = 30.0
+    return compile_task(task, device="cuda", dtype=dtype, time_limit=limit,
+                        autoreset=autoreset)
+
+
+def check_goal_rewards(r):
+    """Soccer's rewards (steps, B, players): each -1, 0 or 1, and summing
+    to 0 over the players of each environment (as many a side)."""
+    ok = (bool(((r == -1) | (r == 0) | (r == 1)).all())
+          and bool((r.sum(-1) == 0).all()))
+    return ok, "rewards outside {-1, 0, 1} or not summing to 0"
+
+
+def check_finite(r):
+    return True, "finite rewards"
+
+
+def contacts_in_use(env, state):
+    """Per condim group: (the most active candidate contacts in one
+    environment, the mean over the batch, the candidates), at ``state``;
+    active where the distance is under the margin.  Past the cap (64 in
+    float32) compaction drops the shallowest."""
+    from dm_control_torch.physics import engine
+    from dm_control_torch.rl.control import apply_model_diff
+
+    m = apply_model_diff(env.model, state.model_diff)
+    con = engine.fwd_position(m, env._unstrip(state.data)).contact
+    active = (con.dist - con.includemargin) < 0
+    dims = np.array(con.dim)
+    out = {}
+    for c in sorted(set(con.dim)):
+        n = active[:, torch.as_tensor(np.nonzero(dims == c)[0],
+                                      device=active.device)].sum(-1)
+        out[int(c)] = (int(n.max()), float(n.float().mean()),
+                       int((dims == c).sum()))
+    return out
+
+
+def phase_locomotion(suite, linalg, solver, card):
+    """Phase 10, the batched locomotion path: the four float64 goldens
+    (soccer's later states scoring a goal), the three float32 paths with a
+    profiled step each, and soccer 2v2 in float64 through the kernel
+    against ``reference_solves()``.  Returns the paths' runs."""
+    t10 = time.perf_counter()
+    for asset in LOCO_GOLDENS:
+        env = locomotion_env(asset, torch.float64, autoreset=False)
+        check(env.model.device.type == "cuda", "the env left the card")
+        gerr, gworst, rest, rel = phase_golden(
+            suite, f"locomotion_{asset}", "locomotion", asset, env=env)
+        print(f"phase 10 golden: float64 {asset} (nv={env.model.nv}) step "
+              f"on the card vs JAX golden locomotion_{asset} (reset and "
+              f"later states), max |d| {gerr:.3e} ({gworst}); gate: all but "
+              f"qacc_warmstart {rest:.3e} <= 1e-9, qacc_warmstart "
+              f"{rel:.3e} of its scale <= 1e-12; phase 10 at "
+              f"{time.perf_counter() - t10:.1f} s", flush=True)
+    runs = []
+    for asset, batch in LOCO_PATHS:
+        env = locomotion_env(asset, torch.float32)
+        check(env.model.device.type == "cuda", "the env left the card")
+        soccer = asset.startswith("soccer_")
+        run = phase_main(suite, linalg, solver, "locomotion", asset, batch,
+                         env=env, profile=True,
+                         check_rewards=(check_goal_rewards if soccer
+                                        else check_finite),
+                         inspect=contacts_in_use)
+        runs.append(run)
+        seen = "; ".join(
+            f"{when}: " + ", ".join(
+                f"condim {c} max {mx} mean {mean:.1f} of {n}"
+                for c, (mx, mean, n) in v.items())
+            for when, v in run["seen"].items())
+        print(f"phase 10 main path: {asset} B={batch} float32 "
+              f"nv={env.model.nv}, reset {run['reset_s']:.2f} s, "
+              f"{MAIN_STEPS} steps ({run['substeps']} substeps), chol_solve "
+              f"launches {run['launches']} (>= {run['min_solves']} a "
+              f"substep), {run['env_steps_per_s']:.1f} env-steps/s after "
+              f"warm-up, diverged share {run['diverged_share']:.4f}, mean "
+              f"reward {run['mean_reward']:.4f}, step ms "
+              f"{[round(t, 1) for t in run['step_ms']]}, peak "
+              f"{run['peak_gb']:.2f} GB, contact cap {run['contact_cap']}, "
+              f"contacts in use ({seen}); one profiled control step: "
+              f"{run['kernels_per_step']} device kernels, busy "
+              f"{run['busy_ms']:.3f} ms of {run['profiled_ms']:.1f} ms, "
+              f"idle share {run['idle_share']:.4f} (of the unprofiled "
+              f"steps' median {run['step_median_ms']:.1f} ms: "
+              f"{run['idle_share_unprofiled']:.4f}); phase 10 at "
+              f"{time.perf_counter() - t10:.1f} s | {card}", flush=True)
+    worst, n_k = phase_golden_selfcheck(
+        locomotion_env("soccer_2v2", torch.float64, autoreset=False),
+        "locomotion_soccer_2v2", linalg, "soccer")
+    print(f"phase 10 selfcheck: soccer_2v2 float64 (n = 38), one control "
+          f"step from each of its golden's start states (B=4, a goal among "
+          f"them) through the kernel ({n_k} launches) and under "
+          f"reference_solves(): max |dobs| {worst['obs']:.3e}, |dreward| "
+          f"{worst['reward']:.3e}, |dqpos, dqvel| {worst['state']:.3e} <= "
+          f"1e-9; phase 10 in {time.perf_counter() - t10:.1f} s | {card}",
+          flush=True)
+    return runs
 
 
 def main() -> int:
@@ -1014,6 +1192,9 @@ def main() -> int:
 
     manips = phase_manipulation(manipulation, suite, linalg, solver, ppo,
                                 card, trains, started)
+    locos = phase_locomotion(suite, linalg, solver, card)
+    print(f"phases 1-10 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
@@ -1029,7 +1210,8 @@ def main() -> int:
             **{f"ppo {r['domain']}:{r['task']}": r["launches"]
                for r in trains},
             "single humanoid:run": single["launches"],
-            **{f"manipulation:{r['task']}": r["launches"] for r in manips}},
+            **{f"manipulation:{r['task']}": r["launches"] for r in manips},
+            **{f"locomotion:{r['task']}": r["launches"] for r in locos}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

@@ -27,6 +27,7 @@ import torch
 from dm_control_torch.physics import model_io
 from dm_control_torch.rl import control
 from dm_control_torch.rl.batch_env import BatchEnv
+from dm_control_torch.suite import check_device
 
 
 class BatchableTask:
@@ -44,8 +45,8 @@ class BatchableTask:
     physics_timestep: float = 0.0
     #: physics steps to settle after init
     batch_settle_steps: int = 0
-    #: shape of batch_reward's per-environment value; () is a scalar
-    #: reward, the only shape ``BatchEnv`` serves
+    #: shape of batch_reward's per-environment value: () for a scalar,
+    #: (n_players,) for one reward per player (soccer)
     batch_reward_shape: tuple = ()
     #: re-draw episodes while batch_reject holds, at most this many times
     batch_max_reset_rejections: int = 0
@@ -82,6 +83,7 @@ class _PureTaskAdapter(control.Task):
     def __init__(self, ctask: BatchableTask):
         self._t = ctask
         self.settle_steps = ctask.batch_settle_steps
+        self.reward_shape = tuple(ctask.batch_reward_shape)
         self.max_reset_rejections = ctask.batch_max_reset_rejections
 
     def initial_model_diff(self, m):
@@ -103,20 +105,19 @@ class _PureTaskAdapter(control.Task):
         return self._t.batch_termination(m, d)
 
 
-def compile_task(task, *, device, dtype: torch.dtype, time_limit=10.0,
-                 autoreset=True, contact_cap=None) -> BatchEnv:
+def compile_task(task, *, device="cuda", dtype: torch.dtype,
+                 time_limit=10.0, autoreset=True,
+                 contact_cap=None) -> BatchEnv:
     """A ``BatchEnv`` of a composer task: its compiled model
     (``task.model_asset``) loaded on ``device`` in ``dtype``, stepped at
-    the task's control timestep.  ``task`` must implement
-    ``BatchableTask``; ``contact_cap`` goes to ``BatchEnv``."""
+    the task's control timestep.  The device is the card unless the
+    caller asks for another (``device="cpu"``); without CUDA the default
+    raises.  ``task`` must implement ``BatchableTask``; ``contact_cap``
+    goes to ``BatchEnv``."""
     if not isinstance(task, BatchableTask):
         raise TypeError(
             f"{type(task).__name__} does not implement BatchableTask")
-    if tuple(task.batch_reward_shape) != ():
-        raise NotImplementedError(
-            f"{type(task).__name__}: per-agent rewards of shape "
-            f"{tuple(task.batch_reward_shape)} are not ported yet (ROADMAP "
-            f"A5)")
+    check_device(f"compile_task({type(task).__name__})", device)
     model = model_io.load(task.model_asset, device, dtype)
     if not math.isclose(float(model.opt.timestep), task.physics_timestep,
                         rel_tol=1e-6):

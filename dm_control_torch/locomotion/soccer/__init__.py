@@ -1,0 +1,21 @@
+"""Multi-agent soccer, batched (counterpart of
+``dm_control_tpu/locomotion/soccer/``): ``load_batch`` steps thousands of
+BoxHead matches, one reward per player."""
+
+from dm_control_torch.locomotion.soccer.boxhead import BoxHead  # noqa: F401
+from dm_control_torch.locomotion.soccer.loader import (  # noqa: F401
+    WalkerType, load, load_batch,
+)
+from dm_control_torch.locomotion.soccer.pitch import (  # noqa: F401
+    MINI_FOOTBALL_GOAL_SIZE, MINI_FOOTBALL_MAX_AREA_PER_HUMANOID,
+    MINI_FOOTBALL_MIN_AREA_PER_HUMANOID, Pitch, RandomizedPitch,
+)
+from dm_control_torch.locomotion.soccer.soccer_ball import (  # noqa: F401
+    SoccerBall, regulation_soccer_ball,
+)
+from dm_control_torch.locomotion.soccer.task import (  # noqa: F401
+    MultiturnTask, Task,
+)
+from dm_control_torch.locomotion.soccer.team import (  # noqa: F401
+    RGBA_BLUE, RGBA_RED, Player, Team,
+)

@@ -200,8 +200,8 @@ class BatchEnv:
         ts = TimeStepData(
             step_type=torch.full((batch,), FIRST, dtype=torch.int32,
                                  device=d.qpos.device),
-            reward=torch.zeros(batch, dtype=d.qpos.dtype,
-                               device=d.qpos.device),
+            reward=torch.zeros((batch,) + tuple(self.task.reward_shape),
+                               dtype=d.qpos.dtype, device=d.qpos.device),
             discount=torch.ones(batch, dtype=d.qpos.dtype,
                                 device=d.qpos.device),
             observation=obs)
@@ -223,14 +223,15 @@ class BatchEnv:
         # divergence is a termination with discount 0
         diverged = engine.check_divergence(m, d)
         last = terminate | diverged | (state.step_count >= self.step_limit)
-        zero = torch.zeros_like(reward)
+        # one discount per environment, whatever the reward's shape
+        zero = torch.zeros_like(d.time)
         discount = torch.where(diverged, zero, torch.where(
-            terminate, term_discount.to(reward.dtype), torch.ones_like(
-                reward)))
+            terminate, term_discount.to(zero.dtype), torch.ones_like(zero)))
+        gone = diverged.reshape(diverged.shape + (1,) * (reward.ndim - 1))
         ts = TimeStepData(
             step_type=torch.where(last, LAST, MID).to(torch.int32),
-            reward=torch.where(diverged, zero, reward), discount=discount,
-            observation=obs)
+            reward=torch.where(gone, torch.zeros_like(reward), reward),
+            discount=discount, observation=obs)
         return state.replace(data=self._strip(d), needs_reset=last), ts
 
     def step(self, state: EnvState, action):

@@ -50,7 +50,7 @@ class TimeStepData:
     """Batched dm_env.TimeStep payload."""
 
     step_type: torch.Tensor  # (B,) int32: FIRST/MID/LAST
-    reward: torch.Tensor  # (B,)
+    reward: torch.Tensor  # (B, *Task.reward_shape)
     discount: torch.Tensor  # (B,)
     observation: Any  # OrderedDict[str, (B, ...)]
 
@@ -146,6 +146,10 @@ class Task:
     #: deepest pipeline stage observation/reward/termination read:
     #: "vel" (position and velocity stage) or "acc"
     observation_stages: str = "acc"
+    #: shape of one environment's reward: () for a scalar, (n_players,)
+    #: for a multi-agent task (soccer); the discount stays one per
+    #: environment
+    reward_shape: tuple = ()
 
     def init(self, m: Model, qpos, qvel, rc: RandomContext, diff: Dict):
         """Returns (qpos, qvel, diff) for new episodes, (B, ...)."""

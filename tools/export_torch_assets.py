@@ -9,7 +9,8 @@ tool lives outside the port because it imports ``dm_control_tpu`` and JAX.
 (``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
 alone; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
 single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
-six; ``manipulation`` the four manipulation models and their goldens).
+six; ``manipulation`` the four manipulation models and their goldens;
+``soccer`` and ``tracking`` the locomotion models and their goldens).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -56,6 +57,21 @@ It writes, for every ported domain (or only the ones named),
   (the arm on its way and, with a prop, the prop resting on the floor:
   prop-floor contacts active, its frame sensors nonzero) and the
   per-episode ``site_pos`` (reach_site) or ``_target_height`` (lift);
+- on request (``soccer``, ``tracking``),
+  ``dm_control_torch/locomotion/assets/<asset>.npz`` for each batched
+  locomotion task (``LOCOMOTION_ASSETS``: BoxHead soccer 1 and 2 a side on
+  the (12, 9) pitch, as the JAX package's ``soccer.load_batch`` builds it;
+  mocap tracking with the rolling ball, as the JAX package's tracking
+  bench rung builds it, and with the CMU 2020 humanoid, as its
+  ``examples/cmu_2020_tracking.py`` does, both on synthetic clips), built
+  as ``compile_task`` builds it, beside the CMU walker's names
+  (``tracking_cmu2020_walker.json``: its joints, tracked bodies and end
+  effectors from the JAX walker's MJCF tree), and a golden for each,
+  ``tests/data/torch_locomotion_<asset>_golden_f64.npz``, in the format
+  above (float64, no contact compaction; tracking's ``_clip`` and
+  ``_start`` among the overrides).  In the soccer goldens' later states
+  environment 0's ball rolls into the away goal and environment 1's into
+  the home goal during the recorded step (``_score``);
 - on request, ``tests/data/torch_env_<domain>_<task>_f64.npz`` for the
   single-environment episodes of ``ENV_GOLDENS``: the JAX package's
   ``suite.load(domain, task, task_kwargs={"random": ENV_SEED})`` in
@@ -178,6 +194,41 @@ FALL_STEPS.update({"manipulation_reach_site": 5,
                    "manipulation_reach_duplo": 4,
                    "manipulation_lift_brick": 4,
                    "manipulation_lift_large_box": 8})
+LOCOMOTION_ASSET_DIR = os.path.join(ROOT, "dm_control_torch", "locomotion",
+                                    "assets")
+#: locomotion asset -> its family (the argument that exports it)
+LOCOMOTION_ASSETS = {"soccer_1v1": "soccer", "soccer_2v2": "soccer",
+                     "tracking_ball": "tracking",
+                     "tracking_cmu2020": "tracking"}
+#: locomotion golden -> its asset
+LOCOMOTION_GOLDENS = {f"locomotion_{a}": a for a in LOCOMOTION_ASSETS}
+GOLDEN_TASKS.update({g: a for g, a in LOCOMOTION_GOLDENS.items()})
+GOLDEN_DOMAINS.update({g: "locomotion" for g in LOCOMOTION_GOLDENS})
+#: the locomotion goldens' later states: soccer's ball landed, the
+#: BoxHeads moving (then ``_score`` sets two balls rolling into the goals);
+#: the rolling ball on the floor in every environment; the CMU humanoid
+#: fallen on the floor in every environment (its episodes truncated).
+#: Picked on the port alone among the first 40-60 steps as states where
+#: every environment touches the floor and a relative nudge of 2.2e-16 in
+#: qpos and qvel moves the next step's qacc_warmstart by at most 4.4e-14
+#: of its largest entry and its qpos and qvel by at most 9.2e-14; the
+#: rolling ball bounces (it touches the floor in all four environments at
+#: 28 steps, not at 25), and at some states the same nudge moves the
+#: ball's step by 8.6e-11 and the humanoid's by 7e-12
+FALL_STEPS.update({"locomotion_soccer_1v1": 20, "locomotion_soccer_2v2": 20,
+                   "locomotion_tracking_ball": 28,
+                   "locomotion_tracking_cmu2020": 24})
+#: the tracking configurations' time limits
+TRACKING_TIME_LIMITS = {"tracking_ball": 10.0, "tracking_cmu2020": 30.0}
+#: the soccer goldens' scoring environments: (environment, x of the ball,
+#: its speed along x); the ball rolls on the floor at y = 0.5 and crosses
+#: the goal line (x = +-10) by about 0.1 m during the step
+SOCCER_SCORES = ((0, 9.85, 10.0), (1, -9.85, -10.0))
+#: how far the scoring ball starts in the floor: a ball just touching it
+#: (depth 0) sits at the contact's onset, where a change of one rounding in
+#: qpos moves the next step's vertical speed by 3e-2; the ball at rest
+#: sinks 6.4e-5
+SOCCER_BALL_DEPTH = 1e-4
 GOLDENS = tuple(GOLDEN_TASKS)
 #: (domain, task) of each single-environment episode golden: RK4
 #: (cartpole), 200 settle steps (cheetah), the rejection loop at the
@@ -202,9 +253,14 @@ def goldens_of(domain):
 
 
 def asset_path(asset):
-    where = MANIPULATION_ASSET_DIR if asset in MANIPULATION_ASSETS \
-        else ASSET_DIR
+    where = (MANIPULATION_ASSET_DIR if asset in MANIPULATION_ASSETS
+             else LOCOMOTION_ASSET_DIR if asset in LOCOMOTION_ASSETS
+             else ASSET_DIR)
     return os.path.join(where, asset + ".npz")
+
+
+def walker_names_path():
+    return os.path.join(LOCOMOTION_ASSET_DIR, "tracking_cmu2020_walker.json")
 
 
 def golden_path(domain):
@@ -274,6 +330,94 @@ def manipulation_model(asset):
     return compile_model(root)
 
 
+def locomotion_task(asset):
+    """The JAX package's composer task of a locomotion asset: soccer as its
+    ``soccer.load_batch`` builds it, ball tracking as its tracking bench
+    rung (``bench.py``), CMU tracking as ``examples/cmu_2020_tracking.py``
+    (synthetic clips)."""
+    from dm_control_tpu.locomotion.arenas.floors import Floor
+    from dm_control_tpu.locomotion.mocap.loader import (
+        synthetic_walking_trajectory,
+    )
+    from dm_control_tpu.locomotion.mocap.types import ClipCollection
+    from dm_control_tpu.locomotion.tasks.reference_pose import (
+        MultiClipMocapTracking,
+    )
+
+    if asset.startswith("soccer_"):
+        from dm_control_tpu.locomotion.soccer import loader, pitch, task
+        from dm_control_tpu.locomotion.soccer.soccer_ball import SoccerBall
+
+        return task.Task(
+            players=loader._make_players(int(asset[-1]),
+                                         loader.WalkerType.BOXHEAD),
+            arena=pitch.Pitch(size=(12, 9),
+                              field_box=loader.enable_field_box_default()),
+            ball=SoccerBall())
+    if asset == "tracking_ball":
+        from dm_control_tpu.locomotion.walkers.jumping_ball import (
+            RollingBallWithHead,
+        )
+
+        walker = RollingBallWithHead()
+        nq = 7 + len(walker.observable_joint_names)
+        trajs = {f"clip{i}": synthetic_walking_trajectory(
+            nq=nq, nv=nq - 1, num_steps=120, seed=i) for i in range(4)}
+        return MultiClipMocapTracking(
+            walker, Floor(), trajs,
+            dataset=ClipCollection(ids=tuple(trajs)),
+            termination_error_threshold=50.0, reward_type="comic")
+    if asset == "tracking_cmu2020":
+        from dm_control_tpu.locomotion.walkers.cmu_humanoid import (
+            CMUHumanoidPositionControlledV2020,
+        )
+
+        walker = CMUHumanoidPositionControlledV2020()
+        njoint = len(walker.mocap_joint_names)
+        trajs = {f"synthetic_walk_{k}": synthetic_walking_trajectory(
+            nq=njoint + 7, nv=njoint + 6, seed=k,
+            identifier=f"synthetic_walk_{k}") for k in range(3)}
+        return MultiClipMocapTracking(
+            walker=walker, arena=Floor(), ref_path_or_trajectories=trajs,
+            ref_steps=(1, 2, 3, 4, 5), min_steps=10, reward_type="comic")
+    raise KeyError(asset)
+
+
+def locomotion_model(asset):
+    """The compiled model of a locomotion asset, built as
+    ``dm_control_tpu/composer/batch.py::compile_task`` builds it."""
+    from dm_control_tpu.mjcf.compiler import compile_model
+
+    task = locomotion_task(asset)
+    root = task.root_entity.mjcf_model
+    opt = root.first("option")
+    if opt is None:
+        opt = root.add("option")
+    opt.attrib["timestep"] = str(task.physics_timestep)
+    return compile_model(root)
+
+
+def walker_names():
+    """The CMU 2020 walker's names from the JAX walker's MJCF tree."""
+    from dm_control_tpu.locomotion.walkers.cmu_humanoid import (
+        CMUHumanoidPositionControlledV2020,
+    )
+
+    w = CMUHumanoidPositionControlledV2020()
+    return {"root_body_name": w.root_body_name,
+            "observable_joint_names": list(w.observable_joint_names),
+            "mocap_tracking_body_names": list(w.mocap_tracking_body_names),
+            "end_effector_body_names": list(w.end_effector_body_names)}
+
+
+def write_walker_names():
+    import json
+
+    with open(walker_names_path(), "w") as f:
+        json.dump(walker_names(), f, indent=1)
+        f.write("\n")
+
+
 def jax_model(asset):
     """The JAX package's compiled model behind an asset name."""
     import importlib
@@ -282,6 +426,8 @@ def jax_model(asset):
 
     if asset in MANIPULATION_ASSETS:
         return manipulation_model(asset)
+    if asset in LOCOMOTION_ASSETS:
+        return locomotion_model(asset)
     for domain, assets in ASSETS.items():
         if asset in assets:
             module = importlib.import_module(f"dm_control_tpu.suite.{domain}")
@@ -306,6 +452,22 @@ def export_model(asset):
 
 def _jax_env(golden):
     from dm_control_tpu import suite
+
+    if golden in LOCOMOTION_GOLDENS:
+        # float64: no contact compaction, as for manipulation
+        import jax.numpy as jnp
+
+        asset = LOCOMOTION_GOLDENS[golden]
+        if asset.startswith("soccer_"):
+            from dm_control_tpu.locomotion import soccer
+
+            return soccer.load_batch(team_size=int(asset[-1]),
+                                     dtype=jnp.float64, autoreset=False)
+        from dm_control_tpu.composer.batch import compile_task
+
+        return compile_task(locomotion_task(asset),
+                            time_limit=TRACKING_TIME_LIMITS[asset],
+                            dtype=jnp.float64, autoreset=False)
 
     if golden in MANIPULATION_GOLDENS:
         # float64 asks for no contact compaction (the JAX BatchEnv engages
@@ -395,7 +557,30 @@ def golden_states(domain):
         state, _ = env.step(state, jnp.asarray(rng.uniform(
             -1.0, 1.0, (GOLDEN_BATCH, env.model.nu))))
     out.update(_snapshot(state, "contact", fields))
+    if domain in ("locomotion_soccer_1v1", "locomotion_soccer_2v2"):
+        _score(env, out)
     return out
+
+
+def _score(env, out):
+    """Sets the ball of each of ``SOCCER_SCORES``' environments in the
+    ``contact_*`` states rolling on the floor toward a goal, to cross its
+    line during the next control step."""
+    m = env.model
+    j = next(j for n, j in m.names.joint.items()
+             if n.startswith("soccer_ball") and n.endswith("_root"))
+    a, v = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+    radius = float(m.geom_size[int(m.body_geomadr[int(m.jnt_bodyid[j])]),
+                               0])
+    for e, x, speed in SOCCER_SCORES:
+        for f in ("qpos", "qvel", "qacc_warmstart"):
+            out[f"contact_{f}"] = np.array(out[f"contact_{f}"])
+        out["contact_qpos"][e, a:a + 7] = [x, 0.5, radius - SOCCER_BALL_DEPTH,
+                                           1, 0, 0, 0]
+        # rolling without slip: spin about y of speed / radius
+        out["contact_qvel"][e, v:v + 6] = [speed, 0, 0, 0, speed / radius,
+                                           0]
+        out["contact_qacc_warmstart"][e, v:v + 6] = 0.0
 
 
 def golden_step(domain, states, prefix):
@@ -452,6 +637,19 @@ def main(argv=None):
             continue
         if domain.startswith("env_golden:"):
             write_env_golden(domain[len("env_golden:"):])
+            continue
+        if domain in ("soccer", "tracking"):
+            assets = [a for a, f in LOCOMOTION_ASSETS.items() if f == domain]
+            for asset in assets:
+                export_model(asset)
+            if domain == "tracking":
+                write_walker_names()
+            print("wrote", ", ".join(assets), flush=True)
+            for asset in assets:
+                golden = f"locomotion_{asset}"
+                np.savez(golden_path(golden), **make_golden(golden))
+                print("wrote", os.path.relpath(golden_path(golden), ROOT),
+                      flush=True)
             continue
         if domain == "manipulation":
             for asset in MANIPULATION_ASSETS:
