@@ -38,8 +38,17 @@ golden's later states scoring a goal; mocap tracking with the rolling ball
 and with the CMU 2020 humanoid, ``MultiClipMocapTracking`` through
 ``composer.compile_task``), soccer 2v2 at B = 512 and both tracking tasks
 at B = 1024 in float32 with their rates, launches and idle shares, and
-soccer 2v2 in float64 with and without the kernel.  Each phase
-prints one line; any failure exits with a non-zero code.  The last line is a
+soccer 2v2 in float64 with and without the kernel; and last the port's
+MJCF compiler (``mjcf.compile_model``, which every phase before builds
+its suite models with): all 32 suite model variants compiled onto the
+card in float64 and held to the JAX compiler's output checked in as
+``dm_control_torch/suite/assets/*.npz`` (the compiler's fields equal,
+``set_const``'s within 1e-10 of each field's largest entry), a sphere
+dropped on a plane built with ``Physics.from_xml_string`` (500 steps on
+the card, at rest at its radius), and cartpole:three_poles with 5 poles,
+a model no file holds, at B = 8192 in float32 with its rate, launches,
+idle share and peak memory.  Each phase prints one line (phase 11 one
+per model); any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -106,11 +115,12 @@ LOCO_GOLDENS = ("soccer_1v1", "soccer_2v2", "tracking_ball",
 #: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's,
 #: quadruped's, stacker:stack_4's, humanoid_CMU's (and CMU tracking's),
 #: dog:fetch's, the manipulation paths' (reach_site's arm; the arm and a
-#: free prop), soccer 2v2's and ball tracking's
+#: free prop), soccer 2v2's, ball tracking's and phase 11's 5-pole
+#: cartpole's
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85),
                 (MAIN_BATCH, 9), (MAIN_BATCH, 15), (512, 38),
-                (MAIN_BATCH, 8))
+                (MAIN_BATCH, 8), (8192, 5))
 #: (B, n, dtype) the kernel is also timed at: the single environment's
 #: humanoid solve, in the single environment's float64 and in float32
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32))
@@ -140,6 +150,13 @@ MANIP_PATHS = (("reach_site", "reach_site_features"),
                ("lift_large_box", "lift_large_box_features"))
 MANIP_BATCH = MAIN_BATCH
 MANIP_TRAIN = ("reach_site_features", 256, 8)  # (task, batch, steps)
+#: phase 11: a model no reference file holds, stepped at the headline
+#: batch: (domain, task, task arguments, batch)
+COMPILE_PATH = ("cartpole", "three_poles", {"num_poles": 5}, 8192)
+RECIPE_STEPS = 500  # the dropped sphere's steps
+#: phase 11's gate: each ``set_const`` field's largest deviation from the
+#: reference over the field's largest entry; every other field is exact
+SET_CONST_REL = 1e-10
 
 
 class PhaseError(RuntimeError):
@@ -1046,6 +1063,124 @@ def phase_locomotion(suite, linalg, solver, card):
     return runs
 
 
+def reference_variants(suite):
+    """reference file name -> the ``Variant`` of a task that compiles its
+    model (lqr's files hold its seed 0)."""
+    out = {}
+    for domain_name, domain in suite.DOMAINS.items():
+        for task in domain.TASKS:
+            variant, _ = domain.TASKS[task](**TASK_KWARGS.get(domain_name,
+                                                             {}))
+            out.setdefault(variant.name, variant)
+    return out
+
+
+def phase_compile_references(suite, card):
+    """Every suite model variant with a reference file compiled onto the
+    card in float64 (the compile cache emptied first) and held to the
+    file: each model's compile time on the host clock and its largest
+    ``set_const`` deviation."""
+    from dm_control_torch.physics import model_io
+    from dm_control_torch.suite import _domain, base
+
+    names = sorted(f[:-len(".npz")] for f in os.listdir(
+        os.path.dirname(base.asset_path("humanoid"))))
+    check(len(names) == 32, f"{len(names)} reference files, not 32")
+    variants = reference_variants(suite)
+    _domain._MODEL_CACHE.clear()
+    rows = []
+    for name in names:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = variants[name].get_model("cuda", torch.float64)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(m.qpos0.device.type == "cuda" and m.dtype == torch.float64,
+              f"compile {name}: model not float64 on the card")
+        devs = model_io.deviations(m, base.load_model(name, "cuda",
+                                                      torch.float64))
+        exact = {k: v for k, v in devs.items()
+                 if k not in model_io.SET_CONST_FIELDS and v}
+        check(not exact, f"compile {name}: compiler fields differ from the "
+                         f"reference: {exact}")
+        field = max(model_io.SET_CONST_FIELDS, key=devs.get)
+        check(devs[field] <= SET_CONST_REL,
+              f"compile {name}: set_const field {field} off by "
+              f"{devs[field]:.3e} of its largest entry (> {SET_CONST_REL})")
+        rows.append(dict(name=name, compile_ms=ms, nv=m.nv,
+                         set_const_rel=devs[field], field=field))
+        print(f"phase 11 compile: {name} (nv={m.nv}) onto the card in "
+              f"float64 in {ms:.1f} ms (host clock); compiler fields equal "
+              f"the reference, set_const largest {devs[field]:.3e} of its "
+              f"scale ({field}) <= {SET_CONST_REL:g} | {card}", flush=True)
+    return rows
+
+
+def phase_recipe(linalg):
+    """The drive recipe: a sphere dropped on a plane, built with
+    ``Physics.from_xml_string`` on the card (the default device), stepped
+    ``RECIPE_STEPS`` times; its rest height is its radius."""
+    from dm_control_torch import mjcf
+    from dm_control_torch.physics.physics import Physics
+
+    root = mjcf.Element("mujoco")
+    wb = root.add("worldbody")
+    wb.add("geom", type="plane", size="1 1 .1")
+    body = wb.add("body", pos="0 0 1")
+    body.add("freejoint")
+    body.add("geom", type="sphere", size="0.1")
+    physics = Physics.from_xml_string(root.to_xml_string())
+    check(physics.model.qpos0.device.type == "cuda",
+          "Physics.from_xml_string left the card")
+    torch.cuda.synchronize()
+    linalg.chol_solve.launches = 0
+    t0 = time.perf_counter()
+    physics.step(RECIPE_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = linalg.chol_solve.launches
+    height = float(physics.data.qpos[2])
+    check(abs(height - 0.1) <= 1e-3,
+          f"dropped sphere rests at {height:.6f}, not 0.1 +- 1e-3")
+    check(launches >= RECIPE_STEPS,
+          f"chol_solve launched {launches} times in {RECIPE_STEPS} steps")
+    return dict(height=height, seconds=seconds, launches=launches)
+
+
+def phase_compile(suite, linalg, solver, card):
+    """Phase 11: the compiler on the card."""
+    t11 = time.perf_counter()
+    rows = phase_compile_references(suite, card)
+    recipe = phase_recipe(linalg)
+    print(f"phase 11 recipe: sphere on a plane by Physics.from_xml_string, "
+          f"{RECIPE_STEPS} steps on the card in {recipe['seconds']:.2f} s "
+          f"({recipe['launches']} chol_solve launches), rest height "
+          f"{recipe['height']:.6f} (0.1 +- 1e-3) | {card}", flush=True)
+    domain, task, kwargs, batch = COMPILE_PATH
+    env = suite.load_batch(domain, task, device="cuda", dtype=torch.float32,
+                           task_kwargs=kwargs)
+    check(env.model.nv == 1 + kwargs["num_poles"],
+          f"{task}({kwargs}): nv {env.model.nv}")
+    run = phase_main(suite, linalg, solver, domain, task, batch, env=env,
+                     profile=True)
+    run.update(task=f"{task}({kwargs})", nv=env.model.nv)
+    per_step = (run["launches"] - run["reset_launches"]) / MAIN_STEPS
+    print(f"phase 11 main path: {domain}:{task} num_poles="
+          f"{kwargs['num_poles']} (nv={env.model.nv}, no reference file) "
+          f"B={batch} float32, reset {run['reset_s']:.2f} s, {MAIN_STEPS} "
+          f"steps: {run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
+          f"chol_solve launches {per_step:.1f} a control step (>= "
+          f"{run['min_solves']} x {run['substeps'] // MAIN_STEPS} substeps), "
+          f"step ms {[round(t, 1) for t in run['step_ms']]}, one profiled "
+          f"control step: {run['kernels_per_step']} device kernels, busy "
+          f"{run['busy_ms']:.3f} ms, idle share {run['idle_share']:.4f} "
+          f"(of the unprofiled median {run['idle_share_unprofiled']:.4f}), "
+          f"diverged share {run['diverged_share']:.4f}, peak "
+          f"{run['peak_gb']:.2f} GB; phase 11 in "
+          f"{time.perf_counter() - t11:.1f} s | {card}", flush=True)
+    return rows, recipe, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1193,7 +1328,8 @@ def main() -> int:
     manips = phase_manipulation(manipulation, suite, linalg, solver, ppo,
                                 card, trains, started)
     locos = phase_locomotion(suite, linalg, solver, card)
-    print(f"phases 1-10 in {time.perf_counter() - started:.1f} s | {card}",
+    _, recipe, compiled = phase_compile(suite, linalg, solver, card)
+    print(f"phases 1-11 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
@@ -1211,7 +1347,9 @@ def main() -> int:
                for r in trains},
             "single humanoid:run": single["launches"],
             **{f"manipulation:{r['task']}": r["launches"] for r in manips},
-            **{f"locomotion:{r['task']}": r["launches"] for r in locos}},
+            **{f"locomotion:{r['task']}": r["launches"] for r in locos},
+            f"compile cartpole:{compiled['task']}": compiled["launches"],
+            "compile recipe Physics.from_xml_string": recipe["launches"]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

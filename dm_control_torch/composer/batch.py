@@ -12,7 +12,8 @@ overrides ``site_pos``), and task-private per-environment state through
 "_"-prefixed diff keys, which the task reads as ``m.task_state``
 (``rl/control.py::apply_model_diff``).
 
-The port cannot compile MJCF yet (ROADMAP A9): a task names the compiled
+The port compiles MJCF (``mjcf.compile_model``), but it does not build
+the entities' MJCF trees yet (ROADMAP A9b): a task names the compiled
 model of its entity tree (``BatchableTask.model_asset``, an ``.npz`` that
 ``tools/export_torch_assets.py`` writes from the JAX package's compiler),
 and ``compile_task`` loads it.

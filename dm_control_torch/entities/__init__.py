@@ -2,7 +2,7 @@
 
 Counterpart of ``dm_control_tpu/entities/``: each class carries the names
 (of joints, sites, its own attachment prefix) that the batched task hooks
-look up in a compiled model.  Building an entity's MJCF waits for the
-port's compiler (ROADMAP A9); the models come compiled
-(``composer/batch.py``).
+look up in a compiled model.  Building an entity's MJCF tree, for the
+port's compiler, waits for the entity model builders (ROADMAP A9b); the
+models come compiled (``composer/batch.py``).
 """

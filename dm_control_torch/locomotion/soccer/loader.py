@@ -42,15 +42,15 @@ def load_batch(team_size=2, time_limit=45.0, pitch_size=(12, 9),
     kicks off anew.  The device is the card unless the caller asks for
     another (``device="cpu"``); without CUDA the default raises.  The
     checked-in models are 1 and 2 a side on the (12, 9) pitch with walker
-    contacts on; others need the MJCF compiler (ROADMAP A9), and so does
-    a walker other than BoxHead, as in the JAX package's ``load_batch``.
-    ``contact_cap`` goes to ``BatchEnv``."""
+    contacts on; others need the entity model builders (ROADMAP A9b), and
+    so does a walker other than BoxHead, as in the JAX package's
+    ``load_batch``.  ``contact_cap`` goes to ``BatchEnv``."""
     if isinstance(walker_type, str):
         walker_type = WalkerType[walker_type.upper()]
     if walker_type != WalkerType.BOXHEAD:
         raise NotImplementedError(
             f"soccer.load_batch: {walker_type.name} players need a compiled "
-            f"model of their own (ROADMAP A9); the batched match runs "
+            f"model of their own (ROADMAP A9b); the batched match runs "
             f"BoxHead")
     task = Task(players=standard_players(team_size),
                 arena=Pitch(size=pitch_size, field_box=True),

@@ -4,8 +4,8 @@
 Goals and the field are axis-aligned boxes: a ball inside a goal's box is
 a goal for the other team.  The pitch's compiled model (ground, walls)
 is a checked-in asset; a ``RandomizedPitch``, whose size changes every
-episode, needs a compile per episode, which the port cannot do yet
-(ROADMAP A9).
+episode, needs the pitch's MJCF tree built and compiled per episode,
+which waits for the entity model builders (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class Pitch:
 class RandomizedPitch(Pitch):
     """A pitch whose size is drawn every episode between ``min_size`` and
     ``max_size``.  Its geometry here is that of ``max_size``; each episode
-    needs a compile of its own (ROADMAP A9)."""
+    needs a compile of its own (ROADMAP A9b)."""
 
     def __init__(self, min_size=(8, 6), max_size=(16, 12), randomizer=None,
                  keep_aspect_ratio=False, goal_size=None, field_box=False,

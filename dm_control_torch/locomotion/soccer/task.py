@@ -56,8 +56,8 @@ class Task(BatchableTask):
 
     @property
     def model_asset(self):
-        """The checked-in model of this match; the others need the MJCF
-        compiler (ROADMAP A9)."""
+        """The checked-in model of this match; the others need the entity
+        model builders (ROADMAP A9b)."""
         n = len(self.players) // 2
         standard = (
             type(self.arena) is Pitch and self.arena._goal_size is None
@@ -73,8 +73,8 @@ class Task(BatchableTask):
                 f"soccer: no compiled model of this match ({n} a side on a "
                 f"{tuple(self.arena.size)} pitch; checked in: "
                 f"{sorted(ASSETS)} with BoxHead players, the default ball "
-                f"and walker contacts on); compiling others needs the MJCF "
-                f"compiler (ROADMAP A9)")
+                f"and walker contacts on); building others needs the entity "
+                f"model builders (ROADMAP A9b)")
         return asset_path(ASSETS[key])
 
     # -- batched path (composer.batch.BatchableTask) ------------------------

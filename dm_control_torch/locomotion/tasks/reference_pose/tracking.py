@@ -138,7 +138,7 @@ class ReferencePosesTask(BatchableTask):
     @property
     def model_asset(self):
         """The checked-in model of the walker on the floor; other walkers
-        and arenas need the MJCF compiler (ROADMAP A9)."""
+        and arenas need the entity model builders (ROADMAP A9b)."""
         asset = ASSETS.get(type(self._walker))
         if (asset is None or type(self._arena) is not Floor
                 or vars(self._arena) != vars(Floor())
@@ -148,8 +148,8 @@ class ReferencePosesTask(BatchableTask):
                 f"{type(self._walker).__name__} named "
                 f"{self._walker.name!r} on a {type(self._arena).__name__} "
                 f"(checked in: {[w.__name__ for w in ASSETS]} as built by "
-                f"default, on the default Floor); compiling others "
-                f"needs the MJCF compiler (ROADMAP A9)")
+                f"default, on the default Floor); building others "
+                f"needs the entity model builders (ROADMAP A9b)")
         return asset_path(asset)
 
     # -- the walker in the compiled model -------------------------------------

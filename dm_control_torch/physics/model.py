@@ -7,8 +7,9 @@ device in one floating dtype.  ``Data`` is batch-first: every tensor has
 a leading environment dimension ``B``; there is no vmap.
 
 Field names follow the JAX package (and mjModel/mjData), so the two can be
-compared field by field.  Models are not compiled here: they are loaded
-from a file written by ``model_io`` (see ``tools/export_torch_assets.py``).
+compared field by field.  Models are compiled by ``mjcf.compile_model`` or
+loaded from a file written by ``model_io`` (see
+``tools/export_torch_assets.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ class JointType(enum.IntEnum):
     BALL = 1
     SLIDE = 2
     HINGE = 3
+
+    @property
+    def dof_width(self) -> int:
+        return {0: 6, 1: 3, 2: 1, 3: 1}[int(self)]
+
+    @property
+    def qpos_width(self) -> int:
+        return {0: 7, 1: 4, 2: 1, 3: 1}[int(self)]
 
 
 class GeomType(enum.IntEnum):

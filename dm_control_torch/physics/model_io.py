@@ -1,10 +1,12 @@
 """Saving and loading a ``Model`` as one ``.npz`` file.
 
-The port cannot compile MJCF (that stays in the JAX package for now), so a
-model reaches it as a file: every numeric leaf as an array, and every
-static field (ints, nested tuples, the name maps) in one JSON string under
-the key ``__static__``.  No pickle is involved; ``load`` reads with
-``allow_pickle=False``.
+The port compiles the suite's models itself (``mjcf.compile_model``); a
+file holds the JAX compiler's output for a model, as the reference the
+port's compiler is tested against and as the model of a composer task
+that the port does not build yet: every numeric leaf as an array, and
+every static field (ints, nested tuples, the name maps) in one JSON
+string under the key ``__static__``.  No pickle is involved; ``load``
+reads with ``allow_pickle=False``.
 
 ``from_jax_model`` converts a compiled ``dm_control_tpu`` model by walking
 its dataclass fields; it needs only numpy (``np.asarray`` of each leaf),
@@ -109,6 +111,64 @@ def _build(arrays, static, device, dtype) -> Model:
             kwargs["names"] = None if names is None else NameMap(**names)
         else:
             kwargs[f.name] = value(f.name)
+    return Model(**kwargs)
+
+
+#: the fields ``engine.set_const`` writes; the compiler writes the rest
+SET_CONST_FIELDS = ("dof_invweight0", "body_invweight0", "stat.meaninertia",
+                    "jnt_stiffness", "dof_damping", "tendon_length0",
+                    "tendon_invweight0", "tendon_lengthspring", "cam_pos0",
+                    "cam_poscom0", "cam_mat0")
+
+
+def deviations(model: Model, reference: Model) -> Dict[str, float]:
+    """Field name (``opt.`` and ``stat.`` for the nested ones) -> the
+    largest |model - reference| over the field's largest |entry| (0 where
+    both are all zeros), for every numeric field.  Raises ``ValueError``
+    where a static field, a shape or a dtype differs."""
+    arrays, static = {}, {}
+    ref_arrays, ref_static = {}, {}
+    _flatten(model, _model_fields(), "", arrays, static, lambda v: v)
+    _flatten(reference, _model_fields(), "", ref_arrays, ref_static,
+             lambda v: v)
+    if static != ref_static or arrays.keys() != ref_arrays.keys():
+        bad = sorted(k for k in set(static) | set(ref_static)
+                     if static.get(k) != ref_static.get(k))
+        raise ValueError(f"static fields differ: {bad}")
+    out = {}
+    for k, ref in ref_arrays.items():
+        v = arrays[k]
+        if v.shape != ref.shape or v.dtype != ref.dtype:
+            raise ValueError(f"{k}: {tuple(v.shape)} {v.dtype}, reference "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+        if ref.numel() == 0 or torch.equal(v, ref):
+            out[k] = 0.0
+            continue
+        dev = float((v - ref).abs().max())
+        out[k] = dev / max(float(ref.abs().max()),
+                           float(np.finfo(np.float64).tiny))
+    return out
+
+
+def to(model: Model, device, dtype: torch.dtype) -> Model:
+    """A copy of ``model`` on ``device`` with every floating leaf in
+    ``dtype`` (as ``load`` casts the float64 leaves of a file); no tensor
+    is shared with ``model``."""
+    device = torch.device(device)
+
+    def leaf(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        return v.to(device=device, copy=True,
+                    dtype=dtype if v.is_floating_point() else v.dtype)
+
+    kwargs = {}
+    for f in _model_fields():
+        v = getattr(model, f.name)
+        if f.name in _NESTED:
+            v = v.replace(**{g.name: leaf(getattr(v, g.name))
+                             for g in dataclasses.fields(_NESTED[f.name])})
+        kwargs[f.name] = leaf(v)
     return Model(**kwargs)
 
 

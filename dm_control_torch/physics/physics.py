@@ -41,8 +41,6 @@ _FIELD_NAMESPACES = {
     "sensordata": ("sensor", "sensor"),
     "ten_length": ("tendon", None),
 }
-_NEEDS_MJCF = ("needs the MJCF compiler, which is not ported yet "
-               "(ROADMAP A9)")
 
 
 class PhysicsError(RuntimeError):
@@ -80,12 +78,23 @@ class Physics:
         return cls(model)
 
     @classmethod
-    def from_xml_string(cls, xml: str, assets=None) -> "Physics":
-        raise NotImplementedError(f"Physics.from_xml_string {_NEEDS_MJCF}")
+    def from_xml_string(cls, xml: str, assets=None, *, device=None,
+                        dtype: torch.dtype = torch.float64) -> "Physics":
+        """Parses and compiles MJCF XML onto ``device`` (the card unless
+        the caller asks for another) in ``dtype``."""
+        from dm_control_torch import mjcf
+
+        return cls(mjcf.compile_xml_string(xml, assets=assets, device=device,
+                                           dtype=dtype))
 
     @classmethod
-    def from_mjcf_model(cls, element) -> "Physics":
-        raise NotImplementedError(f"Physics.from_mjcf_model {_NEEDS_MJCF}")
+    def from_mjcf_model(cls, element, *, device=None,
+                        dtype: torch.dtype = torch.float64) -> "Physics":
+        """Compiles an MJCF element tree onto ``device`` (the card unless
+        the caller asks for another) in ``dtype``."""
+        from dm_control_torch.mjcf.compiler import compile_model
+
+        return cls(compile_model(element, device=device, dtype=dtype))
 
     # -- core ---------------------------------------------------------------
 
@@ -265,7 +274,13 @@ class Physics:
         self.mark_as_dirty()
 
     def bind(self, elements):
-        raise NotImplementedError(f"Physics.bind {_NEEDS_MJCF}")
+        """A read/write attribute Binding for MJCF element(s) (reference
+        mjcf/physics.py:560): ``physics.bind(geom).xpos``,
+        ``physics.bind(joint).qpos = ...`` with the dirty/lazy-forward
+        protocol.  Accepts Elements or name strings (treated as bodies)."""
+        from dm_control_torch.mjcf.physics import bind as _bind
+
+        return _bind(self, elements)
 
     def bind_id(self, element_or_name, kind: str = "body"):
         """The raw id of a named element for array indexing."""

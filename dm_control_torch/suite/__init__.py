@@ -3,7 +3,10 @@ interface (``load``) or a batch of them (``load_batch``).
 
 All 19 of the JAX package's domains are ported (``DOMAINS``), its 51
 tasks, with its task sets (``BENCHMARKING``, ``EASY``, ``HARD``,
-``EXTRA``).
+``EXTRA``).  Each task's model is compiled by the port's MJCF compiler
+from the domain's literal tree (``suite/models/``) when the task is
+loaded: literal → ``mjcf.compile_model`` → ``BatchEnv`` or
+``Environment``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ from dm_control_torch.suite import (
     humanoid, humanoid_CMU, lqr, manipulator, pendulum, point_mass,
     quadruped, reacher, stacker, swimmer, walker,
 )
-from dm_control_torch.suite import base
 
 DOMAINS = {
     "acrobot": acrobot, "ball_in_cup": ball_in_cup, "cartpole": cartpole,
@@ -62,7 +64,7 @@ def check_device(what, device):
             f"pass device='cpu' to run on the CPU")
 
 
-def _domain(domain_name, task_name):
+def _find_domain(domain_name, task_name):
     if domain_name not in DOMAINS:
         raise ValueError(f"Domain {domain_name!r} does not exist.")
     domain = DOMAINS[domain_name]
@@ -96,7 +98,7 @@ def build_environment(domain_name, task_name, task_kwargs=None,
                       environment_kwargs=None, *, device="cuda",
                       dtype: torch.dtype = torch.float64):
     """The ``Environment`` of ``load`` (see there)."""
-    domain = _domain(domain_name, task_name)
+    domain = _find_domain(domain_name, task_name)
     check_device(f"load({domain_name!r}, {task_name!r})", device)
     factory = domain.TASKS[task_name]
     kwargs = dict(task_kwargs or {})
@@ -109,12 +111,12 @@ def build_environment(domain_name, task_name, task_kwargs=None,
         random = np.random.RandomState(random)
     if "random" in inspect.signature(factory).parameters:
         kwargs["random"] = random  # lqr: the model draws from it first
-    asset, task, *edit = factory(**kwargs)
+    variant, task = factory(**kwargs)
     # a domain with its own control timestep passes it, as the JAX
     # domain's constructor does (environment_kwargs may not pass another)
     timestep = ({} if domain.CONTROL_TIMESTEP is None
                 else {"control_timestep": domain.CONTROL_TIMESTEP})
-    return Environment(base.load_model(asset, device, dtype, *edit), task,
+    return Environment(variant.get_model(device, dtype), task,
                        time_limit=time_limit, random=random, **timestep,
                        **environment_kwargs)
 
@@ -126,14 +128,15 @@ def load_batch(domain_name, task_name, *, device="cuda",
     ``dtype``.  The device is the card unless the caller asks for another
     (``device="cpu"``): every tensor of the model and of the batch lives
     there.  Without CUDA the default raises.  ``task_kwargs`` go to the
-    task's constructor (lqr's ``random``: the seed of its model);
+    task's constructor (lqr's ``random``: the seed of its model;
+    three_poles' ``num_poles``: any number of poles);
     ``contact_cap`` to ``BatchEnv``."""
     from dm_control_torch.rl.batch_env import BatchEnv
 
-    domain = _domain(domain_name, task_name)
+    domain = _find_domain(domain_name, task_name)
     check_device(f"load_batch({domain_name!r}, {task_name!r})", device)
-    asset, task, *edit = domain.TASKS[task_name](**(task_kwargs or {}))
-    return BatchEnv(base.load_model(asset, device, dtype, *edit), task,
+    variant, task = domain.TASKS[task_name](**(task_kwargs or {}))
+    return BatchEnv(variant.get_model(device, dtype), task,
                     time_limit=domain.TIME_LIMIT,
                     control_timestep=domain.CONTROL_TIMESTEP,
                     autoreset=autoreset, contact_cap=contact_cap)

@@ -8,6 +8,8 @@ import math
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.acrobot import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
@@ -46,14 +48,23 @@ class Balance(base.Task):
                                  margin=0 if self._sparse else 1)
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/acrobot.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("acrobot", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def swingup():
-    return "acrobot", Balance(sparse=False)
+    return _MODEL, Balance(sparse=False)
 
 
 @TASKS.add("benchmarking")
 def swingup_sparse():
-    return "acrobot", Balance(sparse=True)
+    return _MODEL, Balance(sparse=True)

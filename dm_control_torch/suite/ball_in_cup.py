@@ -10,6 +10,8 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.ball_in_cup import MODEL
 from dm_control_torch.utils import containers
 
 TIME_LIMIT = 20
@@ -48,9 +50,18 @@ class BallInCup(base.Task):
         return (ball_to_target < room).all(-1).to(d.qpos.dtype)
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/ball_in_cup.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("ball_in_cup", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking", "easy")
 def catch():
-    return "ball_in_cup", BallInCup()
+    return _MODEL, BallInCup()

@@ -4,19 +4,21 @@ Counterpart of ``dm_control_tpu/suite/base.py``.
 Every domain module of the suite has the same small interface, which
 ``suite.load`` and ``suite.load_batch`` read: ``TASKS`` (a
 ``utils.containers.TaggedTasks``: task name -> a constructor, called
-with the task's keyword arguments, of ``(asset name, task object)`` or
-``(asset name, task object, edit)``, tagged as the JAX package tags the
-task), ``TIME_LIMIT`` and ``CONTROL_TIMESTEP`` (``None``: the model's own
-timestep).  The asset
-name is a compiled model under ``assets/``, written by
-``tools/export_torch_assets.py`` from the JAX package's compiler; the
-edit (``Model -> Model``) replaces the fields in which a task's model
-differs from the asset (lqr's seeded stiffness, the size of dog's floor).
+with the task's keyword arguments, of ``(Variant, task object)``, tagged
+as the JAX package tags the task), ``TIME_LIMIT`` and
+``CONTROL_TIMESTEP`` (``None``: the model's own timestep).  A ``Variant``
+names the task's model and compiles it with the port's MJCF compiler from
+the domain's literal tree (``suite/models/``), mutated as the JAX
+domain's ``get_model`` mutates it.  ``assets/<name>.npz``, where there is
+one, holds the JAX compiler's output for the same variant (written by
+``tools/export_torch_assets.py``): the reference the compiler is tested
+against, which nothing on the suite's path reads.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -36,11 +38,19 @@ def asset_path(asset: str) -> str:
     return os.path.join(_ASSET_DIR, asset + ".npz")
 
 
-def load_model(asset: str, device, dtype: torch.dtype, edit=None) -> Model:
-    """The compiled model ``assets/<asset>.npz`` on ``device`` in
-    ``dtype``, through ``edit`` where one is given."""
-    m = model_io.load(asset_path(asset), device, dtype)
-    return m if edit is None else edit(m)
+def load_model(asset: str, device, dtype: torch.dtype) -> Model:
+    """The JAX compiler's output saved as ``assets/<asset>.npz``, on
+    ``device`` in ``dtype`` (the reference of a variant)."""
+    return model_io.load(asset_path(asset), device, dtype)
+
+
+class Variant(NamedTuple):
+    """The model of a task: ``name`` (``assets/<name>.npz`` holds the JAX
+    compiler's output for it, where there is such a file) and
+    ``get_model(device, dtype)``, which compiles it."""
+
+    name: str
+    get_model: Callable[..., Model]
 
 
 class Task(control.Task):

@@ -1,8 +1,8 @@
 """Cartpole domain, batched (reference: dm_control/suite/cartpole.py).
 
-The two- and three-pole models are assets of their own
-(``cartpole_2.npz``, ``cartpole_3.npz``): the JAX package builds them
-procedurally before it compiles them.
+The models of more than one pole extend the single-pole tree into a chain
+before it is compiled, as the JAX package's ``get_model`` does, for any
+number of poles.
 """
 
 from __future__ import annotations
@@ -13,12 +13,42 @@ import math
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.cartpole import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = None
-#: pole count -> the compiled model
-_POLE_ASSETS = {1: "cartpole", 2: "cartpole_2", 3: "cartpole_3"}
+
+
+def _add_poles(root, n_poles):
+    """Extends the single-pole model into an n-pole chain."""
+    worldbody = root.first("worldbody")
+    cart = next(b for b in worldbody.children if b.tag == "body")
+    parent = next(b for b in cart.children if b.tag == "body")  # first pole
+    for i in range(2, n_poles + 1):
+        child = parent.add("body", name=f"pole_{i}", pos="0 0 1",
+                           childclass="pole")
+        child.add("joint", name=f"hinge_{i}")
+        child.add("geom", name=f"pole_{i}")
+        parent = child
+    floor = next(g for g in worldbody.children if g.tag == "geom")
+    floor.attrib["pos"] = f"0 0 {1 - n_poles - .05}"
+
+
+def get_model(num_poles=1, device=None, dtype: torch.dtype = torch.float64):
+    """The model of a cart with a chain of ``num_poles`` poles."""
+    if num_poles == 1:
+        return compile_domain_model(MODEL, device=device, dtype=dtype)
+    return compile_domain_model(
+        MODEL, mutate=lambda r: _add_poles(r, num_poles),
+        cache_key=num_poles, device=device, dtype=dtype)
+
+
+def _model(num_poles):
+    name = "cartpole" if num_poles == 1 else f"cartpole_{num_poles}"
+    return base.Variant(name, lambda device, dtype: get_model(
+        num_poles, device, dtype))
 
 
 class Balance(base.Task):
@@ -80,34 +110,29 @@ TASKS = containers.TaggedTasks()
 
 @TASKS.add("benchmarking")
 def balance():
-    return "cartpole", Balance(False, False)
+    return _model(1), Balance(False, False)
 
 
 @TASKS.add("benchmarking")
 def balance_sparse():
-    return "cartpole", Balance(False, True)
+    return _model(1), Balance(False, True)
 
 
 @TASKS.add("benchmarking")
 def swingup():
-    return "cartpole", Balance(True, False)
+    return _model(1), Balance(True, False)
 
 
 @TASKS.add("benchmarking")
 def swingup_sparse():
-    return "cartpole", Balance(True, True)
+    return _model(1), Balance(True, True)
 
 
 @TASKS.add()
 def two_poles():
-    return "cartpole_2", Balance(True, False)
+    return _model(2), Balance(True, False)
 
 
 @TASKS.add()
 def three_poles(num_poles=3, sparse=False):
-    if num_poles not in _POLE_ASSETS:
-        raise NotImplementedError(
-            f"three_poles(num_poles={num_poles}): the port has the models "
-            f"of {sorted(_POLE_ASSETS)} poles; others need the MJCF "
-            f"compiler (ROADMAP A9)")
-    return _POLE_ASSETS[num_poles], Balance(True, sparse)
+    return _model(num_poles), Balance(True, sparse)

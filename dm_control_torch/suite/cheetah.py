@@ -4,7 +4,11 @@ from __future__ import annotations
 
 import collections
 
+import torch
+
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.cheetah import MODEL
 from dm_control_torch.utils import containers, rewards
 
 _RUN_SPEED = 10
@@ -40,9 +44,18 @@ class Cheetah(base.Task):
                                  sigmoid="linear")
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/cheetah.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("cheetah", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def run():
-    return "cheetah", Cheetah()
+    return _MODEL, Cheetah()

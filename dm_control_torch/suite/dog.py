@@ -3,9 +3,10 @@
 Stand, walk, trot and run on a plane, and fetch a thrown ball.  The model
 runs the noslip post-pass (``opt.noslip_iterations`` 4) and reads the
 acceleration stage (touch, force and IMU sensors).  Each episode starts
-with random actuator activations (``init_act``).  Two assets: ``dog``
-(no ball, floor half-size 15) and ``dog_fetch``; the faster tasks' models
-differ from ``dog`` only in the floor's size, which a task edits.
+with random actuator activations (``init_act``).  Each task's model sets
+the floor's half-size (the distance the task asks for) and, but for
+fetch, takes the ball, its target, its cameras and the walls out of the
+tree before it is compiled, as the JAX package's ``_make_model`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import JointType, make_data
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.dog import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 15
@@ -236,15 +239,34 @@ class Fetch(Stand):
                           fetch_ball.unsqueeze(-1)], -1)
 
 
-def _floor(half_size):
-    """The model edit that sets the floor's half-size (``_make_model`` in
-    the JAX package: the floor spans the distance the task asks for)."""
-    def edit(m):
-        size = m.geom_size.clone()
-        size[m.names.geom["floor"], :2] = half_size
-        return m.replace(geom_size=size)
+def _make_model(floor_size, remove_ball, device=None,
+                dtype: torch.dtype = torch.float64):
+    """The model with a floor of half-size ``floor_size``, without the
+    ball, its target, its cameras and the walls if ``remove_ball``
+    (reference dog.py:61 ``make_model``)."""
 
-    return edit
+    def mutate(root):
+        floor = root.find("geom", "floor")
+        floor.attrib["size"] = f"{floor_size} {floor_size} .1"
+        if remove_ball:
+            ball = root.find("body", "ball")
+            ball.parent.remove(ball)
+            for tag, name in (("geom", "target"), ("camera", "ball"),
+                              ("camera", "head")):
+                el = root.find(tag, name)
+                el.parent.remove(el)
+            for wall in ("px", "nx", "py", "ny"):
+                el = root.find("geom", "wall_" + wall)
+                el.parent.remove(el)
+
+    return compile_domain_model(MODEL, mutate=mutate,
+                                cache_key=(floor_size, remove_ball),
+                                device=device, dtype=dtype)
+
+
+def _model(name, floor_size, remove_ball=True):
+    return base.Variant(name, lambda device, dtype: _make_model(
+        floor_size, remove_ball, device, dtype))
 
 
 TASKS = containers.TaggedTasks()
@@ -252,24 +274,25 @@ TASKS = containers.TaggedTasks()
 
 @TASKS.add("no_reward_visualization")
 def stand():
-    return "dog", Stand()
+    return _model("dog", _WALK_SPEED * TIME_LIMIT), Stand()
 
 
 @TASKS.add("no_reward_visualization")
 def walk():
-    return "dog", Move(_WALK_SPEED)
+    return _model("dog", _WALK_SPEED * TIME_LIMIT), Move(_WALK_SPEED)
 
 
 @TASKS.add("no_reward_visualization")
 def trot():
-    return "dog", Move(_TROT_SPEED), _floor(_TROT_SPEED * TIME_LIMIT)
+    return (_model("dog_trot", _TROT_SPEED * TIME_LIMIT),
+            Move(_TROT_SPEED))
 
 
 @TASKS.add("no_reward_visualization")
 def run():
-    return "dog", Move(_RUN_SPEED), _floor(_RUN_SPEED * TIME_LIMIT)
+    return _model("dog_run", _RUN_SPEED * TIME_LIMIT), Move(_RUN_SPEED)
 
 
 @TASKS.add("no_reward_visualization", "hard")
 def fetch():
-    return "dog_fetch", Fetch()
+    return _model("dog_fetch", 10, remove_ball=False), Fetch()

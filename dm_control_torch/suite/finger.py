@@ -15,6 +15,8 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.finger import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers
 
@@ -140,19 +142,28 @@ class Turn(_FingerTask):
         return (self._dist_to_target(m, d) <= 0).to(d.qpos.dtype)
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/finger.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("finger", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def spin():
-    return "finger", Spin()
+    return _MODEL, Spin()
 
 
 @TASKS.add("benchmarking")
 def turn_easy():
-    return "finger", Turn(_EASY_TARGET_SIZE)
+    return _MODEL, Turn(_EASY_TARGET_SIZE)
 
 
 @TASKS.add("benchmarking")
 def turn_hard():
-    return "finger", Turn(_HARD_TARGET_SIZE)
+    return _MODEL, Turn(_HARD_TARGET_SIZE)

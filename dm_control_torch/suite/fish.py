@@ -14,6 +14,8 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.fish import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 40
@@ -97,14 +99,23 @@ class Swim(_FishTask):
         return (7 * in_target + is_upright) / 8
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/fish.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("fish", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def upright():
-    return "fish", Upright()
+    return _MODEL, Upright()
 
 
 @TASKS.add("benchmarking")
 def swim():
-    return "fish", Swim()
+    return _MODEL, Swim()

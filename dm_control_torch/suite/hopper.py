@@ -7,6 +7,8 @@ import collections
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.hopper import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
@@ -57,14 +59,23 @@ class Hopper(base.Task):
         return standing * (small_control + 4) / 5
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/hopper.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("hopper", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def stand():
-    return "hopper", Hopper(hopping=False)
+    return _MODEL, Hopper(hopping=False)
 
 
 @TASKS.add("benchmarking")
 def hop():
-    return "hopper", Hopper(hopping=True)
+    return _MODEL, Hopper(hopping=True)

@@ -8,6 +8,8 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.humanoid import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
@@ -95,24 +97,33 @@ class Humanoid(base.Task):
         return small_control * stand_reward * move
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/humanoid.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("humanoid", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def stand():
-    return "humanoid", Humanoid(0, False)
+    return _MODEL, Humanoid(0, False)
 
 
 @TASKS.add("benchmarking")
 def walk():
-    return "humanoid", Humanoid(_WALK_SPEED, False)
+    return _MODEL, Humanoid(_WALK_SPEED, False)
 
 
 @TASKS.add("benchmarking")
 def run():
-    return "humanoid", Humanoid(_RUN_SPEED, False)
+    return _MODEL, Humanoid(_RUN_SPEED, False)
 
 
 @TASKS.add()
 def run_pure_state():
-    return "humanoid", Humanoid(_RUN_SPEED, True)
+    return _MODEL, Humanoid(_RUN_SPEED, True)

@@ -9,6 +9,8 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.humanoid_CMU import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
@@ -84,19 +86,28 @@ class HumanoidCMU(base.Task):
         return small_control * stand_reward * move
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/humanoid_CMU.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("humanoid_CMU", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add()
 def stand():
-    return "humanoid_CMU", HumanoidCMU(0)
+    return _MODEL, HumanoidCMU(0)
 
 
 @TASKS.add()
 def walk():
-    return "humanoid_CMU", HumanoidCMU(_WALK_SPEED)
+    return _MODEL, HumanoidCMU(_WALK_SPEED)
 
 
 @TASKS.add()
 def run():
-    return "humanoid_CMU", HumanoidCMU(_RUN_SPEED)
+    return _MODEL, HumanoidCMU(_RUN_SPEED)

@@ -3,10 +3,10 @@
 A chain of masses on slide joints with motors; the reward is a quadratic
 regulator cost.  The model depends on the seed: each joint's stiffness is
 drawn U(15, 25) and its damping U(0, 0), in that order body by body, from
-the task's ``numpy.random.RandomState`` (``task_kwargs={"random": seed}``).
-Nothing else of the compiled model depends on the draw, so each size is
-one asset, and ``jnt_stiffness`` and ``dof_damping`` come from the same
-draws as the JAX package's ``get_model``.
+the task's ``numpy.random.RandomState`` (``task_kwargs={"random": seed}``),
+and written into the tree before it is compiled, as the JAX package's
+``get_model`` does.  The draws are made when the task is built, before
+any episode draws from the same RandomState.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.lqr import MODEL
 from dm_control_torch.utils import containers
 
 TIME_LIMIT = float("inf")
@@ -34,6 +36,46 @@ def seeded_fields(n_bodies, random):
     draws = np.array([(random.uniform(15, 25), random.uniform(0, 0))
                       for _ in range(n_bodies)])
     return {"jnt_stiffness": draws[:, 0], "dof_damping": draws[:, 1]}
+
+
+def _extend(root, n_bodies, n_actuators, fields):
+    """Adds the chain of bodies with the drawn stiffness and damping."""
+    parent = root.first("worldbody")
+    actuator = root.add("actuator")
+    tendon = root.add("tendon")
+    for body in range(n_bodies):
+        child = parent.add("body", name=f"body_{body}", pos=".25 0 0")
+        child.add("joint", name=f"joint_{body}",
+                  stiffness=str(float(fields["jnt_stiffness"][body])),
+                  damping=str(float(fields["dof_damping"][body])))
+        child.add("geom", name=f"geom_{body}")
+        child.add("site", name=f"site_{body}")
+        if body == 0:
+            child.attrib["pos"] = ".25 0 .1"
+        if body < n_actuators:
+            actuator.add("motor", name=f"motor_{body}",
+                         joint=f"joint_{body}")
+        if body < n_bodies - 1:
+            spatial = tendon.add("spatial", name=f"tendon_{body}")
+            spatial.add("site", site=f"site_{body}")
+            spatial.add("site", site=f"site_{body + 1}")
+        parent = child
+
+
+def get_model(n_bodies, n_actuators, random, device=None,
+              dtype: torch.dtype = torch.float64):
+    """The model of ``n_bodies`` masses, ``n_actuators`` of them driven,
+    with stiffness and damping drawn from ``random``."""
+    return _compile(n_bodies, n_actuators, seeded_fields(n_bodies, random),
+                    device, dtype)
+
+
+def _compile(n_bodies, n_actuators, fields, device, dtype):
+    key = (n_bodies, n_actuators) + tuple(
+        float(x) for v in fields.values() for x in v)
+    return compile_domain_model(
+        MODEL, mutate=lambda r: _extend(r, n_bodies, n_actuators, fields),
+        cache_key=key, device=device, dtype=dtype)
 
 
 class LQRLevel(base.Task):
@@ -73,14 +115,11 @@ class LQRLevel(base.Task):
 
 def _make(n_bodies, n_actuators, random=None):
     fields = seeded_fields(n_bodies, random)
-
-    def edit(m):
-        return m.replace(**{k: torch.as_tensor(v, dtype=m.dtype,
-                                               device=m.device)
-                            for k, v in fields.items()})
-
-    return (f"lqr_{n_bodies}_{n_actuators}", LQRLevel(_CONTROL_COST_COEF),
-            edit)
+    variant = base.Variant(
+        f"lqr_{n_bodies}_{n_actuators}",
+        lambda device, dtype: _compile(n_bodies, n_actuators, fields,
+                                       device, dtype))
+    return variant, LQRLevel(_CONTROL_COST_COEF)
 
 
 TASKS = containers.TaggedTasks()

@@ -1,7 +1,8 @@
 """Manipulator domain, batched (reference: dm_control/suite/manipulator.py).
 
 A planar arm brings a ball or a peg to a target, or into a cup or slot.
-The four tasks are four assets (each model holds only its own props).
+Each task's model holds only its own props: the others are taken out of
+the tree before it is compiled, as the JAX package's ``get_model`` does.
 Every episode places the target, and the receptacle in the insert tasks,
 anew: the task overrides ``body_pos`` and ``body_quat`` per environment,
 (B, nbody, .).  The prop starts in the hand, in the target or anywhere.
@@ -23,10 +24,14 @@ from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics.model import make_data
 from dm_control_torch.rl.control import apply_model_diff
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.manipulator import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = 0.01
+_ALL_PROPS = frozenset(["ball", "target_ball", "cup", "peg", "target_peg",
+                        "slot"])
 _CLOSE = 0.01
 _P_IN_HAND = 0.1
 _P_IN_TARGET = 0.1
@@ -220,24 +225,51 @@ class Bring(base.Task):
                                                   "target_ball"))
 
 
+def _mutate(root, use_peg, insert):
+    required = (["peg", "target_peg"] + (["slot"] if insert else [])
+                if use_peg else
+                ["ball", "target_ball"] + (["cup"] if insert else []))
+    for prop in _ALL_PROPS.difference(required):
+        for e in list(root.iter()):
+            for c in list(e.children):
+                if c.tag == "body" and c.get("name") == prop:
+                    e.children.remove(c)
+
+
+def get_model(use_peg, insert, device=None,
+              dtype: torch.dtype = torch.float64):
+    """The model with the props of one task: a ball or a peg, with a cup
+    or a slot to insert it into."""
+    return compile_domain_model(
+        MODEL, mutate=lambda r: _mutate(r, use_peg, insert),
+        cache_key=(use_peg, insert), device=device, dtype=dtype)
+
+
+def _model(use_peg, insert):
+    name = "manipulator_{}_{}".format("insert" if insert else "bring",
+                                      "peg" if use_peg else "ball")
+    return base.Variant(name, lambda device, dtype: get_model(
+        use_peg, insert, device, dtype))
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking", "hard")
 def bring_ball(fully_observable=True):
-    return "manipulator_bring_ball", Bring(False, False, fully_observable)
+    return _model(False, False), Bring(False, False, fully_observable)
 
 
 @TASKS.add("hard")
 def bring_peg(fully_observable=True):
-    return "manipulator_bring_peg", Bring(True, False, fully_observable)
+    return _model(True, False), Bring(True, False, fully_observable)
 
 
 @TASKS.add("hard")
 def insert_ball(fully_observable=True):
-    return "manipulator_insert_ball", Bring(False, True, fully_observable)
+    return _model(False, True), Bring(False, True, fully_observable)
 
 
 @TASKS.add("hard")
 def insert_peg(fully_observable=True):
-    return "manipulator_insert_peg", Bring(True, True, fully_observable)
+    return _model(True, True), Bring(True, True, fully_observable)

@@ -8,6 +8,8 @@ import math
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.pendulum import MODEL
 from dm_control_torch.utils import containers, rewards
 
 _ANGLE_BOUND = 8
@@ -37,9 +39,18 @@ class SwingUp(base.Task):
                                  (_COSINE_BOUND, 1))
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/pendulum.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("pendulum", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def swingup():
-    return "pendulum", SwingUp()
+    return _MODEL, SwingUp()

@@ -13,6 +13,8 @@ import torch
 
 from dm_control_torch.physics import mathx as mx
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.point_mass import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
@@ -73,14 +75,23 @@ class PointMass(base.Task):
         return near_target * (control_reward + 4) / 5
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/point_mass.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("point_mass", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking", "easy")
 def easy():
-    return "point_mass", PointMass(randomize_gains=False)
+    return _MODEL, PointMass(randomize_gains=False)
 
 
 @TASKS.add()
 def hard():
-    return "point_mass", PointMass(randomize_gains=True)
+    return _MODEL, PointMass(randomize_gains=True)

@@ -1,10 +1,11 @@
 """Quadruped domain, batched (reference: dm_control/suite/quadruped.py).
 
 Walk and run on a plane, escape a bumpy bowl, fetch a ball.  The four
-tasks are four assets: they differ in the floor's size, the terrain with
-its rangefinders, and the walls with the ball.  Escape draws its terrain
-anew each episode: the task overrides ``hfield_data`` per environment,
-(B, nrow, ncol).
+tasks' models differ in the floor's size, the terrain with its
+rangefinders, and the walls with the ball, set in the tree before it is
+compiled as the JAX package's ``get_model`` sets them.  Escape draws its
+terrain anew each episode: the task overrides ``hfield_data`` per
+environment, (B, nrow, ncol).
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import JointType, SensorType, make_data
 from dm_control_torch.rl.control import apply_model_diff
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.quadruped import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = 0.02
 _RUN_SPEED = 5
 _WALK_SPEED = 0.5
+_WALLS = ["wall_px", "wall_py", "wall_nx", "wall_ny"]
 _TERRAIN_SMOOTHNESS = 0.15
 _TERRAIN_BUMP_SCALE = 2
 #: the root rises by this much a round until nothing penetrates, at most
@@ -266,24 +270,68 @@ class Fetch(_QuadrupedTask):
         return self._upright_reward(m, d) * reach_then_fetch
 
 
+def _mutate(root, floor_size=None, terrain=False, rangefinders=False,
+            walls_and_ball=False):
+    """Reference quadruped.py make_model: prune task-specific content."""
+
+    def remove_named(tag, name):
+        for e in list(root.iter()):
+            for c in list(e.children):
+                if c.tag == tag and c.get("name") == name:
+                    e.children.remove(c)
+
+    if floor_size is not None:
+        for e in root.iter():
+            if e.tag == "geom" and e.get("name") == "floor":
+                e.attrib["size"] = f"{floor_size} {floor_size} .5"
+    if not walls_and_ball:
+        for wall in _WALLS:
+            remove_named("geom", wall)
+        remove_named("body", "ball")
+        remove_named("site", "target")
+    if not terrain:
+        remove_named("geom", "terrain")
+    if not rangefinders:
+        for e in root.iter():
+            e.children[:] = [c for c in e.children
+                             if c.tag != "rangefinder"]
+
+
+def get_model(device=None, dtype: torch.dtype = torch.float64, **kwargs):
+    """The model with the floor, terrain, rangefinders, walls and ball that
+    ``kwargs`` ask for (``_mutate``)."""
+    key = tuple(sorted(kwargs.items()))
+    return compile_domain_model(
+        MODEL, mutate=lambda r: _mutate(r, **kwargs), cache_key=key,
+        device=device, dtype=dtype)
+
+
+def _model(name, **kwargs):
+    return base.Variant(name, lambda device, dtype: get_model(
+        device, dtype, **kwargs))
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add()
 def walk():
-    return "quadruped_walk", Move(_WALK_SPEED)
+    return _model("quadruped_walk",
+                  floor_size=TIME_LIMIT * _WALK_SPEED), Move(_WALK_SPEED)
 
 
 @TASKS.add()
 def run():
-    return "quadruped_run", Move(_RUN_SPEED)
+    return _model("quadruped_run",
+                  floor_size=TIME_LIMIT * _RUN_SPEED), Move(_RUN_SPEED)
 
 
 @TASKS.add()
 def escape():
-    return "quadruped_escape", Escape()
+    return _model("quadruped_escape", floor_size=40, terrain=True,
+                  rangefinders=True), Escape()
 
 
 @TASKS.add()
 def fetch():
-    return "quadruped_fetch", Fetch()
+    return _model("quadruped_fetch", walls_and_ball=True), Fetch()

@@ -1,7 +1,8 @@
 """Reacher domain, batched (reference: dm_control/suite/reacher.py).
 
 Each episode places the target anew: the task overrides ``geom_pos`` per
-environment, (B, ngeom, 3).  The two target sizes are two assets.
+environment, (B, ngeom, 3).  The target's size is set in the tree before
+it is compiled, as the JAX package's ``get_model`` does.
 """
 
 from __future__ import annotations
@@ -12,11 +13,32 @@ import math
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.reacher import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 20
 CONTROL_TIMESTEP = None
+_BIG_TARGET = 0.05
+_SMALL_TARGET = 0.015
+
+
+def get_model(target_size, device=None, dtype: torch.dtype = torch.float64):
+    """The model with a target of radius ``target_size``."""
+    def mutate(root):
+        wb = root.first("worldbody")
+        target = next(g for g in wb.children
+                      if g.tag == "geom" and g.get("name") == "target")
+        target.attrib["size"] = str(target_size)
+
+    return compile_domain_model(MODEL, mutate=mutate, cache_key=target_size,
+                                device=device, dtype=dtype)
+
+
+def _model(name, target_size):
+    return base.Variant(name, lambda device, dtype: get_model(
+        target_size, device, dtype))
 
 
 class Reacher(base.Task):
@@ -60,9 +82,9 @@ TASKS = containers.TaggedTasks()
 
 @TASKS.add("benchmarking", "easy")
 def easy():
-    return "reacher_easy", Reacher()
+    return _model("reacher_easy", _BIG_TARGET), Reacher()
 
 
 @TASKS.add("benchmarking")
 def hard():
-    return "reacher_hard", Reacher()
+    return _model("reacher_hard", _SMALL_TARGET), Reacher()

@@ -1,9 +1,10 @@
 """Stacker domain, batched (reference: dm_control/suite/stacker.py).
 
-The manipulator's arm stacks two or four boxes on a target; the two box
-counts are two assets.  Every episode places the target at a drawn height
-of an odd number of box sizes: the task overrides ``body_pos`` per
-environment, (B, nbody, 3).
+The manipulator's arm stacks two or four boxes on a target; the boxes
+beyond the count are taken out of the tree before it is compiled, as the
+JAX package's ``get_model`` does.  Every episode places the target at a
+drawn height of an odd number of box sizes: the task overrides
+``body_pos`` per environment, (B, nbody, 3).
 """
 
 from __future__ import annotations
@@ -14,14 +15,37 @@ import torch
 
 from dm_control_torch.physics import engine
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
 from dm_control_torch.suite.manipulator import (
     arm_observations, body_2d_pose, init_arm,
 )
+from dm_control_torch.suite.models.stacker import MODEL
 from dm_control_torch.utils import containers, rewards
 
 TIME_LIMIT = 10
 CONTROL_TIMESTEP = 0.01
 _CLOSE = 0.01
+
+
+def _mutate(root, n_boxes):
+    for b in range(n_boxes, 4):
+        name = f"box{b}"
+        for e in list(root.iter()):
+            for c in list(e.children):
+                if c.tag == "body" and c.get("name") == name:
+                    e.children.remove(c)
+
+
+def get_model(n_boxes, device=None, dtype: torch.dtype = torch.float64):
+    """The model with ``n_boxes`` boxes."""
+    return compile_domain_model(
+        MODEL, mutate=lambda r: _mutate(r, n_boxes), cache_key=n_boxes,
+        device=device, dtype=dtype)
+
+
+def _model(n_boxes):
+    return base.Variant(f"stacker_{n_boxes}", lambda device, dtype: get_model(
+        n_boxes, device, dtype))
 
 
 class Stack(base.Task):
@@ -100,9 +124,9 @@ TASKS = containers.TaggedTasks()
 
 @TASKS.add("hard")
 def stack_2(fully_observable=True):
-    return "stacker_2", Stack(2, fully_observable)
+    return _model(2), Stack(2, fully_observable)
 
 
 @TASKS.add("hard")
 def stack_4(fully_observable=True):
-    return "stacker_4", Stack(4, fully_observable)
+    return _model(4), Stack(4, fully_observable)

@@ -7,6 +7,8 @@ import collections
 import torch
 
 from dm_control_torch.suite import base
+from dm_control_torch.suite._domain import compile_domain_model
+from dm_control_torch.suite.models.walker import MODEL
 from dm_control_torch.suite.utils import randomizers
 from dm_control_torch.utils import containers, rewards
 
@@ -54,19 +56,28 @@ class PlanarWalker(base.Task):
         return stand_reward * (5 * move_reward + 1) / 6
 
 
+def get_model(device=None, dtype: torch.dtype = torch.float64):
+    """The domain's model, compiled from its literal tree (reference:
+    dm_control/suite/walker.xml)."""
+    return compile_domain_model(MODEL, device=device, dtype=dtype)
+
+
+_MODEL = base.Variant("walker", get_model)
+
+
 TASKS = containers.TaggedTasks()
 
 
 @TASKS.add("benchmarking")
 def stand():
-    return "walker", PlanarWalker(0)
+    return _MODEL, PlanarWalker(0)
 
 
 @TASKS.add("benchmarking")
 def walk():
-    return "walker", PlanarWalker(_WALK_SPEED)
+    return _MODEL, PlanarWalker(_WALK_SPEED)
 
 
 @TASKS.add("benchmarking")
 def run():
-    return "walker", PlanarWalker(_RUN_SPEED)
+    return _MODEL, PlanarWalker(_RUN_SPEED)

@@ -374,13 +374,15 @@ def test_checked_in_asset_equals_a_fresh_export(asset):
 
 @pytest.mark.slow
 def test_task_models_differ_from_the_asset_in_the_floor_only():
-    """trot's and run's models, the asset with the floor's size edited,
-    equal the JAX package's compiles of their floors field by field."""
-    import test_torch_model_io as model_io_tests
+    """trot's and run's models, compiled by the port with their floors,
+    equal the JAX package's compiles of their floors field by field: the
+    compiler's fields exactly, ``set_const``'s within 1e-10 of each
+    field's largest entry (``tests/test_torch_compiler.py``'s figures)."""
+    from test_torch_compiler import _assert_compile_close
     from dm_control_tpu.suite import dog as jdog
 
     for task, half in (("trot", 45), ("run", 135)):
         m = tsuite.load_batch("dog", task, device="cpu", dtype=torch.float64,
                               contact_cap=0).model
-        model_io_tests._assert_same(m, model_io.from_jax_model(
+        _assert_compile_close(m, model_io.from_jax_model(
             jdog._make_model(half, True)))

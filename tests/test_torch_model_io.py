@@ -86,13 +86,16 @@ def test_checked_in_asset_equals_a_fresh_export(asset):
 
 
 def test_every_asset_file_belongs_to_a_task():
+    """Every reference file is the model of a task (a task's ``Variant``
+    names it); dog's trot and run compile floors no file holds."""
     import dm_control_torch.suite as tsuite
 
-    used = {domain.TASKS[t]()[0] for domain in tsuite.DOMAINS.values()
+    used = {domain.TASKS[t]()[0].name for domain in tsuite.DOMAINS.values()
             for t in domain.TASKS}
     on_disk = {f[:-len(".npz")] for f in os.listdir(os.path.dirname(
         tbase.asset_path("humanoid")))}
-    assert used == on_disk == set(ASSETS)
+    assert on_disk == set(ASSETS)
+    assert used - on_disk == {"dog_trot", "dog_run"}
 
 
 def test_load_casts_floating_leaves_and_keeps_static_fields():
@@ -106,10 +109,12 @@ def test_load_casts_floating_leaves_and_keeps_static_fields():
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
-                         r"dm_control_tpu)\b", re.MULTILINE)
+                         r"dm_control_tpu|lxml)\b", re.MULTILINE)
 
 
 def test_port_sources_import_no_jax():
+    """No module of the port imports JAX, the JAX package or ``lxml`` (the
+    JAX package's XML parser; the machine with the card has none)."""
     offenders = []
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "dm_control_torch")):
@@ -130,7 +135,7 @@ def test_port_runs_without_jax_loaded():
         " dtype=torch.float64)\n"
         "env.reset(2, torch.Generator().manual_seed(0))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'dm_control_tpu')]\n"
+        " ('jax', 'jaxlib', 'dm_control_tpu', 'lxml')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

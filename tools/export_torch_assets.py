@@ -1,8 +1,12 @@
 """Writes the PyTorch port's model assets and its float64 golden files.
 
-The port (``dm_control_torch``) cannot compile MJCF yet, so each of its
-models is the JAX package's compiled model saved as an ``.npz``.  This
-tool lives outside the port because it imports ``dm_control_tpu`` and JAX.
+The port (``dm_control_torch``) compiles its suite models itself
+(``mjcf.compile_model``); the suite's ``.npz`` files written here are the
+JAX compiler's output for the same variants, the references its compiler
+is tested against.  The manipulation and locomotion models are still
+used from these files, until the port's entities build their MJCF trees.
+This tool lives outside the port because it imports ``dm_control_tpu``
+and JAX.
 
     JAX_PLATFORMS=cpu python tools/export_torch_assets.py [domain ...]
 
@@ -155,9 +159,9 @@ ASSETS = {
         "manipulator_insert_peg": (True, True)},
     "stacker": {"stacker_2": (2,), "stacker_4": (4,)},
     "humanoid_CMU": {"humanoid_CMU": ()},
-    # (bodies, actuators, seed): the port edits the seeded stiffness
+    # (bodies, actuators, seed): the files hold seed 0's model
     "lqr": {"lqr_2_1": (2, 1, 0), "lqr_6_2": (6, 2, 0)},
-    # the floor of the no-ball tasks is edited per task (suite/dog.py)
+    # stand's and walk's floor; trot and run compile floors of their own
     "dog": {"dog": dict(floor_size=15, remove_ball=True),
             "dog_fetch": dict(floor_size=10, remove_ball=False)},
 }
