@@ -1,12 +1,25 @@
-"""Composer on PyTorch: the batched path.
+"""Composer on PyTorch (counterpart of ``dm_control_tpu/composer/``).
 
-Counterpart of ``dm_control_tpu/composer/`` for what the batched tasks
-need: the ``BatchableTask`` protocol and ``compile_task``
-(``composer/batch.py``).  Composer's host path (``Environment``,
-``Task``, ``Entity``, observables, variations, initializers) is not
-ported yet (ROADMAP A5).
+The host path, as in the JAX package: entities build MJCF element trees
+(``Entity``, ``Arena``), which are merged by attachment and compiled once
+per environment onto its device; a ``Task`` over the root entity runs in
+``Environment``'s hook pipeline with observables (``observation/``).  The
+batched path: the ``BatchableTask`` protocol and ``compile_task``
+(``composer/batch.py``).  Not ported yet: ``variation/`` and
+``initializers/`` (ROADMAP A5.3).
 """
 
-from dm_control_torch.composer.batch import BatchableTask, compile_task
-
-__all__ = ["BatchableTask", "compile_task"]
+from dm_control_torch.composer.define import (  # noqa: F401
+    cached_property, observable,
+)
+from dm_control_torch.composer.entity import (  # noqa: F401
+    Entity, ModelWrapperEntity, Observables, Robot,
+)
+from dm_control_torch.composer.arena import Arena  # noqa: F401
+from dm_control_torch.composer.task import NullTask, Task  # noqa: F401
+from dm_control_torch.composer.environment import (  # noqa: F401
+    Environment, EpisodeInitializationError,
+)
+from dm_control_torch.composer.batch import (  # noqa: F401
+    BatchableTask, compile_task,
+)

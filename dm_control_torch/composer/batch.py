@@ -12,9 +12,13 @@ overrides ``site_pos``), and task-private per-environment state through
 "_"-prefixed diff keys, which the task reads as ``m.task_state``
 (``rl/control.py::apply_model_diff``).
 
-The port compiles MJCF (``mjcf.compile_model``), but it does not build
-the entities' MJCF trees yet (ROADMAP A9b): a task names the compiled
-model of its entity tree (``BatchableTask.model_asset``, an ``.npz`` that
+A task with a root entity (the manipulation tasks) is compiled from its
+entity tree, as the JAX package's ``compile_task`` and the host
+``composer.Environment`` compile it: the root entity's MJCF with
+``option/timestep`` set to the task's physics timestep, through
+``mjcf.compile_model``.  The locomotion tasks do not build their trees in
+the port yet (ROADMAP A9b): such a task names the compiled model of its
+entity tree (``BatchableTask.model_asset``, an ``.npz`` that
 ``tools/export_torch_assets.py`` writes from the JAX package's compiler),
 and ``compile_task`` loads it.
 """
@@ -25,6 +29,8 @@ import math
 
 import torch
 
+from dm_control_torch.composer.environment import set_timestep
+from dm_control_torch.mjcf.compiler import compile_model
 from dm_control_torch.physics import model_io
 from dm_control_torch.rl import control
 from dm_control_torch.rl.batch_env import BatchEnv
@@ -34,13 +40,17 @@ from dm_control_torch.suite import check_device
 class BatchableTask:
     """Protocol mixin for composer tasks that run on the batched path.
 
-    A task sets ``model_asset`` (the path of its compiled model),
+    A task has a ``root_entity`` (a composer ``Task``) or sets
+    ``model_asset`` (the path of its compiled model); it sets
     ``control_timestep`` and ``physics_timestep``, and implements the
     ``batch_*`` hooks over batched tensors: ``qpos`` (B, nq), a Data of B
     environments, draws of ``rl.control.RandomContext`` with B first.
+    A task that leaves ``batch_observation`` or ``batch_reward``
+    unimplemented does not run on the batched path.
     """
 
-    #: the compiled model of the task's entity tree (an ``.npz``)
+    #: the compiled model of the task's entity tree (an ``.npz``), for a
+    #: task without a root entity
     model_asset: str = ""
     control_timestep: float = 0.0
     physics_timestep: float = 0.0
@@ -106,25 +116,47 @@ class _PureTaskAdapter(control.Task):
         return self._t.batch_termination(m, d)
 
 
-def compile_task(task, *, device="cuda", dtype: torch.dtype,
-                 time_limit=10.0, autoreset=True,
-                 contact_cap=None) -> BatchEnv:
-    """A ``BatchEnv`` of a composer task: its compiled model
-    (``task.model_asset``) loaded on ``device`` in ``dtype``, stepped at
-    the task's control timestep.  The device is the card unless the
-    caller asks for another (``device="cpu"``); without CUDA the default
-    raises.  ``task`` must implement ``BatchableTask``; ``contact_cap``
-    goes to ``BatchEnv``."""
-    if not isinstance(task, BatchableTask):
-        raise TypeError(
-            f"{type(task).__name__} does not implement BatchableTask")
-    check_device(f"compile_task({type(task).__name__})", device)
+def implements_batch(task) -> bool:
+    """Whether ``task`` runs on the batched path: a ``BatchableTask`` with
+    its own ``batch_observation`` and ``batch_reward``."""
+    cls = type(task)
+    return (isinstance(task, BatchableTask)
+            and cls.batch_observation is not BatchableTask.batch_observation
+            and cls.batch_reward is not BatchableTask.batch_reward)
+
+
+def task_model(task, device, dtype: torch.dtype):
+    """The compiled model of a batchable task on ``device`` in ``dtype``:
+    its root entity's tree compiled with the task's physics timestep, or
+    for a task without one its ``model_asset`` loaded (which must step at
+    that timestep)."""
+    if getattr(task, "root_entity", None) is not None:
+        root = task.root_entity.mjcf_model
+        set_timestep(root, task.physics_timestep)
+        return compile_model(root, device=device, dtype=dtype)
     model = model_io.load(task.model_asset, device, dtype)
     if not math.isclose(float(model.opt.timestep), task.physics_timestep,
                         rel_tol=1e-6):
         raise ValueError(
             f"{task.model_asset} has timestep {float(model.opt.timestep)}, "
             f"the task steps at {task.physics_timestep}")
+    return model
+
+
+def compile_task(task, *, device="cuda", dtype: torch.dtype,
+                 time_limit=10.0, autoreset=True,
+                 contact_cap=None) -> BatchEnv:
+    """A ``BatchEnv`` of a composer task: its compiled model
+    (``task_model``) on ``device`` in ``dtype``, stepped at the task's
+    control timestep.  The device is the card unless the caller asks for
+    another (``device="cpu"``); without CUDA the default raises.  ``task``
+    must implement ``BatchableTask`` (``implements_batch``), else
+    ``TypeError``; ``contact_cap`` goes to ``BatchEnv``."""
+    if not implements_batch(task):
+        raise TypeError(
+            f"{type(task).__name__} does not implement BatchableTask")
+    check_device(f"compile_task({type(task).__name__})", device)
+    model = task_model(task, device, dtype)
     return BatchEnv(model, _PureTaskAdapter(task), time_limit=time_limit,
                     control_timestep=task.control_timestep,
                     autoreset=autoreset, contact_cap=contact_cap)

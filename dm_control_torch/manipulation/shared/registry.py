@@ -1,10 +1,11 @@
 """Manipulation task registry
 (counterpart of ``dm_control_tpu/manipulation/shared/registry.py``).
 
-A registered factory returns the task.  The tasks that run only on
-composer's host path in the JAX package (stacking and placing bricks) are
-registered as ``HostOnlyTask``s under their names and tags, so the
-registry holds all 25 of the JAX package's names.
+A registered factory returns the task, a composer ``Task`` over its own
+entity tree (the JAX package's factories return it inside a
+``composer.Environment``; here ``manipulation.load`` builds that, on the
+device it is asked for).  The registry holds the JAX package's 25 names
+with their tags.
 """
 
 from __future__ import annotations
@@ -21,25 +22,6 @@ class tags:  # noqa: N801 (reference API name)
 _REGISTRY = containers.TaggedTasks(allow_overriding_keys=False)
 
 add = _REGISTRY.add
-
-
-class HostOnlyTask:
-    """A task of composer's host path, which the port does not have yet
-    (ROADMAP A5): ``compile_task`` refuses it (it is no
-    ``BatchableTask``)."""
-
-    def __init__(self, name):
-        self.name = name
-
-
-def add_host_only(*entries):
-    """Registers ``(name, tag)`` entries whose factories return a
-    ``HostOnlyTask``."""
-    for name, tag in entries:
-        def factory(name=name):
-            return HostOnlyTask(name)
-        factory.__name__ = name
-        add(tag)(factory)
 
 
 def get_all_names():

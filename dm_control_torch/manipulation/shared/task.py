@@ -1,63 +1,131 @@
-"""Common base of the arm manipulation tasks, batched.
+"""Common base task for arm manipulation (counterpart of
+``dm_control_tpu/manipulation/shared/task.py``).
 
-Counterpart of ``dm_control_tpu/manipulation/shared/task.py``: the Jaco
-arm and hand in the standard arena, with the batched helpers its tasks
-share.  Every lookup of a name in the model (joint addresses, home
-angles, the pinch site, a free prop's joint) is made once per model and
-kept in its cache.
+Each task builds the Standard arena with the Kinova Jaco arm and hand
+(``entities/manipulators/kinova.py``) and its props; the primitive arm
+(``entities/manipulators/arm.py``) is there through ``use_jaco=False``.
+The task is a composer ``Task`` over that entity tree, run by
+``composer.Environment`` with the host helpers below, and a
+``BatchableTask`` whose batched helpers read the same tree's compiled
+model.  Every lookup of a name in a model (joint addresses, home angles,
+the pinch site, a free prop's joint) is made once per model and kept in
+its cache.
 """
 
 from __future__ import annotations
 
-import os
+import numpy as np
 
+from dm_control_torch import composer
 from dm_control_torch.composer.batch import BatchableTask
+from dm_control_torch.entities.manipulators.arm import (PrimitiveArm,
+                                                        PrimitiveHand)
 from dm_control_torch.entities.manipulators.kinova import JacoArm, JacoHand
-from dm_control_torch.manipulation.shared import constants
+from dm_control_torch.manipulation.shared import arenas, constants
 from dm_control_torch.manipulation.shared import observations as obs_mod
-
-_ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "assets")
+from dm_control_torch.manipulation.shared import workspaces
 
 
-def asset_path(asset: str) -> str:
-    """The compiled model ``manipulation/assets/<asset>.npz``."""
-    return os.path.join(_ASSET_DIR, asset + ".npz")
+class ArmTask(composer.Task, BatchableTask):
+    """Arena + arm + hand; subclasses add props and rewards."""
 
+    #: the episode length ``manipulation.load`` gives the environment
+    time_limit = 10.0
 
-class ArmTask(BatchableTask):
-    """Arena + Jaco arm + hand; subclasses add props and rewards.
-    ``asset`` names the compiled model of the task's entity tree."""
-
-    control_timestep = constants.CONTROL_TIMESTEP
-    physics_timestep = constants.PHYSICS_TIMESTEP
-
-    def __init__(self, asset, obs_settings=None):
+    def __init__(self, obs_settings=None, use_jaco=True):
         self._obs_settings = obs_settings or obs_mod.PERFECT_FEATURES
-        self._arm = JacoArm(name="arm")
-        self._hand = JacoHand(name="hand")
-        self.model_asset = asset_path(asset)
+        self._arena = arenas.Standard()
+        if use_jaco:
+            self._arm = JacoArm(name="arm")
+            self._hand = JacoHand(name="hand")
+        else:
+            self._arm = PrimitiveArm(name="arm")
+            self._hand = PrimitiveHand(name="hand")
+        self._arm.attach_hand(self._hand)
+        self._arena.attach_offset(self._arm, offset=(0, 0.4, 0))
+        self._task_observables = {}
+        if self._obs_settings.proprio.enabled:
+            self._arm.observables.joints_pos.enabled = True
+            self._arm.observables.joints_vel.enabled = True
+        if self._obs_settings.ftt.enabled:
+            self._arm.observables.joints_torque.enabled = True
+        self.set_timesteps(constants.CONTROL_TIMESTEP,
+                           constants.PHYSICS_TIMESTEP)
+
+    @property
+    def root_entity(self):
+        return self._arena
+
+    @property
+    def arm(self):
+        return self._arm
+
+    @property
+    def hand(self):
+        return self._hand
 
     @property
     def obs_settings(self):
         return self._obs_settings
 
-    # -- batched helpers ------------------------------------------------------
+    @property
+    def task_observables(self):
+        return self._task_observables
+
+    # -- host helpers ---------------------------------------------------------
+
+    def _add_free_prop(self, prop):
+        return self._arena.add_free_entity(prop)
+
+    def _pinch_site_name(self):
+        return (f"{self._arm.name}/{self._hand.name}/"
+                f"{self._hand.pinch_site_name}")
+
+    def _pinch_position(self, physics):
+        """World position of the hand's pinch site."""
+        return np.asarray(physics.named_field("site_xpos",
+                                              self._pinch_site_name()))
+
+    def _place_prop(self, physics, prop, box, random_state,
+                    quaternion=(1.0, 0.0, 0.0, 0.0)):
+        pos = workspaces.uniform_in_box(box, random_state)
+        prop.set_pose(physics, position=pos, quaternion=quaternion)
+        return pos
 
     def _arm_joint_ids(self, m):
         return [m.names.joint[f"{self._arm.name}/{j}"]
                 for j in self._arm.joints]
 
-    def _arm_joint_mids(self, m):
-        """Per-joint home angle (nj,): mid-range for limited joints, 0 for
-        unlimited (the Jaco's joint_2/joint_3 ranges exclude 0)."""
+    def _arm_joint_mid_values(self, m):
+        """Per-joint home angle, as Python floats: mid-range for limited
+        joints, 0 for unlimited (the Jaco's joint_2/joint_3 ranges exclude
+        0)."""
         def build():
             mids = []
             for j in self._arm_joint_ids(m):
                 lo, hi = m.jnt_range[j].cpu().tolist()
                 mids.append(0.5 * (lo + hi) if m.jnt_limited[j] else 0.0)
-            return m.const(("arm_mids", self._arm.name), mids)
-        return m.cached(("arm_mids", self._arm.name), build)
+            return mids
+        return m.cached(("arm_mid_values", self._arm.name), build)
+
+    def _randomize_arm(self, physics, random_state):
+        """Perturbs arm joint angles around the home pose (reference
+        initializers/ToolCenterPointInitializer samples TCP poses; here
+        joints start near mid-range instead)."""
+        mids = np.asarray(self._arm_joint_mid_values(physics.model))
+        angles = mids + random_state.uniform(-0.2, 0.2,
+                                             len(self._arm.joints))
+        self._arm.set_joint_angles(physics, angles)
+
+    def initialize_episode(self, physics, random_state):
+        self._randomize_arm(physics, random_state)
+
+    # -- batched helpers ------------------------------------------------------
+
+    def _arm_joint_mids(self, m):
+        """Per-joint home angle (nj,) in the model's dtype on its device."""
+        return m.const(("arm_mids", self._arm.name),
+                       self._arm_joint_mid_values(m))
 
     def _arm_qpos_addrs(self, m):
         return m.cached(("arm_qpos", self._arm.name), lambda: m.idx(
@@ -68,13 +136,12 @@ class ArmTask(BatchableTask):
             [m.jnt_dofadr[j] for j in self._arm_joint_ids(m)]))
 
     def _pinch_site_id(self, m):
-        name = (f"{self._arm.name}/{self._hand.name}/"
-                f"{self._hand.pinch_site_name}")
+        name = self._pinch_site_name()
         return m.cached(("site", name), lambda: m.names.site[name])
 
     def _free_joint(self, m, entity):
         """(qpos_adr, body_id) of a free entity's root joint (named
-        '<frame>_root' when the arena adds it)."""
+        '<frame>_root' by ``Arena.add_free_entity``)."""
         def build():
             for name, j in m.names.joint.items():
                 if name.startswith(entity.name) and name.endswith("_root"):

@@ -162,6 +162,20 @@ class Physics:
             act=state[:, m.nq + m.nv:])
         self.mark_as_dirty()
 
+    def set_data(self, **fields):
+        """Replaces Data fields of the environment (``qpos=...``, given
+        without the batch axis) with host values, as they stood after a
+        step of another run of the same model.  Neither forward nor the
+        dirty flag: the next ``step`` recomputes what derives from them
+        (a recorded episode replayed one control step at a time,
+        ``rl/golden.py``)."""
+        m = self._model
+        self._data = self._data.replace(**{
+            k: torch.as_tensor(np.asarray(v), dtype=getattr(
+                self._data, k).dtype, device=m.device).reshape(
+                    getattr(self._data, k).shape)
+            for k, v in fields.items()})
+
     def set_control(self, action):
         m = self._model
         self._data = self._data.replace(ctrl=torch.as_tensor(

@@ -14,7 +14,12 @@ and what one ``BatchEnv.step`` gave: ``<prefix>_step_<field>``,
 An episode recording (``tests/data/torch_env_*``) is one single
 environment's episode: its ``actions`` and, for each timestep ``t`` from
 the reset on, the same keys with the prefix ``t<t>``; ``episode_errors``
-replays it through an ``rl.control.Environment``.
+replays it through an ``rl.control.Environment``.  A host episode
+recording (``tests/data/torch_manipulation_env_*``) is one of a composer
+environment, with the compiled model's per-episode fields after its reset
+(``model_<field>``, ``HOST_MODEL_FIELDS``); ``host_episode_errors``
+replays it through a ``composer.Environment`` one control step at a time,
+each from the recorded state before it.
 """
 
 from __future__ import annotations
@@ -114,6 +119,27 @@ def _max_abs(got, want) -> float:
     return float(diff.max()) if diff.size else 0.0
 
 
+def _timestep_errors(ts, data, gold, t):
+    """max |got - recording| at timestep ``t`` by key, of the TimeStep
+    ``ts`` and the physics ``data`` (one environment, no batch axis)."""
+    prefix = f"t{t}"
+    tag = f"{prefix}_obs_"
+    names = [k[len(tag):] for k in gold if k.startswith(tag)]
+    if list(ts.observation) != names:
+        raise ValueError(f"t={t}: observation {list(ts.observation)}, "
+                         f"recorded {names}")
+    got = {f"step_{f}": getattr(data, f).cpu().numpy()
+           for f in EPISODE_STATE_FIELDS}
+    got.update({f"obs_{k}": v for k, v in ts.observation.items()})
+    got["step_type"] = int(ts.step_type)
+    if t:
+        got.update(reward=ts.reward, discount=ts.discount)
+    elif ts.reward is not None or ts.discount is not None:
+        raise ValueError(f"reset with reward {ts.reward} and discount "
+                         f"{ts.discount}")
+    return {k: _max_abs(v, gold[f"{prefix}_{k}"]) for k, v in got.items()}
+
+
 def episode_errors(env, gold):
     """Replays an episode recording through ``env`` (an
     ``rl.control.Environment`` of the recorded task and seed): ``reset``,
@@ -125,24 +151,41 @@ def episode_errors(env, gold):
     out = []
     for t in range(gold["actions"].shape[0] + 1):
         ts = env.step(gold["actions"][t - 1]) if t else env.reset()
-        prefix = f"t{t}"
-        tag = f"{prefix}_obs_"
-        names = [k[len(tag):] for k in gold if k.startswith(tag)]
-        if list(ts.observation) != names:
-            raise ValueError(f"t={t}: observation {list(ts.observation)}, "
-                             f"recorded {names}")
-        data = env.physics.data
-        got = {f"step_{f}": getattr(data, f).cpu().numpy()
-               for f in EPISODE_STATE_FIELDS}
-        got.update({f"obs_{k}": v for k, v in ts.observation.items()})
-        got["step_type"] = int(ts.step_type)
+        out.append(_timestep_errors(ts, env.physics.data, gold, t))
+    return out
+
+
+#: the compiled model's fields a host episode recording holds after its
+#: reset: the Duplo bricks' stud radii, drawn by the reset into
+#: ``geom_size`` and ``geom_rbound`` of their stud geoms
+HOST_MODEL_FIELDS = ("geom_size", "geom_rbound")
+
+
+def host_episode_errors(env, gold):
+    """Replays a host episode recording through ``env`` (a
+    ``composer.Environment`` of the recorded task and seed) one control
+    step at a time: ``reset``; then for each recorded action the physics
+    state set to the recording's state before it (``Physics.set_data``)
+    and ``step``.  The Jaco models' steps move by more than rounding
+    where their states differ by rounding (ROADMAP C), so each step starts
+    from the recorded state.  Returns ``episode_errors``' figures, the
+    reset's with ``model_<field>`` for ``HOST_MODEL_FIELDS`` beside
+    them."""
+    out = []
+    for t in range(gold["actions"].shape[0] + 1):
         if t:
-            got.update(reward=ts.reward, discount=ts.discount)
-        elif ts.reward is not None or ts.discount is not None:
-            raise ValueError(f"reset with reward {ts.reward} and discount "
-                             f"{ts.discount}")
-        out.append({k: _max_abs(v, gold[f"{prefix}_{k}"])
-                    for k, v in got.items()})
+            env.physics.set_data(**{
+                f: gold[f"t{t - 1}_step_{f}"] for f in EPISODE_STATE_FIELDS})
+            ts = env.step(gold["actions"][t - 1])
+        else:
+            ts = env.reset()
+        errs = _timestep_errors(ts, env.physics.data, gold, t)
+        if not t:
+            model = env.physics.model
+            errs.update({f"model_{f}": _max_abs(
+                getattr(model, f).cpu().numpy(), gold[f"model_{f}"])
+                for f in HOST_MODEL_FIELDS})
+        out.append(errs)
     return out
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``dm_control_tpu/utils/rewards.py`` (reference
 dm_control/utils/rewards.py:25-136): 1 inside the target interval,
-falling off outside it through a chosen sigmoid.
+falling off outside it through a chosen sigmoid.  A number in gives a
+float out, computed in float64 (the composer tasks' host hooks).
 """
 
 from __future__ import annotations
@@ -97,7 +98,11 @@ def tolerance(x: torch.Tensor, bounds=(0.0, 0.0), margin=0.0,
     """1 where ``x`` is in ``bounds``, decaying to ``value_at_margin`` at
     ``margin`` outside them (``margin == 0``: a hard indicator).  A bound
     or the margin may be a tensor that broadcasts against ``x`` (one per
-    environment); the checks of their values apply to numbers only."""
+    environment); the checks of their values apply to numbers only.  A
+    number ``x`` gives a float."""
+    if _number(x):
+        return float(tolerance(torch.tensor(float(x), dtype=torch.float64),
+                               bounds, margin, sigmoid, value_at_margin))
     lower, upper = bounds
     if _number(lower) and _number(upper) and lower > upper:
         raise ValueError("Lower bound must be <= upper bound.")

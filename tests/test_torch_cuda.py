@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from _torch_helpers import PREFIXES, assert_step_matches_golden, golden
-from dm_control_torch import suite
+from dm_control_torch import manipulation, suite
 from dm_control_torch.ops import linalg
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +149,22 @@ def test_float64_step_on_the_card_matches_the_jax_golden(cuda, prefix):
     before = linalg.chol_solve.launches
     assert_step_matches_golden(env, g, prefix)
     assert linalg.chol_solve.launches - before >= 3 * env.n_sub_steps
+
+
+@pytest.mark.parametrize("name", manipulation.ALL)
+def test_every_manipulation_name_runs_on_the_card(cuda, name):
+    """``manipulation.load`` gives a working composer environment on the
+    card by default: a reset and a control step in float64, finite, with
+    the kernel launched at least once a substep (``solve_m``)."""
+    env = manipulation.load(name, seed=0)
+    assert env.physics.model.device.type == "cuda"
+    assert env.physics.model.dtype == torch.float64
+    assert env.reset().first()
+    spec = env.action_spec()
+    before = linalg.chol_solve.launches
+    ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
+                                                   spec.maximum))
+    assert ts.mid() and np.isfinite(ts.reward)
+    for v in ts.observation.values():
+        assert np.all(np.isfinite(np.asarray(v)))
+    assert linalg.chol_solve.launches - before >= env._n_sub_steps

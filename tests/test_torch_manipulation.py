@@ -29,8 +29,11 @@ on the CPU: ``manipulation.load_batch`` -> the tasks' batched hooks ->
   height) equals JAX's to 1e-12.
 - The registry (``ALL``, ``TAGS``, ``get_environments_by_tag``) equals the
   JAX package's; the host-only tasks (bricks, place) raise ``TypeError``
-  from ``load_batch``; ``load`` raises ``NotImplementedError``.
+  from ``load_batch`` and load through ``load``.
 
+The port compiles each task's entity tree (``compile_task``); the
+checked-in assets are the JAX compiler's output for the same trees
+(``tests/test_torch_manipulation_host.py`` holds the compiles to them).
 JAX tasks are built without their ``composer.Environment`` (which would
 compile the MJCF), and JAX models come from the checked-in assets
 (``_torch_helpers.jax_model_from_asset``).  Marked ``slow``: each golden
@@ -125,8 +128,8 @@ def test_registry_matches_jax():
     for tag in jmanip.TAGS:
         assert tmanip.get_environments_by_tag(tag) == \
             jmanip.get_environments_by_tag(tag)
-    batchable = [n for n in tmanip.ALL if not isinstance(
-        tregistry.get(n)(), tregistry.HostOnlyTask)]
+    batchable = [n for n in tmanip.ALL
+                 if tbatch.implements_batch(tregistry.get(n)())]
     assert sorted(batchable) == sorted(TASKS)
     for name in TASKS:  # the variants' settings presets are the JAX ones
         assert tregistry.get(name)().obs_settings._asdict() == \
@@ -134,45 +137,50 @@ def test_registry_matches_jax():
 
 
 def test_every_asset_file_belongs_to_a_task():
+    """The files are references: each is the JAX compile of a batchable
+    task's entity tree, and no task loads one (it has a root entity and
+    names no ``model_asset``)."""
     import os
 
-    used = {os.path.basename(tregistry.get(n)().model_asset)[:-len(".npz")]
-            for n in TASKS}
     on_disk = {f[:-len(".npz")] for f in os.listdir(os.path.dirname(
         export_tool().asset_path("reach_site")))}
-    assert used == on_disk == set(ASSETS)
-    for name, asset in TASKS.items():
-        assert tregistry.get(name)().model_asset == \
-            export_tool().asset_path(asset)
+    assert set(TASKS.values()) == on_disk == set(ASSETS)
+    for name in TASKS:
+        task = tregistry.get(name)()
+        assert task.model_asset == "" and task.root_entity is not None
 
 
 @pytest.mark.parametrize("name", ["place_brick_features",
                                   "stack_2_bricks_features",
                                   "reassemble_5_bricks_random_order_vision"])
 def test_host_only_tasks_are_refused(name):
+    from dm_control_torch import composer
+
     with pytest.raises(TypeError, match="BatchableTask"):
         tmanip.load_batch(name, device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tmanip.load(name)
+    assert isinstance(tmanip.load(name, device="cpu"), composer.Environment)
 
 
 def test_entry_points():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tmanip.load("reach_site_features")
+    with pytest.raises(KeyError):
+        tmanip.load("reach_nothing", device="cpu")
     with pytest.raises(KeyError):
         tmanip.load_batch("reach_nothing", device="cpu",
                           dtype=torch.float64)
     with pytest.raises(TypeError, match="BatchableTask"):
         tbatch.compile_task(object(), device="cpu", dtype=torch.float64)
+    # the tree is compiled at the task's physics timestep
     task = tregistry.get("reach_site_features")()
     task.physics_timestep = 0.001
-    with pytest.raises(ValueError, match="timestep"):
-        tbatch.compile_task(task, device="cpu", dtype=torch.float64)
+    env = tbatch.compile_task(task, device="cpu", dtype=torch.float64)
+    assert float(env.model.opt.timestep) == 0.001 and env.n_sub_steps == 40
     env = _env("lift_brick_vision")
     assert env.n_sub_steps == 20 and env.step_limit == 250
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             tmanip.load_batch("reach_site_features", dtype=torch.float32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmanip.load("reach_site_features")
 
 
 @pytest.mark.parametrize("asset,candidates", [

@@ -14,7 +14,9 @@ and JAX.
 alone; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
 single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
 six; ``manipulation`` the four manipulation models and their goldens;
-``soccer`` and ``tracking`` the locomotion models and their goldens).
+``manip_env_golden:NAME`` one host episode of ``MANIP_ENV_GOLDENS``, and
+``manip_env_goldens`` all four; ``soccer`` and ``tracking`` the
+locomotion models and their goldens).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -85,7 +87,17 @@ It writes, for every ported domain (or only the ones named),
   (``actions``); for each timestep ``t`` its step type, reward and
   discount (not at the reset, where they are None), every observation
   and the physics state after it (``t<t>_step_type``, ``t<t>_reward``,
-  ``t<t>_obs_<name>``, ``t<t>_step_<field>``, ...).
+  ``t<t>_obs_<name>``, ``t<t>_step_<field>``, ...);
+- on request, ``tests/data/torch_manipulation_env_<name>_f64.npz`` for the
+  host episodes of ``MANIP_ENV_GOLDENS``: the JAX package's
+  ``manipulation.load(name, seed=MANIP_ENV_SEED)`` (a
+  ``composer.Environment``) in float64, its reset and ``MANIP_ENV_STEPS``
+  control steps with actions drawn as above, in the format above, with
+  the compiled model's ``geom_size`` and ``geom_rbound`` after the reset
+  (``model_geom_size``, ``model_geom_rbound``: the Duplo bricks' stud
+  radii, which the reset draws).  The manipulation models of
+  ``MANIPULATION_ASSETS`` are references since the port compiles its
+  entity trees: its compiles are held to them.
 """
 
 from __future__ import annotations
@@ -246,6 +258,13 @@ ENV_ACTION_SEED = 1
 ENV_STEPS = 5
 #: the physics state recorded after each timestep of an episode golden
 ENV_STATE_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart", "time")
+#: the host episode goldens: the manipulation tasks whose
+#: ``manipulation.load`` episode is recorded, its seed and its steps
+MANIP_ENV_GOLDENS = ("reach_site_features", "lift_large_box_features",
+                     "place_cradle_features",
+                     "stack_3_bricks_random_order_features")
+MANIP_ENV_SEED = 11
+MANIP_ENV_STEPS = 3
 
 
 def golden_domain(golden):
@@ -290,9 +309,17 @@ def make_env_golden(domain, task):
     low = np.where(np.isfinite(spec.minimum), spec.minimum, -1.0)
     high = np.where(np.isfinite(spec.maximum), spec.maximum, 1.0)
     rng = np.random.RandomState(ENV_ACTION_SEED)
-    actions = np.stack([rng.uniform(low, high) for _ in range(ENV_STEPS)])
+    return _episode(env, np.stack([rng.uniform(low, high)
+                                   for _ in range(ENV_STEPS)]))
+
+
+def _episode(env, actions):
+    """The reset and one control step per action of a JAX environment:
+    each timestep's step type, reward and discount (not at the reset),
+    observations and physics state, keyed as the module's docstring
+    says."""
     out = {"actions": actions}
-    for t in range(ENV_STEPS + 1):
+    for t in range(actions.shape[0] + 1):
         ts = env.step(actions[t - 1]) if t else env.reset()
         out[f"t{t}_step_type"] = np.asarray(int(ts.step_type))
         if t:
@@ -304,6 +331,35 @@ def make_env_golden(domain, task):
         out.update({f"t{t}_step_{f}": np.asarray(getattr(data, f))
                     for f in ENV_STATE_FIELDS})
     return out
+
+
+def make_manip_env_golden(name):
+    """One float64 host episode of the JAX package's
+    ``manipulation.load``: the reset and ``MANIP_ENV_STEPS`` control steps,
+    with the stud radii of its reset (see the module's docstring; only a
+    reset writes them)."""
+    from dm_control_tpu import manipulation
+
+    env = manipulation.load(name, seed=MANIP_ENV_SEED)
+    spec = env.action_spec()
+    rng = np.random.RandomState(ENV_ACTION_SEED)
+    out = _episode(env, np.stack([rng.uniform(spec.minimum, spec.maximum)
+                                  for _ in range(MANIP_ENV_STEPS)]))
+    m = env.physics.model
+    out.update({f"model_{f}": np.asarray(getattr(m, f))
+                for f in ("geom_size", "geom_rbound")})
+    return out
+
+
+def manip_env_golden_path(name):
+    return os.path.join(ROOT, "tests", "data",
+                        f"torch_manipulation_env_{name}_f64.npz")
+
+
+def write_manip_env_golden(name):
+    np.savez(manip_env_golden_path(name), **make_manip_env_golden(name))
+    print("wrote", os.path.relpath(manip_env_golden_path(name), ROOT),
+          flush=True)
 
 
 def write_env_golden(name):
@@ -641,6 +697,13 @@ def main(argv=None):
             continue
         if domain.startswith("env_golden:"):
             write_env_golden(domain[len("env_golden:"):])
+            continue
+        if domain == "manip_env_goldens":
+            for name in MANIP_ENV_GOLDENS:
+                write_manip_env_golden(name)
+            continue
+        if domain.startswith("manip_env_golden:"):
+            write_manip_env_golden(domain[len("manip_env_golden:"):])
             continue
         if domain in ("soccer", "tracking"):
             assets = [a for a, f in LOCOMOTION_ASSETS.items() if f == domain]
