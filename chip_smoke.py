@@ -55,9 +55,18 @@ on the card one control step at a time, the 11 distinct manipulation
 entity trees compiled onto the card (the four with reference files held
 to them), stack_3_bricks_features in float32 with its rate, launches,
 idle share and the observation updater's host time, and the five-brick
-reassembly (nv 39) in float64 with and without the kernel.  Each phase
-prints one line (phases 11 and 12 one per model); any failure exits with
-a non-zero code.  The last line is a
+reassembly (nv 39) in float64 with and without the kernel; and last
+locomotion's host path (``soccer.load`` and the tracking tasks through
+``composer.Environment``, their entity trees compiled by the port): four
+recorded float64 host episodes of the JAX package's (soccer one a side
+on its drawn pitch, two a side on a fixed pitch, ball and CMU 2020
+tracking) replayed on the card one control step at a time, the four
+locomotion trees held to their reference files, ``soccer.load()`` (2v2,
+a pitch drawn and compiled every episode) in float32 with its rate,
+launches, idle share, updater time, contact scans and recompile, and CMU
+2020 tracking (nv 62) in float64 with and without the kernel.  Each
+phase prints one line (phases 11, 12 and 13 one per model); any failure
+exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -131,12 +140,17 @@ TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 9), (MAIN_BATCH, 15), (512, 38),
                 (MAIN_BATCH, 8), (8192, 5))
 #: (B, n, dtype) the kernel is also timed at: the single environment's
-#: humanoid solve, and phase 12's stack of 3 bricks (nv = 21) and
-#: reassembly of 5 (nv = 39, float64 on the shared-memory branch), each in
-#: the single environment's float64 and in float32
+#: humanoid solve, phase 12's stack of 3 bricks (nv = 21) and reassembly
+#: of 5 (nv = 39, float64 on the shared-memory branch), and phase 13's
+#: ball (8), soccer 1v1 (22), 2v2 (38) and CMU 2020 (62) on the host, each
+#: in the single environment's float64 and in float32
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 21, torch.float64), (1, 21, torch.float32),
-                (1, 39, torch.float64), (1, 39, torch.float32))
+                (1, 39, torch.float64), (1, 39, torch.float32),
+                (1, 8, torch.float64), (1, 8, torch.float32),
+                (1, 22, torch.float64), (1, 22, torch.float32),
+                (1, 38, torch.float64), (1, 38, torch.float32),
+                (1, 62, torch.float64), (1, 62, torch.float32))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
@@ -207,6 +221,31 @@ HOST_SELFCHECK_TOL = 1e-10
 #: largest entry in the episode: the Jaco's joint torque sensors reach
 #: 5.9e4 there, where 1e-10 absolute is 14 roundings (ROADMAP C)
 HOST_SELFCHECK_SCALED = ("arm/joints_torque",)
+#: phase 13: locomotion's host path (``soccer.load``, tracking through
+#: ``composer.Environment``).  The host episode goldens
+#: (tests/data/torch_locomotion_env_<name>_f64.npz: a reset and 3 control
+#: steps of the JAX package's environment with random_state 11: soccer one
+#: a side on its randomized pitch, two a side on a fixed (12, 9) pitch with
+#: the field box, ball and CMU 2020 tracking), replayed one control step at
+#: a time
+LOCO_HOST_GOLDENS = ("soccer_1v1", "soccer_2v2_fixed", "tracking_ball",
+                     "tracking_cmu2020")
+LOCO_HOST_SEED = 11
+#: the locomotion entity trees held to dm_control_torch/locomotion/assets/
+LOCO_TREES = ("soccer_1v1", "soccer_2v2", "tracking_ball",
+              "tracking_cmu2020")
+#: the float32 rate path, ``soccer.load()`` (2 a side on a randomized
+#: pitch): control steps after the reset
+LOCO_RATE_STEPS = 10
+#: the float64 selfcheck, kernel against ``reference_solves()``: (asset,
+#: seed, control steps after the reset); nv = 62 runs the kernel's
+#: shared-memory branch in float64.  Seed 2's episode is one where a change
+#: of one rounding in every solve moves no observation by more than
+#: 7.2e-16 of max(1, its largest entry) (a nudge on the CPU, seeds 0-11)
+LOCO_SELFCHECK = ("tracking_cmu2020", 2, 2)
+#: its gate: the reward within this, absolute; each observation within
+#: this times max(1, its largest |entry| in the episode)
+LOCO_SELFCHECK_TOL = 1e-10
 
 
 class PhaseError(RuntimeError):
@@ -1022,6 +1061,18 @@ def locomotion_env(asset, dtype, autoreset=True):
     (its ``examples/cmu_2020_tracking.py``); the CoMic reward."""
     from dm_control_torch.composer import compile_task
     from dm_control_torch.locomotion import soccer
+
+    if asset.startswith("soccer_"):
+        return soccer.load_batch(team_size=int(asset[-1]), dtype=dtype,
+                                 autoreset=autoreset)
+    task, limit = tracking_task(asset)
+    return compile_task(task, device="cuda", dtype=dtype, time_limit=limit,
+                        autoreset=autoreset)
+
+
+def tracking_task(asset):
+    """(task, time limit) of a tracking asset, as ``locomotion_env`` says;
+    phase 13 runs the same tasks on the host."""
     from dm_control_torch.locomotion.arenas import Floor
     from dm_control_torch.locomotion.mocap.loader import (
         synthetic_walking_trajectory,
@@ -1034,9 +1085,6 @@ def locomotion_env(asset, dtype, autoreset=True):
         CMUHumanoidPositionControlledV2020, RollingBallWithHead,
     )
 
-    if asset.startswith("soccer_"):
-        return soccer.load_batch(team_size=int(asset[-1]), dtype=dtype,
-                                 autoreset=autoreset)
     if asset == "tracking_ball":
         walker = RollingBallWithHead()
         nq = 7 + len(walker.observable_joint_names)
@@ -1056,8 +1104,7 @@ def locomotion_env(asset, dtype, autoreset=True):
             walker=walker, arena=Floor(), ref_path_or_trajectories=clips,
             ref_steps=(1, 2, 3, 4, 5), min_steps=10, reward_type="comic")
         limit = 30.0
-    return compile_task(task, device="cuda", dtype=dtype, time_limit=limit,
-                        autoreset=autoreset)
+    return task, limit
 
 
 def check_goal_rewards(r):
@@ -1314,7 +1361,6 @@ def phase_host_compiles(card):
     tree with a reference file is held to it (phase 11's gate)."""
     from dm_control_torch.composer.batch import task_model
     from dm_control_torch.manipulation.shared import registry
-    from dm_control_torch.physics import model_io
 
     rows = []
     for tree, name in HOST_TREES:
@@ -1330,19 +1376,7 @@ def phase_host_compiles(card):
                             "assets", f"{tree}.npz")
         note = "no reference file"
         if os.path.exists(path):
-            devs = model_io.deviations(m, model_io.load(path, "cuda",
-                                                        torch.float64))
-            exact = {k: v for k, v in devs.items()
-                     if k not in model_io.SET_CONST_FIELDS and v}
-            check(not exact, f"compile {tree}: compiler fields differ from "
-                             f"the reference: {exact}")
-            field = max(model_io.SET_CONST_FIELDS, key=devs.get)
-            check(devs[field] <= SET_CONST_REL,
-                  f"compile {tree}: set_const field {field} off by "
-                  f"{devs[field]:.3e} of its largest entry")
-            note = (f"compiler fields equal the reference, set_const "
-                    f"largest {devs[field]:.3e} of its scale ({field}) <= "
-                    f"{SET_CONST_REL:g}")
+            note = hold_to_reference(m, path, tree)
         rows.append(dict(tree=tree, nv=m.nv, compile_ms=ms))
         print(f"phase 12 compile: {tree} ({name}, nv={m.nv}) entity tree "
               f"onto the card in float64 in {ms:.1f} ms (host clock); "
@@ -1350,18 +1384,44 @@ def phase_host_compiles(card):
     return rows
 
 
+def hold_to_reference(m, path, tree):
+    """Holds a model compiled on the card to its reference file (phase 11's
+    gate: compiler fields equal, each ``set_const`` field within
+    ``SET_CONST_REL`` of its largest entry); returns the note to print."""
+    from dm_control_torch.physics import model_io
+
+    devs = model_io.deviations(m, model_io.load(path, "cuda", torch.float64))
+    exact = {k: v for k, v in devs.items()
+             if k not in model_io.SET_CONST_FIELDS and v}
+    check(not exact, f"compile {tree}: compiler fields differ from the "
+                     f"reference: {exact}")
+    field = max(model_io.SET_CONST_FIELDS, key=devs.get)
+    check(devs[field] <= SET_CONST_REL,
+          f"compile {tree}: set_const field {field} off by "
+          f"{devs[field]:.3e} of its largest entry")
+    return (f"compiler fields equal the reference, set_const largest "
+            f"{devs[field]:.3e} of its scale ({field}) <= "
+            f"{SET_CONST_REL:g}")
+
+
 @contextlib.contextmanager
 def host_counters():
     """Counts, while open, the host seconds spent in the observation
-    updater's methods and the named reads of the physics (each a copy
-    from the card to the host): yields a dict the counts accumulate in."""
+    updater's methods, the named reads of the physics (each a copy from
+    the card to the host), the environment's compiles of its tree and
+    soccer's scans of the contacts (a copy from the card each): yields a
+    dict the counts accumulate in."""
     from dm_control_torch.composer.observation.updater import Updater
     from dm_control_torch.physics.physics import Physics
 
-    counts = {"updater_s": 0.0, "reads": 0}
+    from dm_control_torch.composer.environment import Environment
+    from dm_control_torch.locomotion.soccer.task import Task as SoccerTask
+
+    counts = {"updater_s": 0.0, "reads": 0, "recompile_s": 0.0,
+              "recompiles": 0, "contacts_s": 0.0, "contact_scans": 0}
     saved = {}
 
-    def timed(cls, name, key):
+    def timed(cls, name, key, calls=None):
         fn = saved[(cls, name)] = getattr(cls, name)
 
         def wrapper(*args, **kwargs):
@@ -1373,12 +1433,17 @@ def host_counters():
                     counts["reads"] += 1
                 else:
                     counts[key] += time.perf_counter() - t0
+                if calls:
+                    counts[calls] += 1
         setattr(cls, name, wrapper)
 
     for name in ("reset", "prepare_for_next_control_step", "update",
                  "get_observation"):
         timed(Updater, name, "updater_s")
     timed(Physics, "named_field", "reads")
+    timed(Environment, "_recompile_physics", "recompile_s", "recompiles")
+    timed(SoccerTask, "_update_ball_contacts", "contacts_s",
+          "contact_scans")
     try:
         yield counts
     finally:
@@ -1516,6 +1581,251 @@ def phase_host(manipulation, linalg, card):
           f"phase 12 in {time.perf_counter() - t12:.1f} s | {card}",
           flush=True)
     return compiles, rate, check_run
+
+
+def loco_host_env(name, dtype=torch.float64, seed=LOCO_HOST_SEED):
+    """The port's locomotion host environment of a golden's name on the
+    card, as the JAX one was built (``tools/export_torch_assets.py``'s
+    ``loco_env``)."""
+    from dm_control_torch import composer
+    from dm_control_torch.locomotion import soccer
+
+    if name == "soccer_1v1":
+        return soccer.load(team_size=1, random_state=seed, dtype=dtype)
+    if name == "soccer_2v2_fixed":
+        return soccer.load(team_size=2, pitch_size=(12, 9),
+                           enable_field_box=True, random_state=seed,
+                           dtype=dtype)
+    task, limit = tracking_task(name)
+    return composer.Environment(task, time_limit=limit, random_state=seed,
+                                dtype=dtype)
+
+
+def phase_loco_goldens(linalg, card):
+    """Phase 13 (a): each locomotion host episode golden replayed in
+    float64 on the card one control step at a time (``rl/golden.py``): the
+    reset's draws exact (qpos, the drawn pitch's geom sizes), every
+    timestep within the gate.  Returns the kernel's launches in each
+    replay, counted from 0 at its start."""
+    from dm_control_torch.rl import golden
+
+    launches = {}
+    for name in LOCO_HOST_GOLDENS:
+        with np.load(os.path.join(ROOT, "tests", "data",
+                                  f"torch_locomotion_env_{name}_f64.npz"),
+                     allow_pickle=False) as z:
+            gold = {k: z[k] for k in z.files}
+        env = loco_host_env(name)
+        check(env.physics.model.device.type == "cuda",
+              f"host golden {name}: the environment left the card")
+        torch.cuda.synchronize()
+        linalg.chol_solve.launches = 0
+        t0 = time.perf_counter()
+        errs = golden.host_episode_errors(env, gold)
+        seconds = time.perf_counter() - t0
+        launches[name] = linalg.chol_solve.launches
+        figures, ok = golden.episode_gate(errs, gold, name)
+        check(ok, f"host golden {name}: gate failed, figures "
+                  f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in figures]}")
+        reset = {k: errs[0][k] for k in ("step_qpos", "model_geom_size",
+                                         "model_geom_rbound")}
+        check(not any(reset.values()),
+              f"host golden {name}: the reset's draws differ: {reset}")
+        check(launches[name] > 0,
+              f"host golden {name}: chol_solve was not launched")
+        rest = max(a for a, _ in figures)
+        rel = max(b for _, b in figures)
+        print(f"phase 13 golden: float64 {name} (nv="
+              f"{env.physics.model.nv}) on the card vs the JAX episode, "
+              f"reset and {len(figures) - 1} control steps each from the "
+              f"recorded state in {seconds:.1f} s ({launches[name]} "
+              f"chol_solve launches): reset qpos and geom sizes exact; "
+              f"gate: all but qacc_warmstart {rest:.3e} <= 1e-9, "
+              f"qacc_warmstart {rel:.3e} of its scale <= 1e-12 | {card}",
+              flush=True)
+    return launches
+
+
+def phase_loco_compiles(card):
+    """Phase 13 (b): the four locomotion entity trees with reference files
+    (soccer 1 and 2 a side as ``load_batch`` builds them, the two tracking
+    tasks) compiled onto the card in float64 as ``compile_task`` compiles
+    them, each held to its file, with its host milliseconds."""
+    from dm_control_torch.composer.batch import task_model
+    from dm_control_torch.locomotion import soccer
+
+    rows = []
+    for tree in LOCO_TREES:
+        if tree.startswith("soccer"):
+            task = soccer.Task(
+                players=soccer.task.standard_players(int(tree[-1])),
+                arena=soccer.Pitch(size=(12, 9), field_box=True),
+                ball=soccer.SoccerBall())
+        else:
+            task = tracking_task(tree)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = task_model(task, "cuda", torch.float64)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(m.qpos0.device.type == "cuda" and m.dtype == torch.float64,
+              f"compile {tree}: model not float64 on the card")
+        note = hold_to_reference(m, os.path.join(
+            ROOT, "dm_control_torch", "locomotion", "assets",
+            f"{tree}.npz"), tree)
+        rows.append(dict(tree=tree, nv=m.nv, compile_ms=ms))
+        print(f"phase 13 compile: {tree} (nv={m.nv}) entity tree onto the "
+              f"card in float64 in {ms:.1f} ms (host clock); {note} | "
+              f"{card}", flush=True)
+    return rows
+
+
+def phase_loco_rate(linalg):
+    """Phase 13 (c): ``soccer.load()`` (2 a side, a pitch drawn and
+    compiled every episode) on the card in float32, a reset and
+    ``LOCO_RATE_STEPS`` control steps with the kernel's launch count set
+    to 0 just before the reset and read after the last step; the
+    updater's host time, the named reads, the contact scans and the
+    recompile; then one more control step under ``torch.profiler``."""
+    from dm_control_torch.locomotion import soccer
+
+    env = soccer.load(random_state=0, dtype=torch.float32)
+    check(env.physics.model.device.type == "cuda",
+          "soccer.load left the card")
+    spec = env.action_spec()
+    rng = np.random.RandomState(1)
+
+    def action():
+        return rng.uniform(spec.minimum, spec.maximum)
+
+    steps = LOCO_RATE_STEPS
+    with host_counters() as counts:
+        torch.cuda.synchronize()
+        linalg.chol_solve.launches = 0
+        t0 = time.perf_counter()
+        ts = env.reset()
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t0
+        reset_launches = linalg.chol_solve.launches
+        check(counts["recompiles"] == 1,
+              f"soccer.load(): {counts['recompiles']} compiles at the reset")
+        recompile_ms = 1e3 * counts["recompile_s"]
+        counts.update(updater_s=0.0, reads=0, contacts_s=0.0,
+                      contact_scans=0)
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            ts = env.step(action())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.shape(ts.reward) == (4,) and np.isfinite(ts.reward).all()
+                  and all(np.isfinite(v).all()
+                          for v in ts.observation.values()),
+                  "soccer.load(): bad reward or non-finite observation")
+        launches = linalg.chol_solve.launches
+        updater_ms = 1e3 * counts["updater_s"] / steps
+        reads = counts["reads"] / steps
+        scans = counts["contact_scans"] / steps
+        contacts_ms = 1e3 * counts["contacts_s"] / steps
+    check(int(ts.step_type) == 1, f"soccer.load(): step type {ts.step_type}")
+    substeps = env._n_sub_steps
+    per_step = (launches - reset_launches) / steps
+    check(per_step >= 3 * substeps,
+          f"soccer.load(): chol_solve launched {per_step} times a control "
+          f"step of {substeps} substeps (< 3 a substep)")
+    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()))
+    warm = times[1:]
+    return dict(task="soccer.load()", nv=env.physics.model.nv,
+                pitch=env.task.arena.size, launches=launches,
+                reset_launches=reset_launches, per_step=per_step,
+                substeps=substeps, steps_per_s=len(warm) / sum(warm),
+                first_ms=1e3 * times[0], reset_s=reset_s,
+                recompile_ms=recompile_ms, updater_ms=updater_ms,
+                reads=reads, scans=scans, contacts_ms=contacts_ms,
+                step_ms=1e3 * float(np.median(warm)),
+                kernels_per_step=kernels, busy_ms=busy_ms,
+                profiled_ms=wall_ms, idle_share=1 - busy_ms / wall_ms)
+
+
+def phase_loco_selfcheck(linalg):
+    """Phase 13 (d): ``LOCO_SELFCHECK``'s tracking task in float64 on the
+    card through ``composer.Environment``, a reset and the control steps
+    through the kernel, and again under ``reference_solves()`` with the
+    same seed and actions.  Returns the largest reward difference, the
+    largest observation difference over max(1, its largest entry), the
+    kernel's launches and nv."""
+    from dm_control_torch import composer
+
+    asset, seed, steps = LOCO_SELFCHECK
+    runs = []
+    for plain in (False, True):
+        task, limit = tracking_task(asset)
+        env = composer.Environment(task, time_limit=limit, random_state=seed,
+                                   dtype=torch.float64)
+        spec = env.action_spec()
+        rng = np.random.RandomState(2)
+        n0 = linalg.chol_solve.launches
+        with linalg.reference_solves() if plain else contextlib.nullcontext():
+            out = [env.reset()]
+            for _ in range(steps):
+                out.append(env.step(rng.uniform(spec.minimum,
+                                                 spec.maximum)))
+        runs.append((out, linalg.chol_solve.launches - n0))
+    (k_out, n_k), (p_out, n_p) = runs
+    check(n_k >= 3 * steps * env._n_sub_steps and n_p == 0,
+          f"tracking selfcheck: {n_k} kernel launches through the kernel, "
+          f"{n_p} under reference_solves()")
+    scaled = {}
+    for k in k_out[0].observation:
+        scale = max(1.0, max(float(np.abs(ts.observation[k]).max())
+                             for ts in k_out))
+        scaled[k] = max(float(np.abs(a.observation[k]
+                                     - b.observation[k]).max())
+                        for a, b in zip(k_out, p_out)) / scale
+    worst = max(scaled, key=scaled.get)
+    drew = max(abs(a.reward - b.reward) for a, b in zip(k_out[1:], p_out[1:]))
+    check(scaled[worst] <= LOCO_SELFCHECK_TOL and drew <= LOCO_SELFCHECK_TOL,
+          f"tracking selfcheck: kernel vs plain max |dobs| "
+          f"{scaled[worst]:.3e} of max(1, scale) ({worst}), |dreward| "
+          f"{drew:.3e} (<= {LOCO_SELFCHECK_TOL:g})")
+    check(all(int(ts.step_type) == 1 for ts in k_out[1:]),
+          "tracking selfcheck: the episode ended early")
+    return dict(task=asset, nv=env.physics.model.nv, dobs=scaled[worst],
+                worst=worst, drew=drew, launches=n_k)
+
+
+def phase_loco(linalg, card):
+    """Phase 13: locomotion's host path on the card."""
+    t13 = time.perf_counter()
+    golden_launches = phase_loco_goldens(linalg, card)
+    compiles = phase_loco_compiles(card)
+    rate = phase_loco_rate(linalg)
+    print(f"phase 13 host path: soccer.load() float32 (nv={rate['nv']}, "
+          f"pitch {rate['pitch'][0]:.2f} x {rate['pitch'][1]:.2f}) on the "
+          f"card, reset {rate['reset_s']:.2f} s ({rate['reset_launches']} "
+          f"chol_solve launches; the drawn pitch compiled in "
+          f"{rate['recompile_ms']:.1f} ms), {LOCO_RATE_STEPS} control steps: "
+          f"{rate['steps_per_s']:.3f} control steps/s after the first "
+          f"({rate['first_ms']:.1f} ms; median {rate['step_ms']:.1f} ms), "
+          f"chol_solve launches {rate['per_step']:.1f} a control step (>= 3 "
+          f"x {rate['substeps']} substeps; {rate['launches']} in the path), "
+          f"updater {rate['updater_ms']:.2f} ms of host time and "
+          f"{rate['reads']:.1f} named reads of the physics a control step, "
+          f"{rate['scans']:.1f} contact scans ({rate['contacts_ms']:.2f} ms) "
+          f"a control step; one profiled control step: "
+          f"{rate['kernels_per_step']} device kernels, busy "
+          f"{rate['busy_ms']:.3f} ms of {rate['profiled_ms']:.1f} ms, idle "
+          f"share {rate['idle_share']:.4f} | {card}", flush=True)
+    check_run = phase_loco_selfcheck(linalg)
+    print(f"phase 13 selfcheck: {check_run['task']} float64 (nv="
+          f"{check_run['nv']}: the kernel's shared-memory branch) through "
+          f"composer.Environment, reset and {LOCO_SELFCHECK[2]} control "
+          f"steps through the kernel ({check_run['launches']} launches) vs "
+          f"reference_solves(): max |dobs| {check_run['dobs']:.3e} of "
+          f"max(1, its scale) ({check_run['worst']}), |dreward| "
+          f"{check_run['drew']:.3e} <= {LOCO_SELFCHECK_TOL:g}; phase 13 in "
+          f"{time.perf_counter() - t13:.1f} s | {card}", flush=True)
+    return golden_launches, compiles, rate, check_run
 
 
 def main() -> int:
@@ -1671,6 +1981,9 @@ def main() -> int:
     _, host_rate, _ = phase_host(manipulation, linalg, card)
     print(f"phases 1-12 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    loco_goldens, _, loco_rate, _ = phase_loco(linalg, card)
+    print(f"phases 1-13 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
@@ -1690,7 +2003,10 @@ def main() -> int:
             **{f"locomotion:{r['task']}": r["launches"] for r in locos},
             f"compile cartpole:{compiled['task']}": compiled["launches"],
             "compile recipe Physics.from_xml_string": recipe["launches"],
-            f"manipulation host:{host_rate['task']}": host_rate["launches"]},
+            f"manipulation host:{host_rate['task']}": host_rate["launches"],
+            **{f"locomotion host golden:{name}": n
+               for name, n in loco_goldens.items()},
+            f"locomotion host:{loco_rate['task']}": loco_rate["launches"]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

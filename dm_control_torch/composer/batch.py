@@ -12,26 +12,18 @@ overrides ``site_pos``), and task-private per-environment state through
 "_"-prefixed diff keys, which the task reads as ``m.task_state``
 (``rl/control.py::apply_model_diff``).
 
-A task with a root entity (the manipulation tasks) is compiled from its
-entity tree, as the JAX package's ``compile_task`` and the host
-``composer.Environment`` compile it: the root entity's MJCF with
-``option/timestep`` set to the task's physics timestep, through
-``mjcf.compile_model``.  The locomotion tasks do not build their trees in
-the port yet (ROADMAP A9b): such a task names the compiled model of its
-entity tree (``BatchableTask.model_asset``, an ``.npz`` that
-``tools/export_torch_assets.py`` writes from the JAX package's compiler),
-and ``compile_task`` loads it.
+Every task is compiled from its entity tree, as the JAX package's
+``compile_task`` and the host ``composer.Environment`` compile it: the
+root entity's MJCF with ``option/timestep`` set to the task's physics
+timestep, through ``mjcf.compile_model``.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
 from dm_control_torch.composer.environment import set_timestep
 from dm_control_torch.mjcf.compiler import compile_model
-from dm_control_torch.physics import model_io
 from dm_control_torch.rl import control
 from dm_control_torch.rl.batch_env import BatchEnv
 from dm_control_torch.suite import check_device
@@ -40,8 +32,7 @@ from dm_control_torch.suite import check_device
 class BatchableTask:
     """Protocol mixin for composer tasks that run on the batched path.
 
-    A task has a ``root_entity`` (a composer ``Task``) or sets
-    ``model_asset`` (the path of its compiled model); it sets
+    A task is a composer ``Task`` (it has a ``root_entity``); it sets
     ``control_timestep`` and ``physics_timestep``, and implements the
     ``batch_*`` hooks over batched tensors: ``qpos`` (B, nq), a Data of B
     environments, draws of ``rl.control.RandomContext`` with B first.
@@ -49,9 +40,6 @@ class BatchableTask:
     unimplemented does not run on the batched path.
     """
 
-    #: the compiled model of the task's entity tree (an ``.npz``), for a
-    #: task without a root entity
-    model_asset: str = ""
     control_timestep: float = 0.0
     physics_timestep: float = 0.0
     #: physics steps to settle after init
@@ -126,21 +114,11 @@ def implements_batch(task) -> bool:
 
 
 def task_model(task, device, dtype: torch.dtype):
-    """The compiled model of a batchable task on ``device`` in ``dtype``:
-    its root entity's tree compiled with the task's physics timestep, or
-    for a task without one its ``model_asset`` loaded (which must step at
-    that timestep)."""
-    if getattr(task, "root_entity", None) is not None:
-        root = task.root_entity.mjcf_model
-        set_timestep(root, task.physics_timestep)
-        return compile_model(root, device=device, dtype=dtype)
-    model = model_io.load(task.model_asset, device, dtype)
-    if not math.isclose(float(model.opt.timestep), task.physics_timestep,
-                        rel_tol=1e-6):
-        raise ValueError(
-            f"{task.model_asset} has timestep {float(model.opt.timestep)}, "
-            f"the task steps at {task.physics_timestep}")
-    return model
+    """The compiled model of a task on ``device`` in ``dtype``: its root
+    entity's tree compiled with the task's physics timestep."""
+    root = task.root_entity.mjcf_model
+    set_timestep(root, task.physics_timestep)
+    return compile_model(root, device=device, dtype=dtype)
 
 
 def compile_task(task, *, device="cuda", dtype: torch.dtype,

@@ -2,7 +2,7 @@
 ``dm_control_tpu/locomotion/mocap/loader.py``).
 
 The HDF5 and protobuf loaders of recorded clips wait for clip files in
-the repository (ROADMAP A5); ``synthetic_walking_trajectory`` makes the
+the repository (ROADMAP A5.4); ``synthetic_walking_trajectory`` makes the
 JAX package's synthetic clip, the same numbers under the same seed.
 """
 

@@ -1,10 +1,19 @@
-"""Multi-agent soccer, batched (counterpart of
-``dm_control_tpu/locomotion/soccer/``): ``load_batch`` steps thousands of
-BoxHead matches, one reward per player."""
+"""Multi-agent soccer (counterpart of ``dm_control_tpu/locomotion/soccer/``):
+``load`` runs a BoxHead match through ``composer.Environment`` on the
+host, ``load_batch`` steps thousands of them on the device, one reward
+per player.  The soccer camera renders, which waits for ROADMAP A6; the
+humanoid and ant players wait for ROADMAP A5.5."""
 
 from dm_control_torch.locomotion.soccer.boxhead import BoxHead  # noqa: F401
+from dm_control_torch.locomotion.soccer.initializers import (  # noqa: F401
+    Initializer, UniformInitializer,
+)
 from dm_control_torch.locomotion.soccer.loader import (  # noqa: F401
     WalkerType, load, load_batch,
+)
+from dm_control_torch.locomotion.soccer.observables import (  # noqa: F401
+    CoreObservablesAdder, InterceptionObservablesAdder,
+    MultiObservablesAdder, ObservablesAdder,
 )
 from dm_control_torch.locomotion.soccer.pitch import (  # noqa: F401
     MINI_FOOTBALL_GOAL_SIZE, MINI_FOOTBALL_MAX_AREA_PER_HUMANOID,

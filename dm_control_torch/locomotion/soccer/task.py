@@ -1,12 +1,19 @@
-"""The N-vs-N soccer task, batched (counterpart of
-``dm_control_tpu/locomotion/soccer/task.py``).
+"""The N-vs-N soccer task (counterpart of
+``dm_control_tpu/locomotion/soccer/task.py``; reference:
+dm_control/locomotion/soccer/task.py:36-267).
 
 Every player observes the match in its own frame; a goal pays +1 to each
-player of the scoring team and -1 to each of the other, ends the episode
-with discount 0, and the autoreset kicks off anew.  The actions of all
-players are one vector, player after player.  Only the batched hooks are
-ported (``composer.BatchableTask``): the host hooks, the throw-in and the
-possession trackers belong to composer's host path (ROADMAP A5).
+player of the scoring team and -1 to each of the other and ends the
+episode with discount 0.  The actions of all players are one vector,
+player after player (``action_spec_per_player`` gives the per-player
+view, and ``before_step`` takes either).
+
+Two paths over one task: the host hooks (``composer.Environment``: the
+initializer, the throw-in, the possession trackers fed by the contacts,
+the goal detectors, the observables), and the batched hooks
+(``composer.BatchableTask``: thousands of matches in lockstep on the
+device, whose autoreset kicks off anew after a goal).  Tracking cameras
+render, which waits for ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -17,65 +24,211 @@ import math
 import numpy as np
 import torch
 
+from dm_control_torch import composer
 from dm_control_torch.composer.batch import BatchableTask
-from dm_control_torch.locomotion import asset_path
+from dm_control_torch.locomotion.soccer import initializers as initializers_lib
+from dm_control_torch.locomotion.soccer import observables as observables_lib
 from dm_control_torch.locomotion.soccer.boxhead import BoxHead
-from dm_control_torch.locomotion.soccer.pitch import Pitch
 from dm_control_torch.locomotion.soccer.soccer_ball import SoccerBall
-from dm_control_torch.locomotion.soccer.team import Player, Team
+from dm_control_torch.locomotion.soccer.team import (
+    RGBA_BLUE, RGBA_RED, Player, Team,
+)
+from dm_control_torch.rl import specs
 
+_THROW_IN_BALL_Z = 0.5
 _INIT_BALL_Z = 0.5
 _SPAWN_RATIO = 0.6
-#: (team size, pitch size) of each checked-in match: BoxHead players
-#: ``home0, ..., away0, ...``, the default ball, walker contacts on
-ASSETS = {(1, (12, 9)): "soccer_1v1", (2, (12, 9)): "soccer_2v2"}
 
 
 def standard_players(team_size):
     """Home and away teams of ``team_size`` BoxHead players each, named
-    ``home<i>`` and ``away<i>``, home first."""
-    return ([Player(Team.HOME, BoxHead(name=f"home{i}"))
-             for i in range(team_size)]
-            + [Player(Team.AWAY, BoxHead(name=f"away{i}"))
-               for i in range(team_size)])
+    ``home<i>`` and ``away<i>`` with the team colours, interleaved home
+    then away as the JAX package's ``soccer.load`` builds them, home
+    first."""
+    home, away = [], []
+    for i in range(team_size):
+        home.append(Player(Team.HOME, BoxHead(
+            name=f"home{i}", walker_id=i, marker_rgba=RGBA_BLUE)))
+        away.append(Player(Team.AWAY, BoxHead(
+            name=f"away{i}", walker_id=i, marker_rgba=RGBA_RED)))
+    return home + away
 
 
-class Task(BatchableTask):
-    """N-vs-N soccer with goal rewards, one per player."""
+def _disable_geom_contacts(entities):
+    """Zeroes contype on every geom of the entities (reference
+    task.py:36-41)."""
+    for entity in entities:
+        for geom in entity.mjcf_model.find_all("geom"):
+            geom.attrib["contype"] = "0"
 
-    def __init__(self, players, arena, ball=None,
-                 disable_walker_contacts=False, physics_timestep=0.005,
-                 control_timestep=0.025):
+
+class Task(composer.Task, BatchableTask):
+    """N-vs-N soccer with goal rewards, one per player (reference
+    task.py:44-233)."""
+
+    def __init__(self, players, arena, ball=None, initializer=None,
+                 observables=None, disable_walker_contacts=False,
+                 physics_timestep=0.005, control_timestep=0.025,
+                 tracking_cameras=()):
+        if tuple(tracking_cameras):
+            raise NotImplementedError(
+                "soccer.Task: tracking cameras render, which is not ported "
+                "yet (ROADMAP A6)")
         self.arena = arena
         self.players = list(players)
+        self._initializer = (initializer
+                             or initializers_lib.UniformInitializer())
+        self._observables_adder = (
+            observables or observables_lib.CoreObservablesAdder())
+        if disable_walker_contacts:
+            _disable_geom_contacts([p.walker for p in self.players])
         self.ball = ball or SoccerBall()
-        self.disable_walker_contacts = disable_walker_contacts
-        self.physics_timestep = physics_timestep
-        self.control_timestep = control_timestep
+        arena.add_free_entity(self.ball)
+        if hasattr(arena, "register_ball"):
+            arena.register_ball(self.ball)
+        self._scores = {Team.HOME: 0, Team.AWAY: 0}
+        self._task_observables = collections.OrderedDict()
+        self._player_index = {id(p): i for i, p in enumerate(self.players)}
+        for player in self.players:
+            arena.add_free_entity(player.walker)
+            self.ball.register_player(player)
+            self._observables_adder(self, player)
+        # one reward per player on the batched path
         self.batch_reward_shape = (len(self.players),)
+        self.set_timesteps(control_timestep, physics_timestep)
+
+    def add_player_observable(self, player, name, observable):
+        """Registers an observable under ``player_{i}/{name}``, enabled."""
+        observable.enabled = True
+        i = self._player_index[id(player)]
+        self._task_observables[f"player_{i}/{name}"] = observable
 
     @property
-    def model_asset(self):
-        """The checked-in model of this match; the others need the entity
-        model builders (ROADMAP A9b)."""
-        n = len(self.players) // 2
-        standard = (
-            type(self.arena) is Pitch and self.arena._goal_size is None
-            and not self.disable_walker_contacts
-            and [(p.team, type(p.walker), p.walker.name)
-                 for p in self.players]
-            == [(p.team, BoxHead, p.walker.name)
-                for p in standard_players(n)]
-            and vars(self.ball) == vars(SoccerBall()))
-        key = (n, tuple(self.arena.size))
-        if not standard or key not in ASSETS:
-            raise NotImplementedError(
-                f"soccer: no compiled model of this match ({n} a side on a "
-                f"{tuple(self.arena.size)} pitch; checked in: "
-                f"{sorted(ASSETS)} with BoxHead players, the default ball "
-                f"and walker contacts on); building others needs the entity "
-                f"model builders (ROADMAP A9b)")
-        return asset_path(ASSETS[key])
+    def root_entity(self):
+        return self.arena
+
+    # -- episode ------------------------------------------------------------
+
+    def initialize_episode_mjcf(self, random_state):
+        self.arena.initialize_episode_mjcf(random_state)
+
+    def initialize_episode(self, physics, random_state):
+        self.arena.initialize_episode(physics, random_state)
+        self.ball.initialize_episode(physics, random_state)
+        self._initializer(self, physics, random_state)
+        if hasattr(self.arena, "update_detection"):
+            self.arena.update_detection(physics)
+
+    # -- actions ------------------------------------------------------------
+
+    def action_spec_per_player(self, physics):
+        """One ``BoundedArray`` a player (the reference's spec shape,
+        soccer/task.py:210)."""
+        full = physics.action_spec()
+        nu_each = full.shape[0] // max(len(self.players), 1)
+        out = []
+        for i in range(len(self.players)):
+            sl = slice(i * nu_each, (i + 1) * nu_each)
+            out.append(specs.BoundedArray(
+                shape=(nu_each,), dtype=full.dtype,
+                minimum=full.minimum[sl], maximum=full.maximum[sl],
+                name=f"player_{i}"))
+        return out
+
+    def _throw_in(self, physics, random_state, ball):
+        """Puts an off-court ball back toward the field (reference
+        task.py:118-126)."""
+        x, y, _ = np.asarray(ball.position(physics))
+        shrink_x, shrink_y = random_state.uniform([0.7, 0.7], [0.9, 0.9])
+        ball.set_pose(physics, [x * shrink_x, y * shrink_y,
+                                _THROW_IN_BALL_Z])
+        ball.set_velocity(physics, velocity=np.zeros(3),
+                          angular_velocity=np.zeros(3))
+        ball.initialize_entity_trackers()
+
+    def before_step(self, physics, action, random_state):
+        if isinstance(action, (list, tuple)):
+            action = np.concatenate([np.asarray(a).ravel() for a in action])
+        physics.set_control(action)
+        if (hasattr(self.arena, "detected_off_court")
+                and self.arena.detected_off_court()):
+            self._throw_in(physics, random_state, self.ball)
+
+    # -- scoring ------------------------------------------------------------
+
+    def _update_ball_contacts(self, physics):
+        """Feeds the ball's possession tracker with the player-ball
+        contacts of the last step (one copy of the contact distances from
+        the device)."""
+        self.ball.clear_step_flags()
+        m = physics.model
+        ball_geoms = {gid for name, gid in m.names.geom.items()
+                      if name.startswith(self.ball.name)}
+        if not ball_geoms:
+            return
+        contact = physics.data.contact
+        active = np.where(contact.dist.cpu().numpy() < 0)[0]
+        if not len(active):
+            return
+        g1, g2 = np.asarray(contact.geom1), np.asarray(contact.geom2)
+        geom_owner = {}
+        for player in self.players:
+            prefix = player.walker.name
+            for name, gid in m.names.geom.items():
+                if name.startswith(prefix):
+                    geom_owner[gid] = player
+        last = self.ball.last_hit
+        ball_pos = self.ball.position(physics)
+        for k in active:
+            a, b = int(g1[k]), int(g2[k])
+            player = None
+            if a in ball_geoms:
+                player = geom_owner.get(b)
+            elif b in ball_geoms:
+                player = geom_owner.get(a)
+            if player is not None:
+                teammate = (last is not None
+                            and last.team == player.team)
+                self.ball.update_hit(player, teammate, position=ball_pos)
+
+    def after_step(self, physics, random_state):
+        self._update_ball_contacts(physics)
+        if hasattr(self.arena, "update_detection"):
+            self.arena.update_detection(physics)
+        scored = self.arena.detected_goal()
+        if scored is not None:
+            self._scores[scored] += 1
+
+    @property
+    def scores(self):
+        return dict(self._scores)
+
+    def get_reward(self, physics):
+        """+1 for the scoring team's players, -1 for the other's, one
+        float32 a player (reference task.py:138-165)."""
+        del physics
+        scoring_team = self.arena.detected_goal()
+        if scoring_team is None:
+            return [np.zeros((), np.float32) for _ in self.players]
+        return [np.ones((), np.float32) if p.team == scoring_team
+                else -np.ones((), np.float32) for p in self.players]
+
+    def get_reward_spec(self):
+        return [specs.Array(name="reward", shape=(), dtype=np.float32)
+                for _ in self.players]
+
+    def get_discount(self, physics):
+        del physics
+        if self.arena.detected_goal() is not None:
+            return np.zeros((), np.float32)
+        return np.ones((), np.float32)
+
+    def get_discount_spec(self):
+        return specs.Array(name="discount", shape=(), dtype=np.float32)
+
+    def should_terminate_episode(self, physics):
+        del physics
+        return self.arena.detected_goal() is not None
 
     # -- batched path (composer.batch.BatchableTask) ------------------------
 
@@ -235,15 +388,39 @@ class Task(BatchableTask):
                                    torch.ones_like(d.time))
 
 
-class MultiturnTask(Task):
-    """Play through goals until the time limit: a goal re-kicks off
-    inside the episode.  That runs on the host, with composer's host path
-    (ROADMAP A5); the batched path of a match ends its episode at a goal,
-    so ``compile_task`` refuses this task."""
 
-    @property
-    def model_asset(self):
-        raise NotImplementedError(
-            "soccer.MultiturnTask re-kicks off inside an episode on "
-            "composer's host path (ROADMAP A5); the batched path ends the "
-            "episode at a goal (soccer.Task)")
+class MultiturnTask(Task):
+    """Play through goals until the time limit: a goal re-kicks off inside
+    the episode (reference task.py:236-267).  That needs the host, so the
+    batched path, whose episodes end at a goal, refuses this task
+    (``composer.compile_task`` raises ``TypeError``)."""
+
+    batch_observation = BatchableTask.batch_observation
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._should_reset = False
+
+    def should_terminate_episode(self, physics):
+        del physics
+        return False
+
+    def get_discount(self, physics):
+        del physics
+        return np.ones((), np.float32)
+
+    def before_step(self, physics, action, random_state):
+        super().before_step(physics, action, random_state)
+        if self._should_reset:
+            self.ball.initialize_entity_trackers()
+            self._should_reset = False
+
+    def after_step(self, physics, random_state):
+        super().after_step(physics, random_state)
+        if self.arena.detected_goal() is not None:
+            self._initializer(self, physics, random_state)
+            # the goal's detection stays, so this step's reward pays it;
+            # only the off-court state is refreshed for the next step
+            if hasattr(self.arena, "field"):
+                self.arena.field.update(physics)
+            self._should_reset = True

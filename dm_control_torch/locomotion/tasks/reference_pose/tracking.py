@@ -1,21 +1,23 @@
-"""Mocap tracking, batched (counterpart of
+"""Mocap tracking (counterpart of
 ``dm_control_tpu/locomotion/tasks/reference_pose/tracking.py``).
 
 Each episode tracks one clip of a collection from a drawn start frame.
 The clips become a bank: every clip padded to the longest and its
 reference features (body positions and rotations, centre of mass,
 appendages) computed once by the port's own kinematics, in float64 on
-the host, then moved to the model's device and type.  Which clip and
-start frame an environment tracks is per-environment data (the
-``_clip`` and ``_start`` entries of its model diff), and the frame it
-tracks now follows from its time, so the batch needs no host state.
+the host, then moved to the model's device and type.
 
 The walker's features, the termination error, the reward and every
 ``walker/reference_*`` observation come from one set of functions over a
-batched (Model, Data).  The host hooks (``initialize_episode``,
-``get_reward``, the observables) belong to composer's host path, and
-loading clips from HDF5 or protobuf files waits for clip files in the
-repository (ROADMAP A5).
+batched (Model, Data), which both paths call.  The host hooks
+(``composer.Environment``: ``initialize_episode`` draws the clip and its
+start on the host, ``after_step`` moves the clip's cursor, the reference
+observables) call them at B = 1 on the physics' Data.  On the batched
+path (``composer.BatchableTask``) which clip and start frame an
+environment tracks is per-environment data (the ``_clip`` and ``_start``
+entries of its model diff), and the frame it tracks follows from its
+time, so the batch needs no host state.  Loading clips from HDF5 or
+protobuf files waits for clip files in the repository (ROADMAP A5.4).
 """
 
 from __future__ import annotations
@@ -26,19 +28,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dm_control_torch.composer.batch import BatchableTask
-from dm_control_torch.locomotion import asset_path
-from dm_control_torch.locomotion.arenas.floors import Floor
+from dm_control_torch import composer
+from dm_control_torch.composer.batch import BatchableTask, task_model
+from dm_control_torch.composer.observation.observable import Generic
 from dm_control_torch.locomotion.mocap.types import ClipCollection
 from dm_control_torch.locomotion.tasks.reference_pose import rewards as rw
-from dm_control_torch.locomotion.walkers.cmu_humanoid import (
-    CMUHumanoidPositionControlledV2020,
-)
-from dm_control_torch.locomotion.walkers.jumping_ball import (
-    RollingBallWithHead,
-)
 from dm_control_torch.physics import kinematics as kin
-from dm_control_torch.physics import model_io
 from dm_control_torch.physics.model import JointType, make_data
 
 DEFAULT_PHYSICS_TIMESTEP = 0.005
@@ -54,12 +49,6 @@ REFERENCE_OBSERVATION_KEYS = (
     "walker/reference_rel_root_pos_local",
     "walker/reference_appendages_pos",
 )
-
-#: walker type -> the checked-in model of that walker, named as its class
-#: names it by default, on the default ``Floor``
-ASSETS = {RollingBallWithHead: "tracking_ball",
-          CMUHumanoidPositionControlledV2020: "tracking_cmu2020"}
-
 
 def _quat_conj(q):
     return torch.stack([q[..., 0], -q[..., 1], -q[..., 2], -q[..., 3]], -1)
@@ -92,8 +81,9 @@ def _quat_to_mat3(q):
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
-class ReferencePosesTask(BatchableTask):
-    """Track reference qpos/qvel trajectories."""
+class ReferencePosesTask(composer.Task, BatchableTask):
+    """Track reference qpos/qvel trajectories (reference
+    tracking.py:114-899)."""
 
     def __init__(self, walker, arena,
                  ref_path_or_trajectories,
@@ -110,10 +100,12 @@ class ReferencePosesTask(BatchableTask):
         if not isinstance(ref_path_or_trajectories, dict):
             raise NotImplementedError(
                 "ReferencePosesTask: loading clips from a file waits for "
-                "clip files in the repository (ROADMAP A5); pass a dict of "
-                "Trajectory")
+                "clip files in the repository (ROADMAP A5.4); pass a dict "
+                "of Trajectory")
         self._arena = arena
         self._walker = walker
+        arena.add_free_entity(walker)
+        walker.observables.enable_proprioception()
         self._trajectories = dict(ref_path_or_trajectories)
         self._dataset = dataset or ClipCollection(
             ids=tuple(self._trajectories))
@@ -123,34 +115,39 @@ class ReferencePosesTask(BatchableTask):
         self._min_steps = min_steps
         self._reward_fn = rw.get_reward(reward_type)
         self._always_init_at_clip_start = always_init_at_clip_start
-        # enabled_reference_observables selects the host observables; the
-        # batched observation has every key, as in the JAX package
-        del enabled_reference_observables
         self._bank = None
+        # the host episode's state
+        self._clip = None
+        self._clip_index = 0
+        self._time_step = 0
+        self._start_step = 0
+        self._clip_end = 0
+        self._end_mocap = False
+        self._termination_error = 0.0
+        self._should_truncate = False
+        self._obs_cache = (None, None, None)
+        self.last_reward_terms = None
+        # the reference observables of the host path; the batched
+        # observation has every key, as in the JAX package
+        enabled = (tuple(enabled_reference_observables)
+                   if enabled_reference_observables is not None
+                   else REFERENCE_OBSERVATION_KEYS)
+        self._task_observables = collections.OrderedDict()
+        for key in REFERENCE_OBSERVATION_KEYS:
+            def obs_fn(physics, _key=key):
+                return self._host_reference_obs(physics)[_key]
+            self._task_observables[key] = Generic(obs_fn)
+            self._task_observables[key].enabled = key in enabled
         # a control step advances the clip by one frame: the control
         # timestep is the clips' dt
         dts = {float(t.dt) for t in self._trajectories.values()}
         if len(dts) > 1:
             raise ValueError(f"clips disagree on dt: {sorted(dts)}")
-        self.control_timestep = dts.pop() if dts else 0.03
-        self.physics_timestep = physics_timestep
+        self.set_timesteps(dts.pop() if dts else 0.03, physics_timestep)
 
     @property
-    def model_asset(self):
-        """The checked-in model of the walker on the floor; other walkers
-        and arenas need the entity model builders (ROADMAP A9b)."""
-        asset = ASSETS.get(type(self._walker))
-        if (asset is None or type(self._arena) is not Floor
-                or vars(self._arena) != vars(Floor())
-                or vars(self._walker) != vars(type(self._walker)())):
-            raise NotImplementedError(
-                f"tracking: no compiled model of a "
-                f"{type(self._walker).__name__} named "
-                f"{self._walker.name!r} on a {type(self._arena).__name__} "
-                f"(checked in: {[w.__name__ for w in ASSETS]} as built by "
-                f"default, on the default Floor); building others "
-                f"needs the entity model builders (ROADMAP A9b)")
-        return asset_path(asset)
+    def root_entity(self):
+        return self._arena
 
     # -- the walker in the compiled model -------------------------------------
 
@@ -283,16 +280,19 @@ class ReferencePosesTask(BatchableTask):
 
     # -- the clip bank ------------------------------------------------------------
 
-    def _host_bank(self):
+    def _host_bank(self, m=None):
         """The bank as float64 numpy arrays, built once per task: the clips
         padded to the longest (a clip's last frame repeats), the start
         windows, the cumulative weights and the reference features, from
-        the port's kinematics on the walker's model in float64 on the CPU.
+        the port's kinematics on the task's model in float64 on the CPU
+        (``m`` where it is one, else the entity tree compiled so).
         Features a clip carries (``body_positions``, ...) replace the
         computed ones."""
         if self._bank is not None:
             return self._bank
-        m = model_io.load(self.model_asset, "cpu", torch.float64)
+        if (m is None or m.device.type != "cpu"
+                or m.dtype != torch.float64):
+            m = task_model(self, "cpu", torch.float64)
         lay = self._layout(m)
         nq, nv = int(m.nq), int(m.nv)
         ids = list(self._dataset.ids)
@@ -374,7 +374,7 @@ class ReferencePosesTask(BatchableTask):
         indices as long; built once per model."""
         def build():
             out = {}
-            for k, v in self._host_bank().items():
+            for k, v in self._host_bank(m).items():
                 if k == "tmax":
                     out[k] = v
                 elif np.issubdtype(v.dtype, np.floating):
@@ -385,6 +385,129 @@ class ReferencePosesTask(BatchableTask):
                                              device=m.device)
             return out
         return m.cached(("tracking_bank", self), build)
+
+    # -- host path (composer.Environment; reference tracking.py:408-510) ---------
+
+    def _select_clip(self, random_state):
+        """Draws the clip by its weight (``choice``), then its start frame
+        in its window (``randint``, unless the window is empty or
+        ``always_init_at_clip_start``)."""
+        weights = np.asarray(self._dataset.weights, float)
+        probs = weights / weights.sum()
+        idx = random_state.choice(len(self._dataset.ids), p=probs)
+        clip = self._trajectories[self._dataset.ids[idx]]
+        start_low = self._dataset.start_steps[idx]
+        end = (self._dataset.end_steps[idx] if self._dataset.end_steps
+               else clip.num_steps)
+        max_start = max(start_low,
+                        end - self._min_steps - max(self._ref_steps))
+        if self._always_init_at_clip_start or max_start <= start_low:
+            start = start_low
+        else:
+            start = random_state.randint(start_low, max_start)
+        self._clip = clip
+        self._clip_index = idx
+        self._start_step = start
+        self._time_step = start
+        self._clip_end = end
+
+    def initialize_episode(self, physics, random_state):
+        self._select_clip(random_state)
+        frame = self._clip.get_timestep_data(self._time_step)
+        self._set_walker_from_frame(physics, frame)
+        self._should_truncate = False
+        self._end_mocap = False
+        self._update_error(physics)
+
+    def _set_walker_from_frame(self, physics, frame):
+        """The clip frame's qpos and qvel written into the physics' Data on
+        its device, in its type (as far as the frame and the model both
+        reach), then a forward."""
+        m = physics.model
+        ref_qpos = np.asarray(frame["qpos"])
+        ref_qvel = np.asarray(frame.get("qvel", np.zeros(m.nv)))
+        n = min(m.nq, len(ref_qpos))
+        nv = min(m.nv, len(ref_qvel))
+        physics.set_entries("qpos", range(n), ref_qpos[:n])
+        physics.set_entries("qvel", range(nv), ref_qvel[:nv])
+        physics.mark_as_dirty()
+        physics.forward()
+
+    def _host_index(self, physics, value):
+        return torch.tensor([value], dtype=torch.long,
+                            device=physics.model.device)
+
+    def _host_features(self, physics):
+        if physics.is_dirty:
+            physics.forward()
+        return self._features_from_data(physics.model, physics._data)
+
+    def _host_reference_features(self, physics):
+        return self._reference_features_at(
+            self._clip_bank(physics.model),
+            self._host_index(physics, self._clip_index),
+            self._host_index(physics, self._time_step))
+
+    def _host_reference_obs(self, physics):
+        """The ``walker/reference_*`` observations of the physics' state
+        at the clip's cursor, float64 on the host; computed once for all
+        the keys of a state."""
+        key = (self._clip_index, self._time_step)
+        data, cached_key, obs = self._obs_cache
+        if data is physics._data and cached_key == key and not \
+                physics.is_dirty:
+            return obs
+        m = physics.model
+        wf = self._host_features(physics)
+        obs = {k: np.asarray(v[0].cpu().numpy(), float)
+               for k, v in self._reference_obs_from(
+                   m, physics._data, wf, self._clip_bank(m),
+                   self._host_index(physics, self._clip_index),
+                   self._host_index(physics, self._time_step)).items()}
+        self._obs_cache = (physics._data, key, obs)
+        return obs
+
+    def _update_error(self, physics):
+        wf = self._host_features(physics)
+        rf = self._host_reference_features(physics)
+        self._termination_error = float(
+            self._termination_error_from(wf, rf)[0])
+        if self._termination_error > self._termination_error_threshold:
+            self._should_truncate = True
+
+    def after_step(self, physics, random_state):
+        self._time_step += 1
+        self._update_error(physics)
+        # the clip ends max(ref_steps) + 1 frames early, so the reference
+        # observations never run off its end (reference tracking.py:523)
+        if self._time_step >= self._clip_end - max(self._ref_steps) - 1:
+            self._end_mocap = True
+
+    def get_reward(self, physics):
+        """The reward of the state at the cursor; its terms, floats, in
+        ``last_reward_terms``."""
+        wf = self._host_features(physics)
+        out = self._reward_fn(
+            termination_error=torch.tensor(
+                [self._termination_error], dtype=physics.model.dtype,
+                device=physics.model.device),
+            termination_error_threshold=self._termination_error_threshold,
+            walker_features=wf,
+            reference_features=self._host_reference_features(physics))
+
+        def host(v):
+            return float(v[0]) if isinstance(v, torch.Tensor) else float(v)
+
+        self.last_reward_terms = (
+            None if out.reward_terms is None else collections.OrderedDict(
+                (k, host(v)) for k, v in out.reward_terms.items()))
+        return host(out.reward)
+
+    def should_terminate_episode(self, physics):
+        return self._should_truncate or self._end_mocap
+
+    def get_discount(self, physics):
+        return 0.0 if self._should_truncate else 1.0
 
     # -- batched path (composer.batch.BatchableTask) ------------------------------
 

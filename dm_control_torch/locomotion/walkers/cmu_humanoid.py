@@ -1,56 +1,108 @@
-"""The position-controlled CMU humanoid of 2020, as names (counterpart of
-``dm_control_tpu/locomotion/walkers/cmu_humanoid.py``).
+"""The position-controlled CMU humanoid of 2020 (counterpart of
+``dm_control_tpu/locomotion/walkers/cmu_humanoid.py``; reference:
+dm_control/locomotion/walkers/cmu_humanoid.py:183-422).
 
-Its 56 hinge joints, each driven by a position actuator through a 30 ms
-filter, the 30 bodies the mocap pipeline tracks and the four end
-effectors come from the JAX walker's MJCF tree, written beside the
-tracking model by ``tools/export_torch_assets.py tracking``
-(``locomotion/assets/tracking_cmu2020_walker.json``).
+Built from the literal tree of ``models/humanoid_cmu_v2020.py``: every
+motor becomes a ``general`` actuator with an affine bias mapping a control
+in [-1, 1] onto its joint's range (gainprm [kp * slope], biasprm
+[kp * (lo + slope), -kp, 0]), with the reference's per-joint kp,
+force range and damping (``cmu_actuator_params.py``, transcribed data)
+and a 30 ms activation filter.  The 2019 model and its torque-actuated
+walker are not ported (ROADMAP A5.5).
 """
 
 from __future__ import annotations
 
-import functools
-import json
-import os
+import numpy as np
 
-from dm_control_torch.locomotion import ASSET_DIR
-from dm_control_torch.locomotion.walkers import base
-
-NAMES_PATH = os.path.join(ASSET_DIR, "tracking_cmu2020_walker.json")
-
-
-@functools.lru_cache(maxsize=None)
-def _names():
-    with open(NAMES_PATH) as f:
-        return json.load(f)
+from dm_control_torch.locomotion.models.humanoid_cmu_v2020 import MODEL
+from dm_control_torch.locomotion.walkers import base, cmu_actuator_params
+from dm_control_torch.suite._modelgen import to_element
 
 
 class CMUHumanoidPositionControlledV2020(base.Walker):
     """The CMU humanoid with position actuators in [-1, 1], per-joint
     damping and filtered activations (the 2020 revision)."""
 
-    def __init__(self, name="walker"):
-        super().__init__(name)
+    _ACTUATOR_TABLE = "POSITION_ACTUATORS_V2020"
+    _FILTER = 0.030
+
+    def _build(self, name="walker"):
+        self._mjcf_root = to_element(MODEL)
+        self._mjcf_root.attrib["model"] = name
+        params = getattr(cmu_actuator_params, self._ACTUATOR_TABLE)
+        actuator_sec = self._mjcf_root.first("actuator")
+        if actuator_sec is None:
+            actuator_sec = self._mjcf_root.add("actuator")
+        actuator_sec.children.clear()
+        joints = {e.get("name"): e for e in self._mjcf_root.iter()
+                  if e.tag == "joint" and e.get("name")}
+        lowers, uppers = [], []
+        for row in params:
+            jname, forcerange, kp = row[0], row[1], row[2]
+            joint = joints[jname]
+            if len(row) > 3:  # the 2020 per-joint damping
+                joint.attrib["damping"] = f"{row[3]:g}"
+            lo, hi = [float(x) for x in str(joint.get("range")).split()]
+            lowers.append(lo)
+            uppers.append(hi)
+            slope = (hi - lo) / 2.0  # ctrlrange (-1, 1)
+            kwargs = dict(
+                name=jname, joint=jname, biastype="affine",
+                gainprm=f"{kp * slope:.17g}",
+                biasprm=f"{kp * (lo + slope):.17g} {-kp:.17g} 0",
+                ctrllimited="true", ctrlrange="-1 1",
+                forcelimited="true",
+                forcerange=f"{forcerange[0]:g} {forcerange[1]:g}")
+            if self._FILTER:
+                kwargs["dyntype"] = "filter"
+                kwargs["dynprm"] = f"{self._FILTER:g}"
+            actuator_sec.add("general", **kwargs)
+        upper, lower = np.asarray(uppers), np.asarray(lowers)
+        self._scale = upper - lower
+        self._offset = upper + lower
+        self._actuator_order = np.argsort(
+            cmu_actuator_params.CMU_MOCAP_JOINTS)
 
     @property
     def root_body_name(self):
-        return _names()["root_body_name"]
+        for e in self._mjcf_root.first("worldbody").iter():
+            if e.tag == "body":
+                return e.get("name")
+        raise ValueError("no root body")
 
     @property
     def observable_joint_names(self):
-        return tuple(_names()["observable_joint_names"])
+        return tuple(e.get("name") for e in self._mjcf_root.iter()
+                     if e.tag == "joint" and e.get("name")
+                     and e.get("type") != "free")
+
+    @property
+    def end_effector_body_names(self):
+        # the reference's end effectors in its order (cmu_humanoid.py:
+        # 313-317): a clip's end_effectors and appendages follow it
+        return ("rradius", "lradius", "rfoot", "lfoot")
+
+    @property
+    def mocap_tracking_body_names(self):
+        """Every body but the root, in the model's order: the columns of
+        a clip's body features."""
+        names = [e.get("name") for e in self._mjcf_root.iter()
+                 if e.tag == "body" and e.get("name")]
+        return tuple(n for n in names if n != self.root_body_name)
 
     @property
     def mocap_joint_names(self):
         return self.observable_joint_names
 
     @property
-    def end_effector_body_names(self):
-        return tuple(_names()["end_effector_body_names"])
+    def actuator_order(self):
+        return self._actuator_order
 
-    @property
-    def mocap_tracking_body_names(self):
-        """Every body but the root, in the model's order: the columns of
-        a clip's body features."""
-        return tuple(_names()["mocap_tracking_body_names"])
+    def cmu_pose_to_actuation(self, target_pose):
+        """The control that holds a CMU mocap joint pose (reference
+        cmu_humanoid.py:406-421): the inverse of the actuators' affine
+        map from [-1, 1] onto the joint ranges, in the CMU joint order."""
+        target_pose = np.asarray(target_pose)
+        return (2 * target_pose[self._actuator_order]
+                - self._offset) / self._scale

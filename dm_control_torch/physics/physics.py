@@ -176,6 +176,18 @@ class Physics:
                     getattr(self._data, k).shape)
             for k, v in fields.items()})
 
+    def set_entries(self, field: str, addrs, values):
+        """Writes host ``values`` into entries ``addrs`` of the
+        environment's Data field ``field`` (``qpos``, ``qvel``), in the
+        field's type on its device.  Neither forward nor the dirty flag:
+        the caller marks the physics dirty where the JAX package's hook
+        does."""
+        t = getattr(self._data, field).clone()
+        t[0, list(addrs)] = torch.as_tensor(
+            np.asarray(values, dtype=float).ravel(), dtype=t.dtype,
+            device=t.device)
+        self._data = self._data.replace(**{field: t})
+
     def set_control(self, action):
         m = self._model
         self._data = self._data.replace(ctrl=torch.as_tensor(

@@ -168,3 +168,52 @@ def test_every_manipulation_name_runs_on_the_card(cuda, name):
     for v in ts.observation.values():
         assert np.all(np.isfinite(np.asarray(v)))
     assert linalg.chol_solve.launches - before >= env._n_sub_steps
+
+
+def _loco_host_env(name):
+    """The locomotion host environments on the card by default: soccer
+    one and two a side on their drawn pitches, ball and CMU 2020 tracking
+    on synthetic clips."""
+    from dm_control_torch import composer
+    from dm_control_torch.locomotion import soccer
+    from dm_control_torch.locomotion.arenas import Floor
+    from dm_control_torch.locomotion.mocap.loader import (
+        synthetic_walking_trajectory,
+    )
+    from dm_control_torch.locomotion.tasks.reference_pose import (
+        MultiClipMocapTracking,
+    )
+    from dm_control_torch.locomotion.walkers import (
+        CMUHumanoidPositionControlledV2020, RollingBallWithHead,
+    )
+
+    if name.startswith("soccer"):
+        return soccer.load(team_size=int(name[-1]), random_state=0)
+    walker = (RollingBallWithHead() if name == "tracking_ball"
+              else CMUHumanoidPositionControlledV2020())
+    nq = 7 + len(walker.observable_joint_names)
+    clips = {"c": synthetic_walking_trajectory(nq=nq, nv=nq - 1)}
+    return composer.Environment(
+        MultiClipMocapTracking(walker, Floor(), clips), time_limit=10.0,
+        random_state=0)
+
+
+@pytest.mark.parametrize("name", ["soccer_1", "soccer_2", "tracking_ball",
+                                  "tracking_cmu2020"])
+def test_locomotion_host_path_runs_on_the_card(cuda, name):
+    """``soccer.load`` and the tracking tasks through
+    ``composer.Environment`` run on the card by default: a reset and a
+    control step in float64, finite, with the kernel launched at least
+    once a substep."""
+    env = _loco_host_env(name)
+    assert env.physics.model.device.type == "cuda"
+    assert env.physics.model.dtype == torch.float64
+    assert env.reset().first()
+    spec = env.action_spec()
+    before = linalg.chol_solve.launches
+    ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
+                                                   spec.maximum))
+    assert ts.mid() and np.all(np.isfinite(ts.reward))
+    for v in ts.observation.values():
+        assert np.all(np.isfinite(np.asarray(v)))
+    assert linalg.chol_solve.launches - before >= env._n_sub_steps

@@ -16,7 +16,10 @@ hooks -> ``BatchEnv.reset/step`` with one reward per player.
   them; its ``batch_init`` equals the JAX task's on numpy draws to 1e-12;
   the port's own draws stay in the spawn box.
 - The pitch's goals and field and BoxHead's names equal the JAX ones;
-  what the port cannot build raises and names the ROADMAP item.
+  the matches the JAX ``load_batch`` builds beyond the reference files
+  (3 a side, a (16, 12) pitch, walker contacts off) compile to its model
+  and step; what the port cannot build raises and names the ROADMAP
+  item.
 
 Marked ``slow``: each golden file equals a fresh JAX run, and each asset
 a fresh export.
@@ -34,6 +37,7 @@ from _torch_helpers import PREFIXES, assert_step_matches_golden, \
     export_tool, golden, jax_model, jax_model_from_asset
 from dm_control_torch.composer import batch as tbatch
 from dm_control_torch.locomotion import soccer as tsoccer
+from dm_control_torch.mjcf import compiler as tcompiler
 from dm_control_torch.physics import engine as tengine
 from dm_control_torch.physics import model_io
 from dm_control_torch.rl.control import FIRST, LAST, MID, RandomContext
@@ -267,19 +271,20 @@ def test_pitch_and_boxhead_match_jax():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tsoccer.load()
-    for kwargs in ({"team_size": 3}, {"pitch_size": (16, 12)},
-                   {"disable_walker_contacts": True},
-                   {"walker_type": tsoccer.WalkerType.ANT},
+    """What the port does not build raises and names the ROADMAP item: ANT
+    and HUMANOID players (A5.5), tracking cameras (A6); the batched path
+    refuses ``MultiturnTask``, whose goals re-kick off on the host."""
+    for kwargs in ({"walker_type": tsoccer.WalkerType.ANT},
                    {"walker_type": "humanoid"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
             tsoccer.load_batch(device="cpu", dtype=torch.float64, **kwargs)
-    players = tsoccer.task.standard_players(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tbatch.compile_task(tsoccer.Task(players, tsoccer.RandomizedPitch()),
-                            device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
+            tsoccer.load(device="cpu", **kwargs)
+    players = tsoccer.task.standard_players(1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tsoccer.Task(players, tsoccer.Pitch(), tracking_cameras=(object(),))
+    players = tsoccer.task.standard_players(1)
+    with pytest.raises(TypeError, match="BatchableTask"):
         tbatch.compile_task(tsoccer.MultiturnTask(players, tsoccer.Pitch()),
                             device="cpu", dtype=torch.float64)
     env = _env("soccer_2v2")
@@ -288,6 +293,57 @@ def test_refusals():
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             tsoccer.load_batch(dtype=torch.float32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tsoccer.load()
+
+
+@pytest.mark.parametrize("kwargs,nv", [
+    ({"team_size": 3}, 54), ({"pitch_size": (16, 12)}, 38),
+    ({"disable_walker_contacts": True}, 38)])
+def test_load_batch_builds_what_jax_builds(kwargs, nv):
+    """The matches the JAX package's ``load_batch`` builds beyond the
+    reference files: the port compiles the match's tree to the JAX
+    compiler's model (``_Compiler``, bit for bit) and steps it, goals
+    and field sized by the pitch."""
+    import jax.numpy as jnp
+
+    from dm_control_tpu.locomotion import soccer as jsoccer
+    from dm_control_tpu.mjcf import compiler as jcompiler
+
+    with pytest.MonkeyPatch.context() as mp:
+        captured = {}
+        from dm_control_tpu.composer import batch as jbatch
+
+        mp.setattr(jbatch, "compile_task",
+                   lambda task, **kw: captured.setdefault("task", task))
+        jsoccer.load_batch(**kwargs)
+    env = tsoccer.load_batch(device="cpu", dtype=torch.float64, **kwargs)
+    task = env.task._t
+    jroot = captured["task"].root_entity.mjcf_model
+    opt = jroot.first("option")
+    if opt is None:
+        opt = jroot.add("option")
+    opt.attrib["timestep"] = str(captured["task"].physics_timestep)
+    model_io_tests._assert_same(
+        tcompiler._Compiler(task.root_entity.mjcf_model).compile(),
+        model_io.from_jax_model(jcompiler._Compiler(
+            jroot, jnp.float64).compile()))
+    assert env.model.nv == nv
+    state, _ = env.reset(2, torch.Generator().manual_seed(0))
+    for _ in range(2):
+        state, ts = env.step(state, torch.zeros(2, env.model.nu,
+                                                dtype=torch.float64))
+    assert ts.reward.shape == (2, 2 * kwargs.get("team_size", 2))
+    assert bool(torch.isfinite(state.data.qpos).all())
+    if "pitch_size" in kwargs:
+        np.testing.assert_array_equal(task.arena.away_goal.upper,
+                                      captured["task"].arena.away_goal.upper)
+    if kwargs.get("disable_walker_contacts"):
+        m = env.model
+        walker_geoms = [g for n, g in m.names.geom.items()
+                        if n.startswith(("home", "away"))]
+        assert walker_geoms
+        assert not any(m.geom_contype[g] for g in walker_geoms)
 
 
 @pytest.mark.parametrize("asset,nv,candidates", [("soccer_1v1", 22, 136),

@@ -15,7 +15,9 @@ bench rung: 4 synthetic clips, threshold 50) and the CMU 2020 humanoid
   over B = 4096 and stay in each clip's start window.
 - The ten reward functions equal JAX's, environment by environment, to
   1e-12; ``synthetic_walking_trajectory`` equals JAX's bit for bit; the
-  walkers' names equal the JAX walkers'.
+  walkers' names equal the JAX walkers'; walkers and floors built
+  otherwise than the reference files compile to the JAX compiler's model
+  and step.
 - The clip cursor follows the step count over a whole float32 episode of
   the ball and the autoreset sets it back.
 
@@ -43,7 +45,9 @@ from dm_control_torch.locomotion.tasks.reference_pose import rewards as trw
 from dm_control_torch.locomotion.tasks.reference_pose import tracking
 from dm_control_torch.locomotion.walkers import (
     CMUHumanoidPositionControlledV2020, RollingBallWithHead,
+    cmu_actuator_params,
 )
+from dm_control_torch.mjcf import compiler as tcompiler
 from dm_control_torch.physics import engine as tengine
 from dm_control_torch.physics import model_io
 from dm_control_torch.rl.control import FIRST, LAST, MID, RandomContext, \
@@ -421,11 +425,12 @@ def test_walker_names_match_jax():
     assert (len(cmu.observable_joint_names),
             len(cmu.mocap_tracking_body_names),
             len(cmu.end_effector_body_names)) == (56, 30, 4)
-    # the checked-in names are what the exporter writes now
-    import json
-
-    with open(export_tool().walker_names_path()) as f:
-        assert json.load(f) == export_tool().walker_names()
+    # the entity's tree: 56 position actuators, one a joint, in the
+    # table's order, each with the 30 ms filter
+    acts = cmu.mjcf_model.first("actuator").children
+    assert [a.get("joint") for a in acts] == [
+        j for j, *_ in cmu_actuator_params.POSITION_ACTUATORS_V2020]
+    assert {a.get("dynprm") for a in acts} == {"0.03"}
 
 
 @pytest.mark.parametrize("asset,nv,candidates,cap", [
@@ -443,24 +448,57 @@ def test_model_sizes(asset, nv, candidates, cap):
 
 
 def test_refusals():
-    clips = {"c": tloader.synthetic_walking_trajectory(nq=9, nv=8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    """Clips from a file wait for ROADMAP A5.4; the default device is the
+    card."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
         tracking.MultiClipMocapTracking(RollingBallWithHead(), Floor(),
                                         "clips.h5")
-
-    class Other:
-        pass
-
-    for walker, arena in ((RollingBallWithHead(name="ball"), Floor()),
-                          (RollingBallWithHead(size=0.2), Floor()),
-                          (RollingBallWithHead(), Floor(size=(4, 4))),
-                          (RollingBallWithHead(), Other())):
-        task = tracking.MultiClipMocapTracking(walker, arena, clips)
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            tbatch.compile_task(task, device="cpu", dtype=torch.float64)
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             tbatch.compile_task(_task("tracking_ball"), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("walker,walker_kwargs,floor_kwargs,nv", [
+    ("RollingBallWithHead", {"name": "ball"}, {}, 8),
+    ("RollingBallWithHead", {"size": 0.2}, {}, 8),
+    ("RollingBallWithHead", {}, {"size": (4, 4)}, 8),
+    ("JumpingBallWithHead", {}, {}, 9)])
+def test_other_walkers_and_arenas_compile(walker, walker_kwargs,
+                                          floor_kwargs, nv):
+    """A walker or an arena built otherwise than the reference files':
+    ``compile_task`` compiles the task's own tree (the JAX compiler's
+    model, bit for bit) and steps it."""
+    import jax.numpy as jnp
+
+    from dm_control_torch.locomotion.walkers import jumping_ball as tball
+    from dm_control_tpu.locomotion.arenas import floors as jfloors
+    from dm_control_tpu.locomotion.tasks.reference_pose import (
+        tracking as jtracking,
+    )
+    from dm_control_tpu.locomotion.walkers import jumping_ball as jball
+    from dm_control_tpu.mjcf import compiler as jcompiler
+
+    clips = {"c": tloader.synthetic_walking_trajectory(
+        nq=nv + 1, nv=nv, num_steps=40)}
+    task = tracking.MultiClipMocapTracking(
+        getattr(tball, walker)(**walker_kwargs), Floor(**floor_kwargs),
+        clips)
+    env = tbatch.compile_task(task, device="cpu", dtype=torch.float64)
+    jtask = jtracking.MultiClipMocapTracking(
+        getattr(jball, walker)(**walker_kwargs),
+        jfloors.Floor(**floor_kwargs), clips)
+    jroot = jtask.root_entity.mjcf_model
+    jroot.add("option").attrib["timestep"] = str(jtask.physics_timestep)
+    model_io_tests._assert_same(
+        tcompiler._Compiler(task.root_entity.mjcf_model).compile(),
+        model_io.from_jax_model(jcompiler._Compiler(
+            jroot, jnp.float64).compile()))
+    assert env.model.nv == nv
+    state, _ = env.reset(2, torch.Generator().manual_seed(0))
+    state, ts = env.step(state, torch.zeros(2, env.model.nu,
+                                            dtype=torch.float64))
+    assert bool(torch.isfinite(ts.reward).all())
+    assert ts.observation["walker/joints_pos"].shape == (2, nv - 6)
 
 
 # -- slow: the checked-in files against fresh JAX runs ---------------------------

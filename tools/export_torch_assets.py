@@ -3,10 +3,10 @@
 The port (``dm_control_torch``) compiles its suite models itself
 (``mjcf.compile_model``); the suite's ``.npz`` files written here are the
 JAX compiler's output for the same variants, the references its compiler
-is tested against.  The manipulation and locomotion models are still
-used from these files, until the port's entities build their MJCF trees.
-This tool lives outside the port because it imports ``dm_control_tpu``
-and JAX.
+is tested against; so are the manipulation and locomotion files, since
+the port's entities build their own MJCF trees.  Nothing in the port
+loads one at run time.  This tool lives outside the port because it
+imports ``dm_control_tpu`` and JAX.
 
     JAX_PLATFORMS=cpu python tools/export_torch_assets.py [domain ...]
 
@@ -16,7 +16,8 @@ single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
 six; ``manipulation`` the four manipulation models and their goldens;
 ``manip_env_golden:NAME`` one host episode of ``MANIP_ENV_GOLDENS``, and
 ``manip_env_goldens`` all four; ``soccer`` and ``tracking`` the
-locomotion models and their goldens).
+locomotion models and their goldens; ``loco_env_golden:NAME`` one host
+episode of ``LOCO_ENV_GOLDENS``, and ``loco_env_goldens`` all four).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -70,9 +71,8 @@ It writes, for every ported domain (or only the ones named),
   mocap tracking with the rolling ball, as the JAX package's tracking
   bench rung builds it, and with the CMU 2020 humanoid, as its
   ``examples/cmu_2020_tracking.py`` does, both on synthetic clips), built
-  as ``compile_task`` builds it, beside the CMU walker's names
-  (``tracking_cmu2020_walker.json``: its joints, tracked bodies and end
-  effectors from the JAX walker's MJCF tree), and a golden for each,
+  as ``compile_task`` builds it (references: the port compiles these
+  trees itself and is held to them), and a golden for each,
   ``tests/data/torch_locomotion_<asset>_golden_f64.npz``, in the format
   above (float64, no contact compaction; tracking's ``_clip`` and
   ``_start`` among the overrides).  In the soccer goldens' later states
@@ -97,7 +97,14 @@ It writes, for every ported domain (or only the ones named),
   (``model_geom_size``, ``model_geom_rbound``: the Duplo bricks' stud
   radii, which the reset draws).  The manipulation models of
   ``MANIPULATION_ASSETS`` are references since the port compiles its
-  entity trees: its compiles are held to them.
+  entity trees: its compiles are held to them;
+- on request, ``tests/data/torch_locomotion_env_<name>_f64.npz`` for the
+  host episodes of ``LOCO_ENV_GOLDENS`` (``loco_env``: the JAX package's
+  ``soccer.load`` one a side on its ``RandomizedPitch``, two a side on
+  a fixed (12, 9) pitch with the field box, and the two tracking tasks
+  through ``composer.Environment``), seed ``LOCO_ENV_SEED``, in the
+  format of the manipulation host goldens (``model_geom_size`` holds the
+  pitch drawn at the reset).
 """
 
 from __future__ import annotations
@@ -265,6 +272,12 @@ MANIP_ENV_GOLDENS = ("reach_site_features", "lift_large_box_features",
                      "stack_3_bricks_random_order_features")
 MANIP_ENV_SEED = 11
 MANIP_ENV_STEPS = 3
+#: the locomotion host episode goldens: name -> how the JAX package builds
+#: the environment (``loco_env``), its seed and its steps
+LOCO_ENV_GOLDENS = ("soccer_1v1", "soccer_2v2_fixed", "tracking_ball",
+                    "tracking_cmu2020")
+LOCO_ENV_SEED = 11
+LOCO_ENV_STEPS = 3
 
 
 def golden_domain(golden):
@@ -280,10 +293,6 @@ def asset_path(asset):
              else LOCOMOTION_ASSET_DIR if asset in LOCOMOTION_ASSETS
              else ASSET_DIR)
     return os.path.join(where, asset + ".npz")
-
-
-def walker_names_path():
-    return os.path.join(LOCOMOTION_ASSET_DIR, "tracking_cmu2020_walker.json")
 
 
 def golden_path(domain):
@@ -349,6 +358,56 @@ def make_manip_env_golden(name):
     out.update({f"model_{f}": np.asarray(getattr(m, f))
                 for f in ("geom_size", "geom_rbound")})
     return out
+
+
+def loco_env(name):
+    """The JAX package's locomotion host environment of a name of
+    ``LOCO_ENV_GOLDENS`` with seed ``LOCO_ENV_SEED``: ``soccer.load`` one a
+    side on its default ``RandomizedPitch`` (drawn and compiled every
+    episode), two a side on a fixed (12, 9) pitch with the field box, and
+    the two tracking tasks of ``locomotion_task`` through
+    ``composer.Environment`` with their time limits."""
+    if name == "soccer_1v1":
+        from dm_control_tpu.locomotion import soccer
+
+        return soccer.load(team_size=1, random_state=LOCO_ENV_SEED)
+    if name == "soccer_2v2_fixed":
+        from dm_control_tpu.locomotion import soccer
+
+        return soccer.load(team_size=2, pitch_size=(12, 9),
+                           enable_field_box=True, random_state=LOCO_ENV_SEED)
+    from dm_control_tpu import composer
+
+    return composer.Environment(locomotion_task(name),
+                                time_limit=TRACKING_TIME_LIMITS[name],
+                                random_state=LOCO_ENV_SEED)
+
+
+def make_loco_env_golden(name):
+    """One float64 host episode of ``loco_env(name)``: the reset and
+    ``LOCO_ENV_STEPS`` control steps with actions drawn as for the
+    manipulation host goldens, with the compiled model's ``geom_size``
+    and ``geom_rbound`` after the reset (the drawn pitch's size)."""
+    env = loco_env(name)
+    spec = env.action_spec()
+    rng = np.random.RandomState(ENV_ACTION_SEED)
+    out = _episode(env, np.stack([rng.uniform(spec.minimum, spec.maximum)
+                                  for _ in range(LOCO_ENV_STEPS)]))
+    m = env.physics.model
+    out.update({f"model_{f}": np.asarray(getattr(m, f))
+                for f in ("geom_size", "geom_rbound")})
+    return out
+
+
+def loco_env_golden_path(name):
+    return os.path.join(ROOT, "tests", "data",
+                        f"torch_locomotion_env_{name}_f64.npz")
+
+
+def write_loco_env_golden(name):
+    np.savez(loco_env_golden_path(name), **make_loco_env_golden(name))
+    print("wrote", os.path.relpath(loco_env_golden_path(name), ROOT),
+          flush=True)
 
 
 def manip_env_golden_path(name):
@@ -455,27 +514,6 @@ def locomotion_model(asset):
         opt = root.add("option")
     opt.attrib["timestep"] = str(task.physics_timestep)
     return compile_model(root)
-
-
-def walker_names():
-    """The CMU 2020 walker's names from the JAX walker's MJCF tree."""
-    from dm_control_tpu.locomotion.walkers.cmu_humanoid import (
-        CMUHumanoidPositionControlledV2020,
-    )
-
-    w = CMUHumanoidPositionControlledV2020()
-    return {"root_body_name": w.root_body_name,
-            "observable_joint_names": list(w.observable_joint_names),
-            "mocap_tracking_body_names": list(w.mocap_tracking_body_names),
-            "end_effector_body_names": list(w.end_effector_body_names)}
-
-
-def write_walker_names():
-    import json
-
-    with open(walker_names_path(), "w") as f:
-        json.dump(walker_names(), f, indent=1)
-        f.write("\n")
 
 
 def jax_model(asset):
@@ -705,12 +743,17 @@ def main(argv=None):
         if domain.startswith("manip_env_golden:"):
             write_manip_env_golden(domain[len("manip_env_golden:"):])
             continue
+        if domain == "loco_env_goldens":
+            for name in LOCO_ENV_GOLDENS:
+                write_loco_env_golden(name)
+            continue
+        if domain.startswith("loco_env_golden:"):
+            write_loco_env_golden(domain[len("loco_env_golden:"):])
+            continue
         if domain in ("soccer", "tracking"):
             assets = [a for a, f in LOCOMOTION_ASSETS.items() if f == domain]
             for asset in assets:
                 export_model(asset)
-            if domain == "tracking":
-                write_walker_names()
             print("wrote", ", ".join(assets), flush=True)
             for asset in assets:
                 golden = f"locomotion_{asset}"
