@@ -64,9 +64,16 @@ tracking) replayed on the card one control step at a time, the four
 locomotion trees held to their reference files, ``soccer.load()`` (2v2,
 a pitch drawn and compiled every episode) in float32 with its rate,
 launches, idle share, updater time, contact scans and recompile, and CMU
-2020 tracking (nv 62) in float64 with and without the kernel.  Each
-phase prints one line (phases 11, 12 and 13 one per model); any failure
-exits with a non-zero code.  The last line is a
+2020 tracking (nv 62) in float64 with and without the kernel; and last
+locomotion's example environments (``locomotion.examples.basic``: the
+CMU 2019 humanoid and the rat in corridors, on a floor, in mazes and in
+the bowl, their trees compiled by the port): each of the nine in float32
+with its compile time, candidate contacts, rate, launches and idle
+share, four recorded float64 host episodes of the JAX package's examples
+replayed on the card one control step at a time, and the rat (nv 73) in
+float32 and float64 with and without the kernel.  Each phase prints one
+line (phases 11 to 14 one per model); any failure exits with a non-zero
+code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -90,7 +97,9 @@ MAIN_BATCH = 1024
 #: stays under 60 GB (every candidate's rows are kept: noslip forbids
 #: compaction)
 DOG_BATCH = 512
-MAIN_STEPS = 4
+MAIN_STEPS = 3  # control steps after a reset; the first is the warm-up
+PROFILE_PAD_S = 0.1  # the profiling window's margin on each side
+PROFILE_ATTEMPTS = 3  # traces taken before a trace with no device event fails
 #: the main paths: (domain, task, batch); cartpole and cheetah at the sizes
 #: of the JAX package's bench rungs, quadruped at its rung's size.
 MAIN_PATHS = (
@@ -142,15 +151,18 @@ TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
 #: (B, n, dtype) the kernel is also timed at: the single environment's
 #: humanoid solve, phase 12's stack of 3 bricks (nv = 21) and reassembly
 #: of 5 (nv = 39, float64 on the shared-memory branch), and phase 13's
-#: ball (8), soccer 1v1 (22), 2v2 (38) and CMU 2020 (62) on the host, each
-#: in the single environment's float64 and in float32
+#: ball (8), soccer 1v1 (22), 2v2 (38) and CMU 2020 (62) on the host, and
+#: phase 14's rat (73, the shared-memory branch in both types), each in the
+#: single environment's float64 and in float32 (CMU 2019's 62 in float32 is
+#: phase 14's humanoid rate path)
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 21, torch.float64), (1, 21, torch.float32),
                 (1, 39, torch.float64), (1, 39, torch.float32),
                 (1, 8, torch.float64), (1, 8, torch.float32),
                 (1, 22, torch.float64), (1, 22, torch.float32),
                 (1, 38, torch.float64), (1, 38, torch.float32),
-                (1, 62, torch.float64), (1, 62, torch.float32))
+                (1, 62, torch.float64), (1, 62, torch.float32),
+                (1, 73, torch.float64), (1, 73, torch.float32))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
@@ -246,6 +258,32 @@ LOCO_SELFCHECK = ("tracking_cmu2020", 2, 2)
 #: its gate: the reward within this, absolute; each observation within
 #: this times max(1, its largest |entry| in the episode)
 LOCO_SELFCHECK_TOL = 1e-10
+#: phase 14, locomotion's example environments
+#: (``locomotion.examples.basic.<name>`` through ``composer.Environment``,
+#: the CMU 2019 humanoid and the rat on corridors, a floor, mazes and the
+#: bowl): each in float32, a reset and this many control steps
+LOCO_EXAMPLES = ("cmu_humanoid_run_walls", "cmu_humanoid_run_gaps",
+                 "cmu_humanoid_go_to_target", "cmu_humanoid_maze_forage",
+                 "cmu_humanoid_heterogeneous_forage", "rodent_escape_bowl",
+                 "rodent_run_gaps", "rodent_maze_forage", "rodent_two_touch")
+LOCO_EXAMPLE_STEPS = 2  # the last of them profiled
+#: the examples' host episode goldens (tests/data/torch_locomotion_env_
+#: <name>_f64.npz: a reset and 3 control steps of the JAX package's
+#: example with numpy's global state and random_state seeded with 11),
+#: replayed one control step at a time
+LOCO_EXAMPLE_GOLDENS = ("cmu_humanoid_run_gaps", "cmu_humanoid_maze_forage",
+                        "rodent_escape_bowl", "rodent_two_touch")
+#: the rat's selfcheck (nv = 73: the kernel's shared-memory branch in both
+#: types), kernel against ``reference_solves()``: (golden, the recorded
+#: timesteps whose state and action each control step starts from)
+LOCO_EXAMPLE_SELFCHECK = ("rodent_two_touch", (1,))
+#: its float32 gate: observations, reward and state (qpos, qvel) within
+#: this times max(1, their largest |entry|).  A change of one float32
+#: rounding in every solve moves them by at most 6.8e-7 of that scale (a
+#: nudge on the CPU from this state and the reset's; float64: 4.5e-15,
+#: under the 1e-9 absolute of phases 9 and 10, which the float64 run
+#: keeps)
+LOCO_EXAMPLE_F32_TOL = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -267,7 +305,7 @@ def card_line() -> str:
 
 
 KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 11, 13, 14, 15, 17, 20, 21, 22, 27, 28, 31,
-             32, 33, 39, 40, 62, 63, 64, 65, 79, 85, 160)
+             32, 33, 39, 40, 62, 63, 64, 65, 73, 79, 85, 160)
 KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
 SHARED_NS = (27, 32, 33, 64, 65)
 LOWER_NS = (27, 32, 33, 64, 65)
@@ -306,20 +344,50 @@ def time_ms(fn, reps=30):
     return float(np.median(times))
 
 
-def device_ms(fn, calls=50):
-    """Device milliseconds per call from ``torch.profiler``."""
+def profiled(fn, what):
+    """The card's kernels, memory copies and sets while ``fn`` runs once
+    under ``torch.profiler`` (the card's activity alone, read from the
+    profiler's raw events: turning a manipulation step's ~190,000 kernels
+    into ``prof.events()`` takes longer than the step, and recording the
+    host's activity too lengthens it), and the wall seconds of ``fn``.
+
+    The profiler keeps a device record only if its time stamp lies in the
+    profiling window, and on an H100 host the card's stamps were seen up
+    to 12 ms before their launch's, so the window opens ``PROFILE_PAD_S``
+    before ``fn`` and closes as long after it.  A trace that holds no
+    device event is taken again, ``fn`` with it, up to
+    ``PROFILE_ATTEMPTS`` times, each miss reported on stderr."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+        events = list(prof.profiler.kineto_results.events())
+        device = [e for e in events if "CUDA" in str(e.device_type())]
+        if device:
+            return device, wall
+        print(f"chip_smoke: torch.profiler saw no device event in {what} "
+              f"(attempt {attempt} of {PROFILE_ATTEMPTS}; {len(events)} "
+              f"host events, {wall * 1e3:.1f} ms)", file=sys.stderr,
+              flush=True)
+    check(False, f"torch.profiler saw no kernel on the device in {what} "
+                 f"({PROFILE_ATTEMPTS} attempts)")
+
+
+def device_ms(fn, what, calls=50):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``."""
+    def calls_of_fn():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if "CUDA" in str(getattr(e, "device_type", ""))]
-    total_us = sum(getattr(e, "device_time", None) or e.cuda_time
-                   for e in events)
-    check(total_us > 0, "torch.profiler saw no kernel on the device")
-    return total_us / 1e3 / calls
+
+    events, _ = profiled(calls_of_fn, what)
+    return sum(e.duration_ns() for e in events) / 1e6 / calls
 
 
 def check_close(x, ref, dtype, what):
@@ -423,7 +491,8 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     for order in (list(fns), list(reversed(fns))):  # in turns
         for k in order:
             runs[k].append(time_ms(lambda: fns[k](a, rhs)))
-    dev_ms = device_ms(lambda: linalg.chol_solve_cuda(a, rhs))
+    dev_ms = device_ms(lambda: linalg.chol_solve_cuda(a, rhs),
+                       f"chol_solve at B={batch} n={n} {dtype}")
     # the function's input is the lower triangle of a (as for the plain
     # version), so the bound counts its bytes, b and x at the rate of device
     # memory; an a that is warm in L2 comes at a higher rate, so the true
@@ -593,7 +662,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
         def one_step():
             box[0], _ = env.step(box[0], actions())
 
-        kernels, busy_ms, wall_ms = _idle_share(one_step)
+        kernels, busy_ms, wall_ms = _idle_share(one_step, what)
         # the profiler slows the host: the share is also taken of the
         # unprofiled steps' median
         median_ms = 1e3 * float(np.median(step_times[1:]))
@@ -792,25 +861,11 @@ def phase_env_golden(suite, domain, task):
     return rest, rel, missed
 
 
-def _idle_share(step):
+def _idle_share(step, what):
     """(device kernels, device busy ms, wall ms) of one profiled call of
-    ``step``: the kernels ``torch.profiler`` saw on the card.  It records
-    the card's activity alone and reads the profiler's raw events: turning
-    a manipulation step's ~190,000 kernels into ``prof.events()`` takes
-    longer than the step, and recording the host's activity too lengthens
-    the profiled step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.profiler.kineto_results.events()
-               if "CUDA" in str(e.device_type())]
+    ``step`` (``profiled``)."""
+    kernels, wall = profiled(step, what)
     busy_us = sum(e.duration_ns() for e in kernels) / 1e3
-    check(busy_us > 0, "torch.profiler saw no kernel on the device")
     return len(kernels), busy_us / 1e3, wall * 1e3
 
 
@@ -854,7 +909,8 @@ def phase_single(suite, linalg):
     check(launches - reset_launches >= 2 * substeps,
           f"single humanoid:run: chol_solve launched "
           f"{launches - reset_launches} times in {substeps} substeps")
-    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()))
+    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()),
+                                            "single humanoid:run")
     warm = times[1:]
     return dict(launches=launches, reset_launches=reset_launches,
                 per_step=(launches - reset_launches) / SINGLE_STEPS,
@@ -1494,7 +1550,8 @@ def phase_host_rate(manipulation, linalg, card):
     check(per_step >= 3 * substeps,
           f"host {name}: chol_solve launched {per_step} times a control "
           f"step of {substeps} substeps (< 3 a substep)")
-    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()))
+    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()),
+                                            f"host {name}")
     warm = times[1:]
     return dict(task=name, nv=env.physics.model.nv, launches=launches,
                 reset_launches=reset_launches, per_step=per_step,
@@ -1586,10 +1643,16 @@ def phase_host(manipulation, linalg, card):
 def loco_host_env(name, dtype=torch.float64, seed=LOCO_HOST_SEED):
     """The port's locomotion host environment of a golden's name on the
     card, as the JAX one was built (``tools/export_torch_assets.py``'s
-    ``loco_env``)."""
+    ``loco_env``): an example's after numpy's global state is seeded with
+    ``seed`` (the corridors draw their layout from it)."""
     from dm_control_torch import composer
     from dm_control_torch.locomotion import soccer
 
+    if name in LOCO_EXAMPLES:
+        from dm_control_torch.locomotion.examples import basic
+
+        np.random.seed(seed)
+        return getattr(basic, name)(random_state=seed, dtype=dtype)
     if name == "soccer_1v1":
         return soccer.load(team_size=1, random_state=seed, dtype=dtype)
     if name == "soccer_2v2_fixed":
@@ -1601,16 +1664,17 @@ def loco_host_env(name, dtype=torch.float64, seed=LOCO_HOST_SEED):
                                 dtype=dtype)
 
 
-def phase_loco_goldens(linalg, card):
-    """Phase 13 (a): each locomotion host episode golden replayed in
-    float64 on the card one control step at a time (``rl/golden.py``): the
-    reset's draws exact (qpos, the drawn pitch's geom sizes), every
-    timestep within the gate.  Returns the kernel's launches in each
-    replay, counted from 0 at its start."""
+def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
+    """Phase 13 (a), and 14 (b) for the examples: each locomotion host
+    episode golden of ``names`` replayed in float64 on the card one control
+    step at a time (``rl/golden.py``): the reset's draws exact (qpos, the
+    drawn pitch's geom sizes, the placed targets), every timestep within
+    the gate.  Returns the kernel's launches in each replay, counted from 0
+    at its start."""
     from dm_control_torch.rl import golden
 
     launches = {}
-    for name in LOCO_HOST_GOLDENS:
+    for name in names:
         with np.load(os.path.join(ROOT, "tests", "data",
                                   f"torch_locomotion_env_{name}_f64.npz"),
                      allow_pickle=False) as z:
@@ -1627,19 +1691,20 @@ def phase_loco_goldens(linalg, card):
         figures, ok = golden.episode_gate(errs, gold, name)
         check(ok, f"host golden {name}: gate failed, figures "
                   f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in figures]}")
-        reset = {k: errs[0][k] for k in ("step_qpos", "model_geom_size",
-                                         "model_geom_rbound")}
+        reset = {k: v for k, v in errs[0].items()
+                 if k == "step_qpos" or k.startswith("model_")}
         check(not any(reset.values()),
               f"host golden {name}: the reset's draws differ: {reset}")
         check(launches[name] > 0,
               f"host golden {name}: chol_solve was not launched")
         rest = max(a for a, _ in figures)
         rel = max(b for _, b in figures)
-        print(f"phase 13 golden: float64 {name} (nv="
+        print(f"phase {phase} golden: float64 {name} (nv="
               f"{env.physics.model.nv}) on the card vs the JAX episode, "
               f"reset and {len(figures) - 1} control steps each from the "
               f"recorded state in {seconds:.1f} s ({launches[name]} "
-              f"chol_solve launches): reset qpos and geom sizes exact; "
+              f"chol_solve launches): reset qpos and "
+              f"{', '.join(k[6:] for k in reset if k != 'step_qpos')} exact; "
               f"gate: all but qacc_warmstart {rest:.3e} <= 1e-9, "
               f"qacc_warmstart {rel:.3e} of its scale <= 1e-12 | {card}",
               flush=True)
@@ -1733,7 +1798,8 @@ def phase_loco_rate(linalg):
     check(per_step >= 3 * substeps,
           f"soccer.load(): chol_solve launched {per_step} times a control "
           f"step of {substeps} substeps (< 3 a substep)")
-    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()))
+    kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()),
+                                            "soccer.load()")
     warm = times[1:]
     return dict(task="soccer.load()", nv=env.physics.model.nv,
                 pitch=env.task.arena.size, launches=launches,
@@ -1826,6 +1892,204 @@ def phase_loco(linalg, card):
           f"{check_run['drew']:.3e} <= {LOCO_SELFCHECK_TOL:g}; phase 13 in "
           f"{time.perf_counter() - t13:.1f} s | {card}", flush=True)
     return golden_launches, compiles, rate, check_run
+
+
+def phase_examples_rate(linalg, name):
+    """Phase 14 (a): one example environment on the card in float32: its
+    build (the tree compiled onto the card), a reset and
+    ``LOCO_EXAMPLE_STEPS`` control steps with the kernel's launch count set
+    to 0 just before the reset and read after the last step, finite
+    rewards and observations; the steps before the last timed on the
+    host's clock, the last under ``torch.profiler`` (a rat's control step
+    takes seconds: one fewer keeps phase 14 within its time)."""
+    from dm_control_torch.locomotion.examples import basic
+
+    np.random.seed(0)  # the corridors' layout
+    with host_counters() as counts:
+        t0 = time.perf_counter()
+        env = getattr(basic, name)(random_state=0, dtype=torch.float32)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    m = env.physics.model
+    check(m.qpos0.device.type == "cuda" and m.dtype == torch.float32,
+          f"{name}: the model is not float32 on the card")
+    check(counts["recompiles"] == 1,
+          f"{name}: {counts['recompiles']} compiles at the build")
+    spec = env.action_spec()
+    rng = np.random.RandomState(1)
+
+    def action():
+        return rng.uniform(spec.minimum, spec.maximum)
+
+    def finite(ts):
+        return (np.isfinite(ts.reward) and all(
+            np.isfinite(np.asarray(v)).all()
+            for v in ts.observation.values()))
+
+    torch.cuda.synchronize()
+    linalg.chol_solve.launches = 0
+    t0 = time.perf_counter()
+    ts = env.reset()
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    reset_launches = linalg.chol_solve.launches
+    check(all(np.isfinite(np.asarray(v)).all()
+              for v in ts.observation.values()),
+          f"{name}: a non-finite observation at the reset")
+    times, steps = [], []
+    for _ in range(LOCO_EXAMPLE_STEPS - 1):
+        t0 = time.perf_counter()
+        steps.append(env.step(action()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # a profiler retry steps once more: each step taken is checked, counted
+    kernels, busy_ms, wall_ms = _idle_share(
+        lambda: steps.append(env.step(action())), f"example {name}")
+    kinds = [int(ts.step_type) for ts in steps]
+    check(all(finite(ts) for ts in steps),
+          f"{name}: a non-finite reward or observation")
+    launches = linalg.chol_solve.launches
+    substeps = env._n_sub_steps
+    per_step = (launches - reset_launches) / len(steps)
+    check(per_step >= 3 * substeps,
+          f"{name}: chol_solve launched {per_step} times a control step of "
+          f"{substeps} substeps (< 3 a substep)")
+    return dict(task=name, nv=m.nv, pairs=len(m.collision_pairs),
+                candidates=len(env.physics.data.contact.dim),
+                substeps=substeps, build_s=build_s,
+                compile_ms=1e3 * counts["recompile_s"], reset_s=reset_s,
+                reset_launches=reset_launches, launches=launches,
+                per_step=per_step, step_types=kinds,
+                steps_per_s=len(times) / sum(times),
+                step_ms=[1e3 * t for t in times], kernels_per_step=kernels,
+                busy_ms=busy_ms, profiled_ms=wall_ms,
+                idle_share=1 - busy_ms / wall_ms)
+
+
+def _example_step(env, gold, t, plain, linalg):
+    """One control step of ``env`` from the recording's state and action
+    at timestep ``t``, through the kernel or under ``reference_solves()``:
+    (observations, reward, qpos and qvel) as float64 host arrays."""
+    from dm_control_torch.rl import golden
+
+    env.physics.set_data(**{f: gold[f"t{t}_step_{f}"]
+                            for f in golden.EPISODE_STATE_FIELDS})
+    with linalg.reference_solves() if plain else contextlib.nullcontext():
+        ts = env.step(gold["actions"][t])
+    d = env.physics.data
+    return {"obs": np.concatenate([np.ravel(np.asarray(v, np.float64))
+                                   for v in ts.observation.values()]),
+            "reward": np.asarray([ts.reward], np.float64),
+            "state": torch.cat([d.qpos, d.qvel]).double().cpu().numpy()}
+
+
+def phase_examples_selfcheck(linalg):
+    """Phase 14 (c): the rat's example (``LOCO_EXAMPLE_SELFCHECK``) on the
+    card in float32 and float64: one environment reset, then each control
+    step taken twice from the recording's state and action, through the
+    kernel and under ``reference_solves()`` (the two-touch task's state
+    stays as the reset left it: the rat is far from the target in these
+    steps).  float64: the kernel
+    held to the plain step within 1e-9 absolute, or, where the plain step
+    is more than 1e-9 from the JAX recording, to the recording (as
+    ``phase_golden_selfcheck``); float32: within ``LOCO_EXAMPLE_F32_TOL``
+    of max(1, each group's largest |entry|).  Returns per type the largest
+    figure of each group, the timesteps whose step is held to the
+    recording (with the plain step's distance from it) and the kernel's
+    launches."""
+    name, steps = LOCO_EXAMPLE_SELFCHECK
+    with np.load(os.path.join(ROOT, "tests", "data",
+                              f"torch_locomotion_env_{name}_f64.npz"),
+                 allow_pickle=False) as z:
+        gold = {k: z[k] for k in z.files}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        env = loco_host_env(name, dtype=dtype)
+        env.reset()
+        worst = {"obs": 0.0, "reward": 0.0, "state": 0.0}
+        held = []
+        n_k = n_p = 0
+        for t in steps:
+            n0 = linalg.chol_solve.launches
+            kernel = _example_step(env, gold, t, False, linalg)
+            n1 = linalg.chol_solve.launches
+            plain = _example_step(env, gold, t, True, linalg)
+            n_k += n1 - n0
+            n_p += linalg.chol_solve.launches - n1
+            if dtype == torch.float64:
+                recorded = {
+                    "obs": np.concatenate([np.ravel(gold[k]) for k in gold
+                                           if k.startswith(f"t{t + 1}_obs_")]),
+                    "reward": np.asarray([gold[f"t{t + 1}_reward"]]),
+                    "state": np.concatenate([gold[f"t{t + 1}_step_qpos"],
+                                             gold[f"t{t + 1}_step_qvel"]])}
+                off = max(float(np.abs(plain[g] - recorded[g]).max())
+                          for g in plain)
+                ref = plain
+                if off > 1e-9:
+                    held.append((t, off))
+                    ref = recorded
+                for g in worst:
+                    worst[g] = max(worst[g], float(np.abs(
+                        kernel[g] - ref[g]).max()))
+            else:
+                for g in worst:
+                    worst[g] = max(worst[g], float(np.abs(
+                        kernel[g] - plain[g]).max()) / max(
+                            1.0, float(np.abs(plain[g]).max())))
+        what = f"{name} {str(dtype).replace('torch.', '')} selfcheck"
+        check(n_k >= 3 * len(steps) * env._n_sub_steps and n_p == 0,
+              f"{what}: {n_k} kernel launches through the kernel, {n_p} "
+              f"under reference_solves()")
+        gate = 1e-9 if dtype == torch.float64 else LOCO_EXAMPLE_F32_TOL
+        check(max(worst.values()) <= gate,
+              f"{what}: kernel vs plain {worst} (<= {gate:g})")
+        out[dtype] = dict(worst=worst, held=held, launches=n_k,
+                          nv=env.physics.model.nv)
+    return out
+
+
+def phase_examples(linalg, card):
+    """Phase 14: locomotion's example environments on the card."""
+    t14 = time.perf_counter()
+    rates = []
+    for name in LOCO_EXAMPLES:
+        r = phase_examples_rate(linalg, name)
+        rates.append(r)
+        print(f"phase 14 example: {name} float32 (nv={r['nv']}, "
+              f"{r['pairs']} candidate pairs, {r['candidates']} contact "
+              f"rows, {r['substeps']} substeps a control step) on the card: "
+              f"built in {r['build_s']:.2f} s (the tree compiled in "
+              f"{r['compile_ms']:.1f} ms), reset {r['reset_s']:.2f} s "
+              f"({r['reset_launches']} chol_solve launches), "
+              f"{len(r['step_types'])} control steps (step types "
+              f"{r['step_types']}): {r['steps_per_s']:.3f} control steps/s "
+              f"(ms {[round(t, 1) for t in r['step_ms']]}, the last step "
+              f"aside), chol_solve launches {r['per_step']:.1f} a control "
+              f"step ({r['launches']} in the path); the last control step "
+              f"profiled: "
+              f"{r['kernels_per_step']} device kernels, busy "
+              f"{r['busy_ms']:.3f} ms of {r['profiled_ms']:.1f} ms, idle "
+              f"share {r['idle_share']:.4f} | {card}", flush=True)
+    golden_launches = phase_loco_goldens(linalg, card, LOCO_EXAMPLE_GOLDENS,
+                                         14)
+    checks = phase_examples_selfcheck(linalg)
+    for dtype, c in checks.items():
+        w = c["worst"]
+        kind = ("absolute <= 1e-9" if dtype == torch.float64 else
+                f"of max(1, scale) <= {LOCO_EXAMPLE_F32_TOL:g}")
+        held = "".join(f"; timestep {t} held to the JAX recording (the "
+                       f"plain step {d:.3e} from it)" for t, d in c["held"])
+        print(f"phase 14 selfcheck: {LOCO_EXAMPLE_SELFCHECK[0]} "
+              f"{str(dtype).replace('torch.', '')} (nv={c['nv']}: the "
+              f"kernel's shared-memory branch), control steps from the "
+              f"recorded timesteps {LOCO_EXAMPLE_SELFCHECK[1]} through the "
+              f"kernel ({c['launches']} launches) vs reference_solves(): "
+              f"obs {w['obs']:.3e}, reward {w['reward']:.3e}, state "
+              f"{w['state']:.3e} {kind}{held} | {card}", flush=True)
+    print(f"phase 14 in {time.perf_counter() - t14:.1f} s | {card}",
+          flush=True)
+    return rates, golden_launches, checks
 
 
 def main() -> int:
@@ -1984,6 +2248,9 @@ def main() -> int:
     loco_goldens, _, loco_rate, _ = phase_loco(linalg, card)
     print(f"phases 1-13 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    examples, example_goldens, _ = phase_examples(linalg, card)
+    print(f"phases 1-14 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
@@ -2006,7 +2273,11 @@ def main() -> int:
             f"manipulation host:{host_rate['task']}": host_rate["launches"],
             **{f"locomotion host golden:{name}": n
                for name, n in loco_goldens.items()},
-            f"locomotion host:{loco_rate['task']}": loco_rate["launches"]},
+            f"locomotion host:{loco_rate['task']}": loco_rate["launches"],
+            **{f"locomotion example golden:{name}": n
+               for name, n in example_goldens.items()},
+            **{f"locomotion example:{r['task']}": r["launches"]
+               for r in examples}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

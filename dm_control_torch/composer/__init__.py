@@ -5,7 +5,8 @@ The host path, as in the JAX package: entities build MJCF element trees
 per environment onto its device; a ``Task`` over the root entity runs in
 ``Environment``'s hook pipeline with observables (``observation/``).  The
 batched path: the ``BatchableTask`` protocol and ``compile_task``
-(``composer/batch.py``).  Not ported yet: ``variation/`` and
+(``composer/batch.py``).  ``variation/`` draws parameters from a
+``RandomState`` (the corridors' layouts).  Not ported yet:
 ``initializers/`` (ROADMAP A5.3).
 """
 

@@ -1,5 +1,14 @@
 """Locomotion arenas (counterpart of
-``dm_control_tpu/locomotion/arenas/``): the floor.  The corridors, the
-bowl, the mazes and the covering are not ported (ROADMAP A5.5)."""
+``dm_control_tpu/locomotion/arenas/``): the floor, the corridors, the
+bowl, the mazes and the wall covering.  ``padded_room`` is not ported
+(ROADMAP A5.5)."""
 
 from dm_control_torch.locomotion.arenas.floors import Floor  # noqa: F401
+from dm_control_torch.locomotion.arenas.corridors import (  # noqa: F401
+    EmptyCorridor, GapsCorridor, WallsCorridor,
+)
+from dm_control_torch.locomotion.arenas.bowl import Bowl  # noqa: F401
+from dm_control_torch.locomotion.arenas.mazes import (  # noqa: F401
+    MazeWithTargets, TextMaze,
+)
+from dm_control_torch.locomotion.arenas import covering  # noqa: F401

@@ -1,0 +1,6 @@
+"""Preconfigured locomotion environments (counterpart of
+``dm_control_tpu/locomotion/examples/``): ``basic`` serves the nine
+corridor, go-to-target, maze, bowl and two-touch environments of the CMU
+2019 humanoid and the rat through ``composer.Environment``.
+``cmu_2020_tracking`` and ``explore`` are not ported (ROADMAP A5.4, A6).
+"""

@@ -1,12 +1,15 @@
 """Locomotion walkers (counterpart of
-``dm_control_tpu/locomotion/walkers/``): the rolling and jumping balls and
-the CMU 2020 humanoid (BoxHead is ``locomotion/soccer/boxhead.py``).  The
-ant, the rodent, the 2019 CMU humanoid and the rescaling helpers are not
-ported (ROADMAP A5.5)."""
+``dm_control_tpu/locomotion/walkers/``): the rolling and jumping balls,
+the CMU humanoids of 2019 (torque and position actuators) and 2020, and
+the rat (BoxHead is ``locomotion/soccer/boxhead.py``).  The ant and the
+rescaling helpers (``rescale``, ``scaled_actuators``) are not ported
+(ROADMAP A5.5)."""
 
 from dm_control_torch.locomotion.walkers.cmu_humanoid import (  # noqa: F401
+    CMUHumanoid, CMUHumanoidPositionControlled,
     CMUHumanoidPositionControlledV2020,
 )
 from dm_control_torch.locomotion.walkers.jumping_ball import (  # noqa: F401
     JumpingBallWithHead, RollingBallWithHead,
 )
+from dm_control_torch.locomotion.walkers.rodent import Rat  # noqa: F401

@@ -159,6 +159,9 @@ def episode_errors(env, gold):
 #: reset: the Duplo bricks' stud radii, drawn by the reset into
 #: ``geom_size`` and ``geom_rbound`` of their stud geoms
 HOST_MODEL_FIELDS = ("geom_size", "geom_rbound")
+#: held too where a recording has it: the bodies a reset places (the
+#: targets of the locomotion examples' mazes and two-touch task)
+HOST_BODY_FIELD = "body_pos"
 
 
 def host_episode_errors(env, gold):
@@ -169,8 +172,11 @@ def host_episode_errors(env, gold):
     and ``step``.  The Jaco models' steps move by more than rounding
     where their states differ by rounding (ROADMAP C), so each step starts
     from the recorded state.  Returns ``episode_errors``' figures, the
-    reset's with ``model_<field>`` for ``HOST_MODEL_FIELDS`` beside
-    them."""
+    reset's with ``model_<field>`` for ``HOST_MODEL_FIELDS`` (and
+    ``HOST_BODY_FIELD`` where recorded) beside them."""
+    fields = HOST_MODEL_FIELDS + ((HOST_BODY_FIELD,)
+                                  if f"model_{HOST_BODY_FIELD}" in gold
+                                  else ())
     out = []
     for t in range(gold["actions"].shape[0] + 1):
         if t:
@@ -184,7 +190,7 @@ def host_episode_errors(env, gold):
             model = env.physics.model
             errs.update({f"model_{f}": _max_abs(
                 getattr(model, f).cpu().numpy(), gold[f"model_{f}"])
-                for f in HOST_MODEL_FIELDS})
+                for f in fields})
         out.append(errs)
     return out
 

@@ -46,14 +46,20 @@ def jax_model_from_asset(asset):
     (the JAX compiler's output, saved field by field), without compiling
     MJCF: for the big models, whose JAX compile takes most of a minute
     here.  The slow tier checks each asset against a fresh export."""
+    from dm_control_torch.physics import model_io
+
+    return jax_model_from_port(model_io.load(export_tool().asset_path(asset),
+                                             "cpu", torch.float64))
+
+
+def jax_model_from_port(m):
+    """The JAX package's ``Model`` with every field of the port's float64
+    CPU model ``m`` (no MJCF compile)."""
     import dataclasses
 
     import jax.numpy as jnp
 
     from dm_control_tpu.physics import model as jmodel
-    from dm_control_torch.physics import model_io
-
-    m = model_io.load(export_tool().asset_path(asset), "cpu", torch.float64)
 
     def leaf(v):
         return jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v

@@ -40,14 +40,15 @@ def _spd(rng, b, n, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # n on both sides of every boundary of the launcher's rule (32 and, in
 # float32, 64) and the nv of every ported model; 1001 fills no block of 4
-# warps evenly
+# warps evenly; (73, 1) is the rat's one environment (shared memory in
+# both types)
 @pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (2, 8192), (3, 1024),
                                  (4, 1001), (7, 1024), (9, 4096),
                                  (11, 1024), (14, 1001), (20, 1024),
                                  (27, 1024), (31, 1001),
                                  (32, 1001), (33, 1001), (62, 1024),
                                  (63, 1001), (64, 1001), (65, 1001),
-                                 (79, 1000), (85, 512), (160, 3)])
+                                 (73, 1), (79, 1000), (85, 512), (160, 3)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -214,6 +215,31 @@ def test_locomotion_host_path_runs_on_the_card(cuda, name):
     ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
                                                    spec.maximum))
     assert ts.mid() and np.all(np.isfinite(ts.reward))
+    for v in ts.observation.values():
+        assert np.all(np.isfinite(np.asarray(v)))
+    assert linalg.chol_solve.launches - before >= env._n_sub_steps
+
+
+@pytest.mark.parametrize("name", ["cmu_humanoid_maze_forage",
+                                  "rodent_two_touch"])
+def test_locomotion_example_runs_on_the_card(cuda, name):
+    """A locomotion example (``examples.basic``) on the card by default: a
+    maze whose task reads the contacts after every step (the CMU 2019
+    humanoid, nv 62) and the rat's two-touch task (nv 73) reset and
+    stepped one control step in float64, finite, with the kernel launched
+    at least once a substep."""
+    from dm_control_torch.locomotion.examples import basic
+
+    env = getattr(basic, name)(random_state=0)
+    assert env.physics.model.device.type == "cuda"
+    assert env.physics.model.dtype == torch.float64
+    assert env.physics.model.nv == (73 if name.startswith("rodent") else 62)
+    assert env.reset().first()
+    spec = env.action_spec()
+    before = linalg.chol_solve.launches
+    ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
+                                                   spec.maximum))
+    assert ts.mid() and np.isfinite(ts.reward)
     for v in ts.observation.values():
         assert np.all(np.isfinite(np.asarray(v)))
     assert linalg.chol_solve.launches - before >= env._n_sub_steps

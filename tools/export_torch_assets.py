@@ -17,7 +17,9 @@ six; ``manipulation`` the four manipulation models and their goldens;
 ``manip_env_golden:NAME`` one host episode of ``MANIP_ENV_GOLDENS``, and
 ``manip_env_goldens`` all four; ``soccer`` and ``tracking`` the
 locomotion models and their goldens; ``loco_env_golden:NAME`` one host
-episode of ``LOCO_ENV_GOLDENS``, and ``loco_env_goldens`` all four).
+episode of ``LOCO_ENV_GOLDENS`` or ``LOCO_EXAMPLE_GOLDENS``,
+``loco_env_goldens`` the first four and ``loco_example_goldens`` the
+second four).
 
 It writes, for every ported domain (or only the ones named),
 
@@ -104,7 +106,17 @@ It writes, for every ported domain (or only the ones named),
   a fixed (12, 9) pitch with the field box, and the two tracking tasks
   through ``composer.Environment``), seed ``LOCO_ENV_SEED``, in the
   format of the manipulation host goldens (``model_geom_size`` holds the
-  pitch drawn at the reset).
+  pitch drawn at the reset);
+- on request, the same for the locomotion example environments of
+  ``LOCO_EXAMPLE_GOLDENS`` (the JAX package's
+  ``locomotion.examples.basic.<name>(random_state=LOCO_ENV_SEED)``, built
+  after ``numpy.random.seed(LOCO_ENV_SEED)``: the corridors draw their
+  layout from numpy's global state), with the compiled model's
+  ``body_pos`` after the reset beside the geom fields
+  (``model_body_pos``: the targets the maze and two-touch resets place).
+  ``JAX_PLATFORMS=cpu python tools/export_torch_assets.py
+  loco_example_goldens`` (or ``loco_env_golden:rodent_two_touch``, say)
+  writes them.
 """
 
 from __future__ import annotations
@@ -278,6 +290,11 @@ LOCO_ENV_GOLDENS = ("soccer_1v1", "soccer_2v2_fixed", "tracking_ball",
                     "tracking_cmu2020")
 LOCO_ENV_SEED = 11
 LOCO_ENV_STEPS = 3
+#: the locomotion example environments whose host episodes are recorded
+#: (``loco_env``): gaps (about 45 platforms), a maze with its targets, the
+#: bowl's height field, two-touch's state machine
+LOCO_EXAMPLE_GOLDENS = ("cmu_humanoid_run_gaps", "cmu_humanoid_maze_forage",
+                        "rodent_escape_bowl", "rodent_two_touch")
 
 
 def golden_domain(golden):
@@ -366,7 +383,14 @@ def loco_env(name):
     side on its default ``RandomizedPitch`` (drawn and compiled every
     episode), two a side on a fixed (12, 9) pitch with the field box, and
     the two tracking tasks of ``locomotion_task`` through
-    ``composer.Environment`` with their time limits."""
+    ``composer.Environment`` with their time limits; or the example
+    environment of a name of ``LOCO_EXAMPLE_GOLDENS``, built after
+    numpy's global state is seeded with ``LOCO_ENV_SEED``."""
+    if name in LOCO_EXAMPLE_GOLDENS:
+        from dm_control_tpu.locomotion.examples import basic
+
+        np.random.seed(LOCO_ENV_SEED)
+        return getattr(basic, name)(random_state=LOCO_ENV_SEED)
     if name == "soccer_1v1":
         from dm_control_tpu.locomotion import soccer
 
@@ -387,15 +411,17 @@ def make_loco_env_golden(name):
     """One float64 host episode of ``loco_env(name)``: the reset and
     ``LOCO_ENV_STEPS`` control steps with actions drawn as for the
     manipulation host goldens, with the compiled model's ``geom_size``
-    and ``geom_rbound`` after the reset (the drawn pitch's size)."""
+    and ``geom_rbound`` after the reset (the drawn pitch's size), and
+    ``body_pos`` for the example environments (the placed targets)."""
     env = loco_env(name)
     spec = env.action_spec()
     rng = np.random.RandomState(ENV_ACTION_SEED)
     out = _episode(env, np.stack([rng.uniform(spec.minimum, spec.maximum)
                                   for _ in range(LOCO_ENV_STEPS)]))
     m = env.physics.model
-    out.update({f"model_{f}": np.asarray(getattr(m, f))
-                for f in ("geom_size", "geom_rbound")})
+    fields = ("geom_size", "geom_rbound") + (
+        ("body_pos",) if name in LOCO_EXAMPLE_GOLDENS else ())
+    out.update({f"model_{f}": np.asarray(getattr(m, f)) for f in fields})
     return out
 
 
@@ -743,8 +769,9 @@ def main(argv=None):
         if domain.startswith("manip_env_golden:"):
             write_manip_env_golden(domain[len("manip_env_golden:"):])
             continue
-        if domain == "loco_env_goldens":
-            for name in LOCO_ENV_GOLDENS:
+        if domain in ("loco_env_goldens", "loco_example_goldens"):
+            for name in (LOCO_ENV_GOLDENS if domain == "loco_env_goldens"
+                         else LOCO_EXAMPLE_GOLDENS):
                 write_loco_env_golden(name)
             continue
         if domain.startswith("loco_env_golden:"):
