@@ -141,18 +141,18 @@ LOCO_GOLDENS = ("soccer_1v1", "soccer_2v2", "tracking_ball",
                 "tracking_cmu2020")
 #: (B, n) the kernel is timed at: humanoid's, cartpole's, cheetah's,
 #: quadruped's, stacker:stack_4's, humanoid_CMU's (and CMU tracking's),
-#: dog:fetch's, the manipulation paths' (reach_site's arm; the arm and a
-#: free prop), soccer 2v2's, ball tracking's and phase 11's 5-pole
-#: cartpole's
+#: dog:fetch's and dog:run's (the block kernel), the manipulation paths'
+#: (reach_site's arm; the arm and a free prop), soccer 2v2's, ball
+#: tracking's and phase 11's 5-pole cartpole's
 TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
                 (MAIN_BATCH, 20), (MAIN_BATCH, 62), (DOG_BATCH, 85),
-                (MAIN_BATCH, 9), (MAIN_BATCH, 15), (512, 38),
-                (MAIN_BATCH, 8), (8192, 5))
+                (DOG_BATCH, 79), (MAIN_BATCH, 9), (MAIN_BATCH, 15),
+                (512, 38), (MAIN_BATCH, 8), (8192, 5))
 #: (B, n, dtype) the kernel is also timed at: the single environment's
 #: humanoid solve, phase 12's stack of 3 bricks (nv = 21) and reassembly
-#: of 5 (nv = 39, float64 on the shared-memory branch), and phase 13's
+#: of 5 (nv = 39, float64 on the block kernel), and phase 13's
 #: ball (8), soccer 1v1 (22), 2v2 (38) and CMU 2020 (62) on the host, and
-#: phase 14's rat (73, the shared-memory branch in both types), each in the
+#: phase 14's rat (73, the block kernel in both types), each in the
 #: single environment's float64 and in float32 (CMU 2019's 62 in float32 is
 #: phase 14's humanoid rate path)
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
@@ -177,7 +177,9 @@ SINGLE_STEPS = 20  # phase 8's float32 humanoid:run control steps
 #: ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4 minibatches
 TRAIN_PATHS = (("cartpole", "swingup", 2048, 32),
                ("humanoid", "run", 512, 16))
-TRAIN_TIMED = 2  # timed train steps per path, after one warm-up
+#: timed train steps per path, after one warm-up (a rollout of the host
+#: paths takes 15-25 s of the script's time limit)
+TRAIN_TIMED = 1
 #: phase 9: the batched manipulation path (``manipulation.load_batch``):
 #: (asset, task) of each distinct physics, stepped in float32 at
 #: MANIP_BATCH (the JAX package's manipulation bench rung's batch) and
@@ -221,8 +223,8 @@ HOST_TREES = (("reach_site", "reach_site_features"),
 #: the float32 rate path: (name, control steps after the reset)
 HOST_RATE = ("stack_3_bricks_features", 10)
 #: the float64 selfcheck, kernel against ``reference_solves()``: (name,
-#: seed, control steps after the reset); nv = 39 runs the kernel's
-#: shared-memory branch in float64.  The seed's episode is one where a
+#: seed, control steps after the reset); nv = 39 runs the block kernel in
+#: float64.  The seed's episode is one where a
 #: change of one rounding in every solve moves no observation by more than
 #: 2e-13 of its scale (a nudge on the CPU, ``PERF.md`` §6)
 HOST_SELFCHECK = ("reassemble_5_bricks_random_order_features", 7, 2)
@@ -250,8 +252,8 @@ LOCO_TREES = ("soccer_1v1", "soccer_2v2", "tracking_ball",
 #: pitch): control steps after the reset
 LOCO_RATE_STEPS = 10
 #: the float64 selfcheck, kernel against ``reference_solves()``: (asset,
-#: seed, control steps after the reset); nv = 62 runs the kernel's
-#: shared-memory branch in float64.  Seed 2's episode is one where a change
+#: seed, control steps after the reset); nv = 62 runs the block kernel in
+#: float64.  Seed 2's episode is one where a change
 #: of one rounding in every solve moves no observation by more than
 #: 7.2e-16 of max(1, its largest entry) (a nudge on the CPU, seeds 0-11)
 LOCO_SELFCHECK = ("tracking_cmu2020", 2, 2)
@@ -273,9 +275,9 @@ LOCO_EXAMPLE_STEPS = 2  # the last of them profiled
 #: replayed one control step at a time
 LOCO_EXAMPLE_GOLDENS = ("cmu_humanoid_run_gaps", "cmu_humanoid_maze_forage",
                         "rodent_escape_bowl", "rodent_two_touch")
-#: the rat's selfcheck (nv = 73: the kernel's shared-memory branch in both
-#: types), kernel against ``reference_solves()``: (golden, the recorded
-#: timesteps whose state and action each control step starts from)
+#: the rat's selfcheck (nv = 73: the block kernel in both types), kernel
+#: against ``reference_solves()``: (golden, the recorded timesteps whose
+#: state and action each control step starts from)
 LOCO_EXAMPLE_SELFCHECK = ("rodent_two_touch", (1,))
 #: its float32 gate: observations, reward and state (qpos, qvel) within
 #: this times max(1, their largest |entry|).  A change of one float32
@@ -304,11 +306,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: n on both sides of every boundary of the launcher's rule (32, and 64 in
+#: float32) and of the block kernel's panels (64/65, 96/97, 128/129), and
+#: every ported nv
 KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 11, 13, 14, 15, 17, 20, 21, 22, 27, 28, 31,
-             32, 33, 39, 40, 62, 63, 64, 65, 73, 79, 85, 160)
-KERNEL_BS = (1, 1001, 1024)  # 1001 fills no block of 4 warps evenly
-SHARED_NS = (27, 32, 33, 64, 65)
-LOWER_NS = (27, 32, 33, 64, 65)
+             32, 33, 39, 40, 62, 63, 64, 65, 73, 79, 85, 96, 97, 128, 129,
+             160)
+#: 1001 fills no block of 4 warps evenly; 4 and 512 are the block kernel's
+#: small batches and dog's
+KERNEL_BS = (1, 4, 512, 1001, 1024)
+SHARED_NS = (27, 32, 33, 64, 65, 73, 85, 160)
+LOWER_NS = (27, 32, 33, 64, 65, 73, 85, 160)
+NON_SPD_NS = (27, 62, 73, 79, 85, 160)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FLOAT32_FLOPS = 67e12      # H100 SXM, outside the tensor cores
 FLOAT64_FLOPS = 34e12      # H100 SXM data sheet, outside the tensor cores
@@ -390,6 +399,47 @@ def device_ms(fn, what, calls=50):
     return sum(e.duration_ns() for e in events) / 1e6 / calls
 
 
+BURST_GAP_S = 0.05  # the pause between the bursts of one profiled session
+
+
+def device_ms_each(fns, what, calls=50):
+    """``device_ms`` of each of ``fns`` from one profiled session (a
+    session costs more than the calls it times): each runs ``calls`` times
+    in a burst, ``BURST_GAP_S`` after the one before, and the device events
+    are split at the widest gaps between one event's end and the next
+    one's start.  Where those gaps are not clearly the pauses, each is
+    profiled alone."""
+    def bursts():
+        for i, fn in enumerate(fns):
+            if i:
+                torch.cuda.synchronize()
+                time.sleep(BURST_GAP_S)
+            for _ in range(calls):
+                fn()
+
+    events, _ = profiled(bursts, what)
+    events.sort(key=lambda e: e.start_ns())
+    gap = {i: events[i].start_ns() - events[i - 1].end_ns()
+           for i in range(1, len(events))}
+    cuts = sorted(sorted(gap, key=gap.get)[len(gap) - len(fns) + 1:])
+    if len(cuts) != len(fns) - 1 or any(
+            gap[i] < 0.5e9 * BURST_GAP_S for i in cuts):
+        return [device_ms(fn, what, calls) for fn in fns]
+    bounds = [0, *cuts, len(events)]
+    return [sum(e.duration_ns() for e in events[a:b]) / 1e6 / calls
+            for a, b in zip(bounds, bounds[1:])]
+
+
+def check_branch(linalg, what, model, launches, block_launches):
+    """Every solve of a path is one system of the model's nv, so all of its
+    launches take the branch that (nv, type) names."""
+    branch = linalg.kernel_branch(model.nv, model.dtype)
+    check(block_launches == (launches if branch == "block" else 0),
+          f"{what}: {block_launches} of {launches} chol_solve launches took "
+          f"the block kernel; nv = {model.nv} in {model.dtype} names the "
+          f"{branch} kernel")
+
+
 def check_close(x, ref, dtype, what):
     err = (x - ref).abs() - TOL[dtype] * ref.abs()
     check(bool(torch.isfinite(x).all()), f"non-finite x at {what}")
@@ -441,7 +491,7 @@ def phase_kernel(linalg):
                 linalg.chol_solve_cuda(junk, rhs), ref, dtype,
                 f"lower triangle only n={n} {dtype}"))
         # one system that is not SPD inside a batch: NaN in that row only
-        for n in (27, 62, 79, 85):
+        for n in NON_SPD_NS:
             a = spd(gen, 1001, n, dtype)
             a[17] = -a[17]
             rhs = torch.ones(1001, n, dtype=dtype, device="cuda")
@@ -464,7 +514,8 @@ def phase_kernel(linalg):
 
 def time_shape(linalg, batch, n, dtype=torch.float32):
     """The kernel at one main-path shape: its error, and its time beside
-    the bound, the plain version and the library calls.  A stays warm in
+    the bound, the plain version and the library calls (each per call by
+    CUDA events, and on the device by ``torch.profiler``).  A stays warm in
     L2 between calls, as on the main path, where the product that writes H
     runs just before the solve."""
     gen = torch.Generator(device="cuda").manual_seed(n)
@@ -491,8 +542,11 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     for order in (list(fns), list(reversed(fns))):  # in turns
         for k in order:
             runs[k].append(time_ms(lambda: fns[k](a, rhs)))
-    dev_ms = device_ms(lambda: linalg.chol_solve_cuda(a, rhs),
-                       f"chol_solve at B={batch} n={n} {dtype}")
+    dev_ms, lib_dev_ms, lib_chol_dev_ms = device_ms_each(
+        [lambda: linalg.chol_solve_cuda(a, rhs), lambda: library(a, rhs),
+         lambda: library_cholesky(a, rhs)],
+        f"chol_solve, torch.linalg.solve and cholesky_ex + cholesky_solve "
+        f"at B={batch} n={n} {dtype}")
     # the function's input is the lower triangle of a (as for the plain
     # version), so the bound counts its bytes, b and x at the rate of device
     # memory; an a that is warm in L2 comes at a higher rate, so the true
@@ -504,7 +558,10 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     flop_ms = 1e3 * batch * (n ** 3 / 3 + 2 * n * n) / PEAK_FLOPS[dtype]
     out = {k: min(v) for k, v in runs.items()}
     out.update(B=batch, n=n, dtype=str(dtype).replace("torch.", ""),
+               branch=linalg.kernel_branch(n, dtype),
                max_abs_err=err, device_ms=dev_ms,
+               library_device_ms=lib_dev_ms,
+               library_cholesky_device_ms=lib_chol_dev_ms,
                bound_ms=max(byte_ms, flop_ms),
                dense_bound_ms=max(dense_ms, flop_ms),
                bound_by="bytes" if byte_ms >= flop_ms else "operations",
@@ -607,7 +664,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    linalg.chol_solve.launches = 0
+    linalg.reset_launch_counts()
     solver.noslip.slots = 0
     t0 = time.perf_counter()
     state, ts = env.reset(batch, gen)
@@ -631,6 +688,9 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                   for v in ts.observation.values()),
               f"{domain}: non-finite observation at step {i}")
     launches = linalg.chol_solve.launches
+    block_launches = linalg.chol_solve.branch_launches["block"]
+    check_branch(linalg, f"{domain}:{task}", env.model, launches,
+                 block_launches)
     noslip_slots = solver.noslip.slots
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if inspect is not None:
@@ -671,6 +731,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                         step_median_ms=median_ms,
                         idle_share_unprofiled=1 - busy_ms / median_ms)
     return dict(domain=domain, task=task, batch=batch, launches=launches,
+                block_launches=block_launches,
                 reset_launches=reset_launches, substeps=substeps,
                 min_solves=min_solves, env_steps_per_s=sps,
                 diverged_share=share, reset_s=reset_s,
@@ -743,7 +804,7 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    linalg.chol_solve.launches = 0
+    linalg.reset_launch_counts()
     t0 = time.perf_counter()
     state = ppo.init_train_state(
         env, torch.Generator(device="cuda").manual_seed(0), batch,
@@ -769,6 +830,8 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
         check(any(not torch.equal(a, b) for a, b in zip(before, after)),
               f"{what}: a train step left the parameters as they were")
     launches = linalg.chol_solve.launches
+    block_launches = linalg.chol_solve.branch_launches["block"]
+    check_branch(linalg, what, env.model, launches, block_launches)
     per_step = (launches - warm_launches) / TRAIN_TIMED
     substeps = steps * env.n_sub_steps
     check(per_step >= min_solves * substeps,
@@ -784,7 +847,8 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
     check(metrics["env_steps"] == batch * steps,
           f"{what}: env_steps {metrics['env_steps']}")
     return dict(domain=domain, task=task, batch=batch, steps=steps,
-                launches=launches, per_step=per_step, substeps=substeps,
+                launches=launches, block_launches=block_launches,
+                per_step=per_step, substeps=substeps,
                 min_solves=min_solves, init_s=init_s, warm_s=warm_s,
                 env_steps_per_s=batch * steps * TRAIN_TIMED / sum(step_s),
                 rollout_ms=rollout_ms, update_ms=update_ms,
@@ -885,7 +949,7 @@ def phase_single(suite, linalg):
         return rng.uniform(spec.minimum, spec.maximum)
 
     torch.cuda.synchronize()
-    linalg.chol_solve.launches = 0
+    linalg.reset_launch_counts()
     t0 = time.perf_counter()
     ts = env.reset()
     torch.cuda.synchronize()
@@ -901,6 +965,9 @@ def phase_single(suite, linalg):
         check(all(np.isfinite(v).all() for v in ts.observation.values()),
               "single humanoid:run: non-finite observation")
     launches = linalg.chol_solve.launches
+    block_launches = linalg.chol_solve.branch_launches["block"]
+    check_branch(linalg, "single humanoid:run", env.physics.model, launches,
+                 block_launches)
     check(int(ts.step_type) == 1 and np.isfinite(rewards).all()
           and all(0 <= r <= 1 for r in rewards),
           f"single humanoid:run: step type {ts.step_type}, rewards "
@@ -912,7 +979,8 @@ def phase_single(suite, linalg):
     kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()),
                                             "single humanoid:run")
     warm = times[1:]
-    return dict(launches=launches, reset_launches=reset_launches,
+    return dict(launches=launches, block_launches=block_launches,
+                reset_launches=reset_launches,
                 per_step=(launches - reset_launches) / SINGLE_STEPS,
                 steps_per_s=len(warm) / sum(warm),
                 first_ms=1e3 * times[0], reset_s=reset_s,
@@ -1328,18 +1396,22 @@ def phase_recipe(linalg):
     check(physics.model.qpos0.device.type == "cuda",
           "Physics.from_xml_string left the card")
     torch.cuda.synchronize()
-    linalg.chol_solve.launches = 0
+    linalg.reset_launch_counts()
     t0 = time.perf_counter()
     physics.step(RECIPE_STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = linalg.chol_solve.launches
+    block_launches = linalg.chol_solve.branch_launches["block"]
+    check_branch(linalg, "the dropped sphere", physics.model, launches,
+                 block_launches)
     height = float(physics.data.qpos[2])
     check(abs(height - 0.1) <= 1e-3,
           f"dropped sphere rests at {height:.6f}, not 0.1 +- 1e-3")
     check(launches >= RECIPE_STEPS,
           f"chol_solve launched {launches} times in {RECIPE_STEPS} steps")
-    return dict(height=height, seconds=seconds, launches=launches)
+    return dict(height=height, seconds=seconds, launches=launches,
+                block_launches=block_launches)
 
 
 def phase_compile(suite, linalg, solver, card):
@@ -1525,7 +1597,7 @@ def phase_host_rate(manipulation, linalg, card):
 
     with host_counters() as counts:
         torch.cuda.synchronize()
-        linalg.chol_solve.launches = 0
+        linalg.reset_launch_counts()
         t0 = time.perf_counter()
         ts = env.reset()
         torch.cuda.synchronize()
@@ -1542,6 +1614,9 @@ def phase_host_rate(manipulation, linalg, card):
                 np.isfinite(v).all() for v in ts.observation.values()),
                 f"host {name}: non-finite reward or observation")
         launches = linalg.chol_solve.launches
+        block_launches = linalg.chol_solve.branch_launches["block"]
+        check_branch(linalg, f"host {name}", env.physics.model, launches,
+                     block_launches)
         updater_ms = 1e3 * counts["updater_s"] / steps
         reads = counts["reads"] / steps
     check(int(ts.step_type) == 1, f"host {name}: step type {ts.step_type}")
@@ -1554,6 +1629,7 @@ def phase_host_rate(manipulation, linalg, card):
                                             f"host {name}")
     warm = times[1:]
     return dict(task=name, nv=env.physics.model.nv, launches=launches,
+                block_launches=block_launches,
                 reset_launches=reset_launches, per_step=per_step,
                 substeps=substeps, steps_per_s=len(warm) / sum(warm),
                 first_ms=1e3 * times[0], reset_s=reset_s,
@@ -1626,8 +1702,8 @@ def phase_host(manipulation, linalg, card):
           f"{rate['idle_share']:.4f} | {card}", flush=True)
     check_run = phase_host_selfcheck(manipulation, linalg)
     print(f"phase 12 selfcheck: manipulation.load({check_run['task']!r}) "
-          f"float64 (nv={check_run['nv']}: the kernel's shared-memory "
-          f"branch), reset and {HOST_SELFCHECK[2]} control steps through "
+          f"float64 (nv={check_run['nv']}: the block kernel), reset and "
+          f"{HOST_SELFCHECK[2]} control steps through "
           f"the kernel ({check_run['launches']} launches) vs "
           f"reference_solves(): max |dobs| {check_run['dobs']:.3e} "
           f"({check_run['worst']}), |dreward| {check_run['drew']:.3e}, "
@@ -1670,10 +1746,10 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
     step at a time (``rl/golden.py``): the reset's draws exact (qpos, the
     drawn pitch's geom sizes, the placed targets), every timestep within
     the gate.  Returns the kernel's launches in each replay, counted from 0
-    at its start."""
+    at its start, and those of the block kernel among them."""
     from dm_control_torch.rl import golden
 
-    launches = {}
+    launches, block_launches = {}, {}
     for name in names:
         with np.load(os.path.join(ROOT, "tests", "data",
                                   f"torch_locomotion_env_{name}_f64.npz"),
@@ -1683,11 +1759,14 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
         check(env.physics.model.device.type == "cuda",
               f"host golden {name}: the environment left the card")
         torch.cuda.synchronize()
-        linalg.chol_solve.launches = 0
+        linalg.reset_launch_counts()
         t0 = time.perf_counter()
         errs = golden.host_episode_errors(env, gold)
         seconds = time.perf_counter() - t0
         launches[name] = linalg.chol_solve.launches
+        block_launches[name] = linalg.chol_solve.branch_launches["block"]
+        check_branch(linalg, f"host golden {name}", env.physics.model,
+                     launches[name], block_launches[name])
         figures, ok = golden.episode_gate(errs, gold, name)
         check(ok, f"host golden {name}: gate failed, figures "
                   f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in figures]}")
@@ -1703,12 +1782,13 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
               f"{env.physics.model.nv}) on the card vs the JAX episode, "
               f"reset and {len(figures) - 1} control steps each from the "
               f"recorded state in {seconds:.1f} s ({launches[name]} "
-              f"chol_solve launches): reset qpos and "
+              f"chol_solve launches, {block_launches[name]} of them the "
+              f"block kernel's): reset qpos and "
               f"{', '.join(k[6:] for k in reset if k != 'step_qpos')} exact; "
               f"gate: all but qacc_warmstart {rest:.3e} <= 1e-9, "
               f"qacc_warmstart {rel:.3e} of its scale <= 1e-12 | {card}",
               flush=True)
-    return launches
+    return launches, block_launches
 
 
 def phase_loco_compiles(card):
@@ -1766,7 +1846,7 @@ def phase_loco_rate(linalg):
     steps = LOCO_RATE_STEPS
     with host_counters() as counts:
         torch.cuda.synchronize()
-        linalg.chol_solve.launches = 0
+        linalg.reset_launch_counts()
         t0 = time.perf_counter()
         ts = env.reset()
         torch.cuda.synchronize()
@@ -1788,6 +1868,9 @@ def phase_loco_rate(linalg):
                           for v in ts.observation.values()),
                   "soccer.load(): bad reward or non-finite observation")
         launches = linalg.chol_solve.launches
+        block_launches = linalg.chol_solve.branch_launches["block"]
+        check_branch(linalg, "soccer.load()", env.physics.model, launches,
+                     block_launches)
         updater_ms = 1e3 * counts["updater_s"] / steps
         reads = counts["reads"] / steps
         scans = counts["contact_scans"] / steps
@@ -1803,6 +1886,7 @@ def phase_loco_rate(linalg):
     warm = times[1:]
     return dict(task="soccer.load()", nv=env.physics.model.nv,
                 pitch=env.task.arena.size, launches=launches,
+                block_launches=block_launches,
                 reset_launches=reset_launches, per_step=per_step,
                 substeps=substeps, steps_per_s=len(warm) / sum(warm),
                 first_ms=1e3 * times[0], reset_s=reset_s,
@@ -1884,7 +1968,7 @@ def phase_loco(linalg, card):
           f"share {rate['idle_share']:.4f} | {card}", flush=True)
     check_run = phase_loco_selfcheck(linalg)
     print(f"phase 13 selfcheck: {check_run['task']} float64 (nv="
-          f"{check_run['nv']}: the kernel's shared-memory branch) through "
+          f"{check_run['nv']}: the block kernel) through "
           f"composer.Environment, reset and {LOCO_SELFCHECK[2]} control "
           f"steps through the kernel ({check_run['launches']} launches) vs "
           f"reference_solves(): max |dobs| {check_run['dobs']:.3e} of "
@@ -1927,7 +2011,7 @@ def phase_examples_rate(linalg, name):
             for v in ts.observation.values()))
 
     torch.cuda.synchronize()
-    linalg.chol_solve.launches = 0
+    linalg.reset_launch_counts()
     t0 = time.perf_counter()
     ts = env.reset()
     torch.cuda.synchronize()
@@ -1949,6 +2033,8 @@ def phase_examples_rate(linalg, name):
     check(all(finite(ts) for ts in steps),
           f"{name}: a non-finite reward or observation")
     launches = linalg.chol_solve.launches
+    block_launches = linalg.chol_solve.branch_launches["block"]
+    check_branch(linalg, name, env.physics.model, launches, block_launches)
     substeps = env._n_sub_steps
     per_step = (launches - reset_launches) / len(steps)
     check(per_step >= 3 * substeps,
@@ -1959,6 +2045,7 @@ def phase_examples_rate(linalg, name):
                 substeps=substeps, build_s=build_s,
                 compile_ms=1e3 * counts["recompile_s"], reset_s=reset_s,
                 reset_launches=reset_launches, launches=launches,
+                block_launches=block_launches,
                 per_step=per_step, step_types=kinds,
                 steps_per_s=len(times) / sum(times),
                 step_ms=[1e3 * t for t in times], kernels_per_step=kernels,
@@ -2082,7 +2169,7 @@ def phase_examples(linalg, card):
                        f"plain step {d:.3e} from it)" for t, d in c["held"])
         print(f"phase 14 selfcheck: {LOCO_EXAMPLE_SELFCHECK[0]} "
               f"{str(dtype).replace('torch.', '')} (nv={c['nv']}: the "
-              f"kernel's shared-memory branch), control steps from the "
+              f"block kernel), control steps from the "
               f"recorded timesteps {LOCO_EXAMPLE_SELFCHECK[1]} through the "
               f"kernel ({c['launches']} launches) vs reference_solves(): "
               f"obs {w['obs']:.3e}, reward {w['reward']:.3e}, state "
@@ -2131,17 +2218,19 @@ def main() -> int:
           f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower "
           f"triangle only n in {LOWER_NS}, max |dx| f32 "
           f"{worst[torch.float32]:.3e} f64 {worst[torch.float64]:.3e}, "
-          f"non-SPD row NaN only | {card}", flush=True)
+          f"non-SPD row NaN only n in {NON_SPD_NS} | {card}", flush=True)
     for k in shapes + singles:
         print(f"phase 3 timing B={k['B']} n={k['n']} {k['dtype']} A warm "
               f"in L2: "
-              f"kernel {k['ms']:.4f} ms per call (device "
+              f"{k['branch']} kernel {k['ms']:.4f} ms per call (device "
               f"{k['device_ms']:.5f} ms by torch.profiler), bound "
               f"{k['bound_ms']:.3e} ms by {k['bound_by']} "
               f"({k['dense_bound_ms']:.3e} ms were the dense a counted), "
               f"plain {k['plain_ms']:.4f} ms, torch.linalg.solve "
-              f"{k['library_ms']:.4f} ms, cholesky_ex + cholesky_solve "
-              f"{k['library_cholesky_ms']:.4f} ms, max |dx| "
+              f"{k['library_ms']:.4f} ms (device "
+              f"{k['library_device_ms']:.5f} ms), cholesky_ex + "
+              f"cholesky_solve {k['library_cholesky_ms']:.4f} ms (device "
+              f"{k['library_cholesky_device_ms']:.5f} ms), max |dx| "
               f"{k['max_abs_err']:.3e} (runs "
               + " ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}"
                          for name, v in k["runs"].items())
@@ -2253,31 +2342,41 @@ def main() -> int:
           flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
-    shape_keys = ("B", "n", "dtype", "max_abs_err", "ms", "plain_ms",
-                  "bound_ms", "dense_bound_ms", "bound_by", "library_ms",
-                  "library_cholesky_ms", "device_ms")
+    shape_keys = ("B", "n", "dtype", "branch", "max_abs_err", "ms",
+                  "plain_ms", "bound_ms", "dense_bound_ms", "bound_by",
+                  "library_ms", "library_cholesky_ms", "device_ms",
+                  "library_device_ms", "library_cholesky_device_ms")
+    # path -> (launches, launches of the block kernel among them)
+    paths = {
+        **{f"{r['domain']}:{r['task']}": r for r in runs},
+        **{f"ppo {r['domain']}:{r['task']}": r for r in trains},
+        "single humanoid:run": single,
+        **{f"manipulation:{r['task']}": r for r in manips},
+        **{f"locomotion:{r['task']}": r for r in locos},
+        f"compile cartpole:{compiled['task']}": compiled,
+        "compile recipe Physics.from_xml_string": recipe,
+        f"manipulation host:{host_rate['task']}": host_rate,
+        f"locomotion host:{loco_rate['task']}": loco_rate,
+        **{f"locomotion example:{r['task']}": r for r in examples}}
+    counts = {name: (r["launches"], r["block_launches"])
+              for name, r in paths.items()}
+    for kind, (launches, blocks) in (("locomotion host golden", loco_goldens),
+                                     ("locomotion example golden",
+                                      example_goldens)):
+        counts.update({f"{kind}:{name}": (n, blocks[name])
+                       for name, n in launches.items()})
     print(json.dumps({"kernels": [{
         "name": "chol_solve", "route": "cuda",
         "source": "dm_control_torch/csrc/chol_solve.cu",
         "replaces": "dm_control_tpu/ops/linalg.py:69",
         "launches": runs[0]["launches"],
-        "launches_by_path": {
-            **{f"{r['domain']}:{r['task']}": r["launches"] for r in runs},
-            **{f"ppo {r['domain']}:{r['task']}": r["launches"]
-               for r in trains},
-            "single humanoid:run": single["launches"],
-            **{f"manipulation:{r['task']}": r["launches"] for r in manips},
-            **{f"locomotion:{r['task']}": r["launches"] for r in locos},
-            f"compile cartpole:{compiled['task']}": compiled["launches"],
-            "compile recipe Physics.from_xml_string": recipe["launches"],
-            f"manipulation host:{host_rate['task']}": host_rate["launches"],
-            **{f"locomotion host golden:{name}": n
-               for name, n in loco_goldens.items()},
-            f"locomotion host:{loco_rate['task']}": loco_rate["launches"],
-            **{f"locomotion example golden:{name}": n
-               for name, n in example_goldens.items()},
-            **{f"locomotion example:{r['task']}": r["launches"]
-               for r in examples}},
+        "branches": {
+            "register": "chol_solve_reg_kernel: n <= 32, and n <= 64 in "
+                        "float32",
+            "block": "chol_solve_block_kernel: 33 <= n <= 160 in float64, "
+                     "65 <= n <= 160 in float32"},
+        "launches_by_path": {name: c[0] for name, c in counts.items()},
+        "block_launches_by_path": {name: c[1] for name, c in counts.items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

@@ -13,7 +13,9 @@ environment and solve one right-hand side:
 (n, n) matrix shared by the batch, which is never copied B times) and
 dispatches on the device of its
 inputs: a CUDA tensor launches the fused factor+solve kernel in
-``csrc/chol_solve.cu`` or raises; a CPU tensor uses
+``csrc/chol_solve.cu`` or raises (the register kernel, one warp a system,
+up to n = 32, and 64 in float32; the block kernel, one thread block a
+system, above that up to 160); a CPU tensor uses
 ``chol_solve_reference``, the plain PyTorch version of the same function.
 ``reference_solves()`` is the one explicit switch that sends CUDA tensors
 to the plain version too, so that a whole step can be compared on the card
@@ -49,12 +51,13 @@ def chol_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _DTYPES = (torch.float32, torch.float64)
 _ENTRY = None  # {dtype: C entry point}, filled by the first _load()
 _MAX_N = 0
+_REGISTER_MAX_N = {}  # {dtype: largest n of the register kernel}
 _ERROR_STRING = None
 
 
 def _load() -> None:
     """Builds (or loads) the library and resolves its entry points once."""
-    global _ENTRY, _MAX_N, _ERROR_STRING
+    global _ENTRY, _MAX_N, _REGISTER_MAX_N, _ERROR_STRING
     from dm_control_torch.ops import _cuda_build
 
     lib = _cuda_build.load_library("chol_solve.cu")
@@ -65,10 +68,15 @@ def _load() -> None:
         fn.restype = ctypes.c_int
     lib.chol_solve_max_n.argtypes = []
     lib.chol_solve_max_n.restype = ctypes.c_int
+    lib.chol_solve_register_max_n.argtypes = [ctypes.c_int]
+    lib.chol_solve_register_max_n.restype = ctypes.c_int
     lib.chol_solve_error_string.argtypes = [ctypes.c_int]
     lib.chol_solve_error_string.restype = ctypes.c_char_p
     _ERROR_STRING = lib.chol_solve_error_string
     _MAX_N = lib.chol_solve_max_n()
+    _REGISTER_MAX_N = {
+        dtype: lib.chol_solve_register_max_n(int(dtype == torch.float64))
+        for dtype in _DTYPES}
     _ENTRY = {torch.float32: lib.chol_solve_f32,
               torch.float64: lib.chol_solve_f64}
 
@@ -111,7 +119,9 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reads it with a batch stride of 0, nothing is copied); b: (B, n);
     both contiguous, float32 or float64, on one CUDA device.  Only the
     lower triangle of a is read, as by ``chol_solve_reference``.  Returns
-    x (B, n).  Raises on anything else.
+    x (B, n).  Raises on anything else.  Counts the launch in
+    ``chol_solve.launches`` and in ``chol_solve.branch_launches`` under the
+    branch that (n, type) takes.
     """
     n = _check(a, b)
     x = torch.empty_like(b)
@@ -128,7 +138,17 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("chol_solve kernel launch failed: "
                            + _ERROR_STRING(err).decode())
     chol_solve.launches += 1
+    chol_solve.branch_launches[kernel_branch(n, a.dtype)] += 1
     return x
+
+
+def kernel_branch(n: int, dtype: torch.dtype) -> str:
+    """The branch of the launcher's rule, fixed on (n, type), that a solve
+    of size n takes: "register" (n <= 32, and n <= 64 in float32) or
+    "block"."""
+    if _ENTRY is None:
+        _load()
+    return "register" if n <= _REGISTER_MAX_N[dtype] else "block"
 
 
 def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -148,6 +168,16 @@ def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 #: launches of the CUDA kernel since the count was last set to 0
 chol_solve.launches = 0
+#: the same by branch: "register" (n <= 32, and n <= 64 in float32) and
+#: "block" (every larger n up to 160)
+chol_solve.branch_launches = {"register": 0, "block": 0}
+
+
+def reset_launch_counts() -> None:
+    """Sets ``chol_solve.launches`` and each branch's count to 0."""
+    chol_solve.launches = 0
+    for branch in chol_solve.branch_launches:
+        chol_solve.branch_launches[branch] = 0
 
 
 @contextlib.contextmanager

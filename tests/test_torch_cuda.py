@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import PREFIXES, assert_step_matches_golden, golden
+from _torch_helpers import (
+    PREFIXES, ROOT, assert_step_matches_golden, golden,
+)
 from dm_control_torch import manipulation, suite
 from dm_control_torch.ops import linalg
 
@@ -39,16 +41,22 @@ def _spd(rng, b, n, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # n on both sides of every boundary of the launcher's rule (32 and, in
-# float32, 64) and the nv of every ported model; 1001 fills no block of 4
-# warps evenly; (73, 1) is the rat's one environment (shared memory in
-# both types)
+# float32, 64) and of the block kernel's panels (64/65, 96/97, 128/129),
+# and the nv of every ported model; 1001 fills no block of 4 warps evenly;
+# the block kernel's main-path n (the rat's 73, dog's 79 and 85) and its
+# largest at B = 1, 4 and 512
 @pytest.mark.parametrize("n,b", [(1, 5), (2, 1000), (2, 8192), (3, 1024),
                                  (4, 1001), (7, 1024), (9, 4096),
                                  (11, 1024), (14, 1001), (20, 1024),
                                  (27, 1024), (31, 1001),
                                  (32, 1001), (33, 1001), (62, 1024),
                                  (63, 1001), (64, 1001), (65, 1001),
-                                 (73, 1), (79, 1000), (85, 512), (160, 3)])
+                                 (96, 1001), (97, 1001), (128, 64),
+                                 (129, 64),
+                                 (73, 1), (73, 4), (73, 512),
+                                 (79, 1), (79, 4), (79, 512), (79, 1000),
+                                 (85, 1), (85, 4), (85, 512),
+                                 (160, 1), (160, 3), (160, 4), (160, 512)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -61,7 +69,7 @@ def test_kernel_matches_plain_version(cuda, n, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 32, 33, 64, 65])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160])
 def test_shared_matrix_is_read_with_stride_0(cuda, n, dtype):
     """One (n, n) matrix for the batch: directly, and as an expanded view
     through the dispatcher, which hands over the one copy."""
@@ -80,7 +88,7 @@ def test_shared_matrix_is_read_with_stride_0(cuda, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 32, 33, 64, 65])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160])
 def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
     """What stands above the diagonal of a is no input, for the kernel as
     for the plain version, on both sides of the launcher's boundaries."""
@@ -98,7 +106,7 @@ def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 62, 79, 85])
+@pytest.mark.parametrize("n", [27, 62, 73, 79, 85, 160])
 def test_non_spd_system_gives_nan_in_its_row_only(cuda, n, dtype):
     rng = np.random.default_rng(0)
     a = _spd(rng, 64, n, dtype, cuda)
@@ -118,11 +126,23 @@ def test_dispatch_counts_launches_and_reference_switch(cuda):
     a = _spd(rng, 8, 6, torch.float32, cuda)
     rhs = torch.ones(8, 6, device=cuda)
     before = linalg.chol_solve.launches
+    branches = dict(linalg.chol_solve.branch_launches)
     x = linalg.chol_solve(a, rhs)
     assert linalg.chol_solve.launches == before + 1
+    assert linalg.chol_solve.branch_launches == {
+        "register": branches["register"] + 1, "block": branches["block"]}
     with linalg.reference_solves():
         x_ref = linalg.chol_solve(a, rhs)
     assert linalg.chol_solve.launches == before + 1
+    # the block kernel above the register path: n = 65 in float32, 33 in
+    # float64
+    for n, dtype in ((65, torch.float32), (33, torch.float64)):
+        linalg.chol_solve(_spd(rng, 2, n, dtype, cuda),
+                          torch.ones(2, n, dtype=dtype, device=cuda))
+    assert linalg.chol_solve.branch_launches == {
+        "register": branches["register"] + 1,
+        "block": branches["block"] + 2}
+    assert linalg.chol_solve.launches == before + 3
     torch.testing.assert_close(x, x_ref, rtol=2e-4, atol=2e-4)
     # one matrix shared by the batch
     x_b = linalg.chol_solve(a[0], rhs)
@@ -150,6 +170,47 @@ def test_float64_step_on_the_card_matches_the_jax_golden(cuda, prefix):
     before = linalg.chol_solve.launches
     assert_step_matches_golden(env, g, prefix)
     assert linalg.chol_solve.launches - before >= 3 * env.n_sub_steps
+
+
+def test_float64_dog_fetch_step_takes_the_block_kernel(cuda):
+    """dog:fetch's golden (nv 85) in float64: one step from each of its
+    start states within the golden gate, every solve on the block kernel
+    (n > 32 in float64)."""
+    g = golden("dog_fetch")
+    env = suite.load_batch("dog", "fetch", device=cuda, dtype=torch.float64,
+                           autoreset=False)
+    linalg.reset_launch_counts()
+    for prefix in PREFIXES:
+        assert_step_matches_golden(env, g, prefix)
+    counts = linalg.chol_solve.branch_launches
+    assert counts["register"] == 0
+    assert counts["block"] == linalg.chol_solve.launches
+    assert counts["block"] >= 2 * len(PREFIXES) * env.n_sub_steps
+
+
+def test_float64_rat_golden_step_takes_the_block_kernel(cuda):
+    """The rat's two-touch host golden (nv 73) in float64: the reset and the
+    first control step from the recorded state within the golden gate,
+    every solve on the block kernel."""
+    from dm_control_torch.locomotion.examples import basic
+    from dm_control_torch.rl import golden as golden_io
+
+    name = "rodent_two_touch"
+    with np.load(f"{ROOT}/tests/data/torch_locomotion_env_{name}_f64.npz",
+                 allow_pickle=False) as z:
+        gold = {k: z[k] for k in z.files}
+    gold["actions"] = gold["actions"][:1]
+    np.random.seed(11)  # the recording's global state and seed
+    env = basic.rodent_two_touch(random_state=11)
+    assert env.physics.model.nv == 73
+    linalg.reset_launch_counts()
+    errs = golden_io.host_episode_errors(env, gold)
+    _, ok = golden_io.episode_gate(errs, gold, name)
+    assert ok
+    counts = linalg.chol_solve.branch_launches
+    assert counts["register"] == 0
+    assert counts["block"] == linalg.chol_solve.launches
+    assert counts["block"] >= 2 * env._n_sub_steps
 
 
 @pytest.mark.parametrize("name", manipulation.ALL)

@@ -6,12 +6,13 @@ calls, all in one process on one card.
         [--variant COPY.cu ...] [--n 27 62] \
         [--batch 256 1024 8192] [--main-path STEPS] [--out FILE.json]
 
-``--old`` names a source with the first C interface (no batch stride),
-for example ``git show <commit>:dm_control_torch/csrc/chol_solve.cu >
-_checkout/chol_solve_old.cu``.  ``earlier_wrapper`` and ``--main-path``
-are tied to that interface and its Python wrapper.  Each ``--variant`` is
-a copy of this checkout's source with an edit to try (another
-``kRegWarps``, say), with the present interface.
+``--old`` names an earlier source with the present C interface (a batch
+stride), for example ``git show b122ab7:dm_control_torch/csrc/chol_solve.cu
+> _checkout/chol_solve_old.cu`` (the shared-memory kernel that the block
+kernel replaced).  Each ``--variant`` is a copy of this checkout's source
+with an edit to try (another ``kBlockWarps``, say).  Both are called
+through the C interface alone, the output allocated per call as the
+wrapper does.
 
 For every (n, B, type) and every implementation it prints, and with
 ``--out`` writes as JSON:
@@ -22,10 +23,11 @@ For every (n, B, type) and every implementation it prints, and with
 - ``device_us``: device time per call from ``torch.profiler``;
 - ``call_us``: CUDA events around one call through the Python wrapper,
   median of 200 (the kernel as the engine calls it, host half included;
-  for ``--old`` through a copy of the earlier wrapper);
-- ``host_us``: host clock over 2000 calls through the wrapper without a
-  synchronise, per call: what a call costs the host (valid where the
-  device keeps up, which the other columns show);
+  for ``--old`` and the variants through the C interface alone);
+- ``host_us``: host clock over up to 2000 calls (about 0.25 s of them)
+  through the wrapper without a synchronise, per call: what a call costs
+  the host (valid where the device keeps up, which the other columns
+  show);
 - ``bound_us``: the bytes (the lower triangle of A, which is the
   function's input, and b read once, x written once) over 3.35 TB/s, or
   the operations over the float32/float64 rate if larger.
@@ -34,10 +36,10 @@ Implementations are timed in turns (old, new, variants, library, then
 the same backwards) and both readings are kept.
 
 ``--main-path STEPS`` (with ``--old``) then drives humanoid:run at
-B = 1024 float32 for STEPS control steps, taking the earlier kernel and
-wrapper on even steps and this checkout's on odd ones, and reports the
-step times of each: the two share one process, one card and one minute
-of the host's mood.  Needs a CUDA device and no JAX.
+B = 1024 float32 for STEPS control steps, taking the earlier kernel on
+even steps and this checkout's on odd ones, and reports the step times of
+each: the two share one process, one card and one minute of the host's
+mood.  Needs a CUDA device and no JAX.
 """
 
 from __future__ import annotations
@@ -85,49 +87,31 @@ def build(source, tag="lib"):
     return lib, proc.stderr
 
 
-def raw_launcher(lib, with_stride):
-    """launch(a, b, x) on the current stream through the C interface."""
+def raw_launcher(lib):
+    """launch(a, b, x) on the current stream through the C interface; a
+    is (B, n, n), or one (n, n) matrix read with a batch stride of 0."""
     ptr = ctypes.c_void_p
     fns = {torch.float32: lib.chol_solve_f32,
            torch.float64: lib.chol_solve_f64}
     for fn in fns.values():
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int] + (
-            [ctypes.c_longlong] if with_stride else []) + [ptr]
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ptr]
         fn.restype = ctypes.c_int
 
     def launch(a, b, x):
         batch, n = b.shape
-        stride = (n * n,) if with_stride else ()
         err = fns[a.dtype](a.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n,
-                           *stride, torch.cuda.current_stream().cuda_stream)
+                           0 if a.ndim == 2 else n * n,
+                           torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed with CUDA error {err}")
         return x
     return launch
 
 
-def earlier_wrapper(launch):
-    """The host path of the first version of the wrapper: six checks,
-    ``torch.cuda.device``, the output's allocation, and a copy per system
-    of a shared (n, n) matrix."""
-    def call(a, b):
-        if a.ndim == 2:
-            a = a.expand(b.shape[0], *a.shape).contiguous()
-        if a.device.type != "cuda" or b.device != a.device:
-            raise ValueError
-        if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
-            raise TypeError
-        if a.ndim != 3 or a.shape[1] != a.shape[2] or b.shape != a.shape[:2]:
-            raise ValueError
-        if not (a.is_contiguous() and b.is_contiguous()):
-            raise ValueError
-        if b.shape[1] < 1 or b.shape[1] > 160:
-            raise ValueError
-        x = torch.empty_like(b)
-        with torch.cuda.device(a.device):
-            launch(a, b, x)
-        return x
-    return call
+def raw_call(raw):
+    """call(a, b): the output allocated, then the launch."""
+    return lambda a, b: raw(a, b, torch.empty_like(b))
 
 
 def kernel_events(prof):
@@ -163,10 +147,16 @@ def call_us(fn, reps=200):
     return float(np.median(times))
 
 
-def host_us(fn, calls=2000):
+def host_us(fn, calls=2000, seconds=0.25):
+    """Per call; at most ``calls`` calls, fewer where they would take
+    longer than about ``seconds``."""
     for _ in range(20):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    calls = max(20, min(calls, int(seconds / (time.perf_counter() - t0))))
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
@@ -282,7 +272,7 @@ def main_path(linalg, old_call, steps, batch=1024):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--old", help="an earlier chol_solve.cu (no stride)")
+    parser.add_argument("--old", help="an earlier chol_solve.cu")
     parser.add_argument("--variant", nargs="*", default=[],
                         help="edited copies of this checkout's source")
     parser.add_argument("--n", type=int, nargs="*", default=[27])
@@ -309,20 +299,18 @@ def main() -> int:
     if args.old:
         lib, report = build(args.old, tag="old")
         out["ptxas"]["old"] = report
-        raw = raw_launcher(lib, with_stride=False)
-        impls["old"] = {"raw": raw, "call": earlier_wrapper(raw)}
+        raw = raw_launcher(lib)
+        impls["old"] = {"raw": raw, "call": raw_call(raw)}
     lib, report = build(source, tag="new")
     out["ptxas"]["new"] = report
-    impls["new"] = {"raw": raw_launcher(lib, with_stride=True),
+    impls["new"] = {"raw": raw_launcher(lib),
                     "call": linalg.chol_solve_cuda}
     for path in args.variant:
         lib, report = build(path, tag="variant")
         name = os.path.basename(path)
         out["ptxas"][name] = report
-        raw = raw_launcher(lib, with_stride=True)
-        impls[name] = {
-            "raw": raw,
-            "call": lambda a, b, raw=raw: raw(a, b, torch.empty_like(b))}
+        raw = raw_launcher(lib)
+        impls[name] = {"raw": raw, "call": raw_call(raw)}
     impls["plain"] = {"call": linalg.chol_solve_reference}
     for name, fn in library_calls().items():
         impls[name] = {"call": fn}
