@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernel from the sources in this checkout, holds it
 against its plain PyTorch version (sizes on both sides of every boundary
-of the launcher's rule and every nv of the ported models, both types, a
+of the launcher's rule, its register, block and global branches, and
+every nv of the ported models up to 1,370, both types, a
 shared matrix, a matrix given by its lower triangle alone, a non-SPD
 system), times it at the main paths' shapes beside its bound, the plain
 version and PyTorch's library calls for the same function, checks one
@@ -71,9 +72,15 @@ the bowl, their trees compiled by the port): each of the nine in float32
 with its compile time, candidate contacts, rate, launches and idle
 share, four recorded float64 host episodes of the JAX package's examples
 replayed on the card one control step at a time, and the rat (nv 73) in
-float32 and float64 with and without the kernel.  Each phase prints one
-line (phases 11 to 14 one per model); any failure exits with a non-zero
-code.  The last line is a
+float32 and float64 with and without the kernel; and last soccer's ANT
+and HUMANOID players (``soccer.load(walker_type=...)``): HUMANOID two a
+side (nv 254) in float32 with its rate, launches by branch, candidates,
+contact rows and idle share, the ANT two a side and HUMANOID one a side
+float64 host goldens replayed one control step at a time, HUMANOID two a
+side in float64 (the kernel's global branch) with and without the
+kernel, and BoxHead ten a side (nv 166) in float64 on the card.  Each
+phase prints one line (phases 11 to 15 one per model); any failure exits
+with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -154,7 +161,10 @@ TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
 #: ball (8), soccer 1v1 (22), 2v2 (38) and CMU 2020 (62) on the host, and
 #: phase 14's rat (73, the block kernel in both types), each in the
 #: single environment's float64 and in float32 (CMU 2019's 62 in float32 is
-#: phase 14's humanoid rate path)
+#: phase 14's humanoid rate path), and phase 15's float64 BoxHead 10v10
+#: (166, the block kernel), HUMANOID 2v2 (254: the global kernel in
+#: float64, the block kernel in float32) and an 11v11 HUMANOID match's
+#: 1,370 (the global kernel)
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 21, torch.float64), (1, 21, torch.float32),
                 (1, 39, torch.float64), (1, 39, torch.float32),
@@ -162,7 +172,9 @@ TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 22, torch.float64), (1, 22, torch.float32),
                 (1, 38, torch.float64), (1, 38, torch.float32),
                 (1, 62, torch.float64), (1, 62, torch.float32),
-                (1, 73, torch.float64), (1, 73, torch.float32))
+                (1, 73, torch.float64), (1, 73, torch.float32),
+                (1, 166, torch.float64), (1, 254, torch.float64),
+                (1, 254, torch.float32), (1, 1370, torch.float64))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
@@ -286,6 +298,26 @@ LOCO_EXAMPLE_SELFCHECK = ("rodent_two_touch", (1,))
 #: under the 1e-9 absolute of phases 9 and 10, which the float64 run
 #: keeps)
 LOCO_EXAMPLE_F32_TOL = 1e-4
+#: phase 15, soccer's ANT and HUMANOID players (``soccer.load(walker_type=
+#: ...)``) and the matches past the block kernel's first cap of 160: the
+#: float32 rate path, HUMANOID two a side on the pitch drawn from the
+#: humanoids' areas (nv 254, the block kernel in float32), a reset and
+#: ``LOCO_EXAMPLE_STEPS`` control steps
+WALKER_RATE = ("soccer humanoid 2v2",
+               {"team_size": 2, "walker_type": "humanoid"})
+#: the host episode goldens of ANT two a side on a fixed (12, 9) pitch and
+#: HUMANOID one a side on its drawn pitch (``tools/export_torch_assets.py
+#: loco_walker_goldens``), replayed one control step at a time
+WALKER_GOLDENS = ("soccer_ant_2v2", "soccer_humanoid_1v1")
+#: the float64 selfcheck, kernel against ``reference_solves()``: HUMANOID
+#: two a side (nv 254, the global kernel in float64), one control step
+#: from the reset's state; gate 1e-9 absolute, as phases 9, 10 and 14
+#: (no recording holds this match, so there is no recording to hold a
+#: plain step that is off to)
+WALKER_SELFCHECK = {"team_size": 2, "walker_type": "humanoid"}
+#: BoxHead ten a side (nv 166: the block kernel, over its first cap) in
+#: float64 on its drawn pitch: a reset and one control step
+LARGE_MATCH = {"team_size": 10}
 
 
 class PhaseError(RuntimeError):
@@ -307,20 +339,27 @@ def card_line() -> str:
 
 
 #: n on both sides of every boundary of the launcher's rule (32, and 64 in
-#: float32) and of the block kernel's panels (64/65, 96/97, 128/129), and
-#: every ported nv
+#: float32; the block kernel's last, 202 in float64 and 303 in float32) and
+#: of the block kernel's panels (64/65, 96/97, 128/129), and every ported
+#: nv (soccer 10v10 and 11v11: 166, 182; HUMANOID 2v2: 254; 11v11: 1,370)
 KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 11, 13, 14, 15, 17, 20, 21, 22, 27, 28, 31,
              32, 33, 39, 40, 62, 63, 64, 65, 73, 79, 85, 96, 97, 128, 129,
-             160)
+             160, 166, 182, 202, 203, 254, 303, 304, 1370)
 #: 1001 fills no block of 4 warps evenly; 4 and 512 are the block kernel's
 #: small batches and dog's
 KERNEL_BS = (1, 4, 512, 1001, 1024)
+#: from this n on, the batches of KERNEL_BS_LARGE only (a matrix of 1,370
+#: takes 15 MB in float64)
+LARGE_N = 304
+KERNEL_BS_LARGE = (1, 4)
 SHARED_NS = (27, 32, 33, 64, 65, 73, 85, 160)
-LOWER_NS = (27, 32, 33, 64, 65, 73, 85, 160)
-NON_SPD_NS = (27, 62, 73, 79, 85, 160)
+LOWER_NS = (27, 32, 33, 64, 65, 73, 85, 160, 254)
+NON_SPD_NS = (27, 62, 73, 79, 85, 160, 254)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FLOAT32_FLOPS = 67e12      # H100 SXM, outside the tensor cores
-FLOAT64_FLOPS = 34e12      # H100 SXM data sheet, outside the tensor cores
+#: H100 SXM data sheet: float64 on the tensor cores (DMMA); outside them
+#: the card does half of it, 34e12, but the bound takes the card's peak
+FLOAT64_FLOPS = 67e12
 PEAK_FLOPS = {torch.float32: FLOAT32_FLOPS, torch.float64: FLOAT64_FLOPS}
 
 
@@ -430,13 +469,15 @@ def device_ms_each(fns, what, calls=50):
             for a, b in zip(bounds, bounds[1:])]
 
 
-def check_branch(linalg, what, model, launches, block_launches):
+def check_branch(linalg, what, model, launches, branch_launches):
     """Every solve of a path is one system of the model's nv, so all of its
-    launches take the branch that (nv, type) names."""
+    launches take the branch that (nv, type) names: ``branch_launches``
+    (launches by branch) holds ``launches`` there and 0 elsewhere."""
     branch = linalg.kernel_branch(model.nv, model.dtype)
-    check(block_launches == (launches if branch == "block" else 0),
-          f"{what}: {block_launches} of {launches} chol_solve launches took "
-          f"the block kernel; nv = {model.nv} in {model.dtype} names the "
+    want = {k: (launches if k == branch else 0) for k in branch_launches}
+    check(branch_launches == want,
+          f"{what}: chol_solve launches by branch {branch_launches} of "
+          f"{launches}; nv = {model.nv} in {model.dtype} names the "
           f"{branch} kernel")
 
 
@@ -458,9 +499,10 @@ def phase_kernel(linalg):
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
         for n in KERNEL_NS:
-            a_all = spd(gen, max(KERNEL_BS), n, dtype)
-            rhs_all = randn(gen, (max(KERNEL_BS), n), dtype)
-            for b in KERNEL_BS:
+            batches = KERNEL_BS if n < LARGE_N else KERNEL_BS_LARGE
+            a_all = spd(gen, max(batches), n, dtype)
+            rhs_all = randn(gen, (max(batches), n), dtype)
+            for b in batches:
                 a, rhs = a_all[:b], rhs_all[:b]
                 x = linalg.chol_solve_cuda(a, rhs)
                 torch.cuda.synchronize()
@@ -513,11 +555,12 @@ def phase_kernel(linalg):
 
 
 def time_shape(linalg, batch, n, dtype=torch.float32):
-    """The kernel at one main-path shape: its error, and its time beside
-    the bound, the plain version and the library calls (each per call by
-    CUDA events, and on the device by ``torch.profiler``).  A stays warm in
-    L2 between calls, as on the main path, where the product that writes H
-    runs just before the solve."""
+    """The kernel at one main-path shape: its error, and its time per call
+    by CUDA events beside the bound, the plain version and the library
+    calls; with the kernel's and the two library calls' functions on this
+    shape's inputs, for ``time_shapes`` to time on the device.  A stays
+    warm in L2 between calls, as on the main path, where the product that
+    writes H runs just before the solve."""
     gen = torch.Generator(device="cuda").manual_seed(n)
     a = spd(gen, batch, n, dtype)
     rhs = randn(gen, (batch, n), dtype)
@@ -542,11 +585,6 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     for order in (list(fns), list(reversed(fns))):  # in turns
         for k in order:
             runs[k].append(time_ms(lambda: fns[k](a, rhs)))
-    dev_ms, lib_dev_ms, lib_chol_dev_ms = device_ms_each(
-        [lambda: linalg.chol_solve_cuda(a, rhs), lambda: library(a, rhs),
-         lambda: library_cholesky(a, rhs)],
-        f"chol_solve, torch.linalg.solve and cholesky_ex + cholesky_solve "
-        f"at B={batch} n={n} {dtype}")
     # the function's input is the lower triangle of a (as for the plain
     # version), so the bound counts its bytes, b and x at the rate of device
     # memory; an a that is warm in L2 comes at a higher rate, so the true
@@ -559,14 +597,28 @@ def time_shape(linalg, batch, n, dtype=torch.float32):
     out = {k: min(v) for k, v in runs.items()}
     out.update(B=batch, n=n, dtype=str(dtype).replace("torch.", ""),
                branch=linalg.kernel_branch(n, dtype),
-               max_abs_err=err, device_ms=dev_ms,
-               library_device_ms=lib_dev_ms,
-               library_cholesky_device_ms=lib_chol_dev_ms,
-               bound_ms=max(byte_ms, flop_ms),
+               max_abs_err=err, bound_ms=max(byte_ms, flop_ms),
                dense_bound_ms=max(dense_ms, flop_ms),
                bound_by="bytes" if byte_ms >= flop_ms else "operations",
                runs=runs)
-    return out
+    return out, [lambda: linalg.chol_solve_cuda(a, rhs),
+                 lambda: library(a, rhs), lambda: library_cholesky(a, rhs)]
+
+
+def time_shapes(linalg, shapes):
+    """``time_shape`` at each (B, n, type) of ``shapes``, with the device
+    milliseconds of the kernel and of the two library calls at each, all
+    from one profiled session (a session costs more than the calls it
+    times)."""
+    timed = [time_shape(linalg, *shape) for shape in shapes]
+    device = device_ms_each(
+        [fn for _, fns in timed for fn in fns],
+        "chol_solve, torch.linalg.solve and cholesky_ex + cholesky_solve at "
+        "phase 3's timed shapes")
+    keys = ("device_ms", "library_device_ms", "library_cholesky_device_ms")
+    for i, (out, _) in enumerate(timed):
+        out.update(zip(keys, device[3 * i:3 * i + 3]))
+    return [out for out, _ in timed]
 
 
 def phase_golden(suite, name, domain, task, env=None):
@@ -688,9 +740,9 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                   for v in ts.observation.values()),
               f"{domain}: non-finite observation at step {i}")
     launches = linalg.chol_solve.launches
-    block_launches = linalg.chol_solve.branch_launches["block"]
+    branch_launches = dict(linalg.chol_solve.branch_launches)
     check_branch(linalg, f"{domain}:{task}", env.model, launches,
-                 block_launches)
+                 branch_launches)
     noslip_slots = solver.noslip.slots
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if inspect is not None:
@@ -731,7 +783,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                         step_median_ms=median_ms,
                         idle_share_unprofiled=1 - busy_ms / median_ms)
     return dict(domain=domain, task=task, batch=batch, launches=launches,
-                block_launches=block_launches,
+                branch_launches=branch_launches,
                 reset_launches=reset_launches, substeps=substeps,
                 min_solves=min_solves, env_steps_per_s=sps,
                 diverged_share=share, reset_s=reset_s,
@@ -830,8 +882,8 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
         check(any(not torch.equal(a, b) for a, b in zip(before, after)),
               f"{what}: a train step left the parameters as they were")
     launches = linalg.chol_solve.launches
-    block_launches = linalg.chol_solve.branch_launches["block"]
-    check_branch(linalg, what, env.model, launches, block_launches)
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, what, env.model, launches, branch_launches)
     per_step = (launches - warm_launches) / TRAIN_TIMED
     substeps = steps * env.n_sub_steps
     check(per_step >= min_solves * substeps,
@@ -847,7 +899,7 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
     check(metrics["env_steps"] == batch * steps,
           f"{what}: env_steps {metrics['env_steps']}")
     return dict(domain=domain, task=task, batch=batch, steps=steps,
-                launches=launches, block_launches=block_launches,
+                launches=launches, branch_launches=branch_launches,
                 per_step=per_step, substeps=substeps,
                 min_solves=min_solves, init_s=init_s, warm_s=warm_s,
                 env_steps_per_s=batch * steps * TRAIN_TIMED / sum(step_s),
@@ -965,9 +1017,9 @@ def phase_single(suite, linalg):
         check(all(np.isfinite(v).all() for v in ts.observation.values()),
               "single humanoid:run: non-finite observation")
     launches = linalg.chol_solve.launches
-    block_launches = linalg.chol_solve.branch_launches["block"]
+    branch_launches = dict(linalg.chol_solve.branch_launches)
     check_branch(linalg, "single humanoid:run", env.physics.model, launches,
-                 block_launches)
+                 branch_launches)
     check(int(ts.step_type) == 1 and np.isfinite(rewards).all()
           and all(0 <= r <= 1 for r in rewards),
           f"single humanoid:run: step type {ts.step_type}, rewards "
@@ -979,7 +1031,7 @@ def phase_single(suite, linalg):
     kernels, busy_ms, wall_ms = _idle_share(lambda: env.step(action()),
                                             "single humanoid:run")
     warm = times[1:]
-    return dict(launches=launches, block_launches=block_launches,
+    return dict(launches=launches, branch_launches=branch_launches,
                 reset_launches=reset_launches,
                 per_step=(launches - reset_launches) / SINGLE_STEPS,
                 steps_per_s=len(warm) / sum(warm),
@@ -1402,16 +1454,16 @@ def phase_recipe(linalg):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = linalg.chol_solve.launches
-    block_launches = linalg.chol_solve.branch_launches["block"]
+    branch_launches = dict(linalg.chol_solve.branch_launches)
     check_branch(linalg, "the dropped sphere", physics.model, launches,
-                 block_launches)
+                 branch_launches)
     height = float(physics.data.qpos[2])
     check(abs(height - 0.1) <= 1e-3,
           f"dropped sphere rests at {height:.6f}, not 0.1 +- 1e-3")
     check(launches >= RECIPE_STEPS,
           f"chol_solve launched {launches} times in {RECIPE_STEPS} steps")
     return dict(height=height, seconds=seconds, launches=launches,
-                block_launches=block_launches)
+                branch_launches=branch_launches)
 
 
 def phase_compile(suite, linalg, solver, card):
@@ -1614,9 +1666,9 @@ def phase_host_rate(manipulation, linalg, card):
                 np.isfinite(v).all() for v in ts.observation.values()),
                 f"host {name}: non-finite reward or observation")
         launches = linalg.chol_solve.launches
-        block_launches = linalg.chol_solve.branch_launches["block"]
+        branch_launches = dict(linalg.chol_solve.branch_launches)
         check_branch(linalg, f"host {name}", env.physics.model, launches,
-                     block_launches)
+                     branch_launches)
         updater_ms = 1e3 * counts["updater_s"] / steps
         reads = counts["reads"] / steps
     check(int(ts.step_type) == 1, f"host {name}: step type {ts.step_type}")
@@ -1629,7 +1681,7 @@ def phase_host_rate(manipulation, linalg, card):
                                             f"host {name}")
     warm = times[1:]
     return dict(task=name, nv=env.physics.model.nv, launches=launches,
-                block_launches=block_launches,
+                branch_launches=branch_launches,
                 reset_launches=reset_launches, per_step=per_step,
                 substeps=substeps, steps_per_s=len(warm) / sum(warm),
                 first_ms=1e3 * times[0], reset_s=reset_s,
@@ -1716,28 +1768,27 @@ def phase_host(manipulation, linalg, card):
     return compiles, rate, check_run
 
 
-def loco_host_env(name, dtype=torch.float64, seed=LOCO_HOST_SEED):
+def loco_host_env(name, dtype=torch.float64):
     """The port's locomotion host environment of a golden's name on the
     card, as the JAX one was built (``tools/export_torch_assets.py``'s
-    ``loco_env``): an example's after numpy's global state is seeded with
-    ``seed`` (the corridors draw their layout from it)."""
+    ``loco_env``): a soccer match from ``rl.golden.SOCCER_EPISODES``, the
+    rest with seed ``LOCO_HOST_SEED``, an example's after numpy's global
+    state is seeded with it (the corridors draw their layout from it)."""
     from dm_control_torch import composer
     from dm_control_torch.locomotion import soccer
+    from dm_control_torch.rl import golden
 
+    if name in golden.SOCCER_EPISODES:
+        return soccer.load(**golden.SOCCER_EPISODES[name], dtype=dtype)
     if name in LOCO_EXAMPLES:
         from dm_control_torch.locomotion.examples import basic
 
-        np.random.seed(seed)
-        return getattr(basic, name)(random_state=seed, dtype=dtype)
-    if name == "soccer_1v1":
-        return soccer.load(team_size=1, random_state=seed, dtype=dtype)
-    if name == "soccer_2v2_fixed":
-        return soccer.load(team_size=2, pitch_size=(12, 9),
-                           enable_field_box=True, random_state=seed,
-                           dtype=dtype)
+        np.random.seed(LOCO_HOST_SEED)
+        return getattr(basic, name)(random_state=LOCO_HOST_SEED,
+                                    dtype=dtype)
     task, limit = tracking_task(name)
-    return composer.Environment(task, time_limit=limit, random_state=seed,
-                                dtype=dtype)
+    return composer.Environment(task, time_limit=limit,
+                                random_state=LOCO_HOST_SEED, dtype=dtype)
 
 
 def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
@@ -1746,10 +1797,10 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
     step at a time (``rl/golden.py``): the reset's draws exact (qpos, the
     drawn pitch's geom sizes, the placed targets), every timestep within
     the gate.  Returns the kernel's launches in each replay, counted from 0
-    at its start, and those of the block kernel among them."""
+    at its start, and the same by branch."""
     from dm_control_torch.rl import golden
 
-    launches, block_launches = {}, {}
+    launches, branch_launches = {}, {}
     for name in names:
         with np.load(os.path.join(ROOT, "tests", "data",
                                   f"torch_locomotion_env_{name}_f64.npz"),
@@ -1764,9 +1815,9 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
         errs = golden.host_episode_errors(env, gold)
         seconds = time.perf_counter() - t0
         launches[name] = linalg.chol_solve.launches
-        block_launches[name] = linalg.chol_solve.branch_launches["block"]
+        branch_launches[name] = dict(linalg.chol_solve.branch_launches)
         check_branch(linalg, f"host golden {name}", env.physics.model,
-                     launches[name], block_launches[name])
+                     launches[name], branch_launches[name])
         figures, ok = golden.episode_gate(errs, gold, name)
         check(ok, f"host golden {name}: gate failed, figures "
                   f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in figures]}")
@@ -1782,13 +1833,14 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
               f"{env.physics.model.nv}) on the card vs the JAX episode, "
               f"reset and {len(figures) - 1} control steps each from the "
               f"recorded state in {seconds:.1f} s ({launches[name]} "
-              f"chol_solve launches, {block_launches[name]} of them the "
-              f"block kernel's): reset qpos and "
+              f"chol_solve launches, all on the "
+              f"{linalg.kernel_branch(env.physics.model.nv, torch.float64)}"
+              f" kernel): reset qpos and "
               f"{', '.join(k[6:] for k in reset if k != 'step_qpos')} exact; "
               f"gate: all but qacc_warmstart {rest:.3e} <= 1e-9, "
               f"qacc_warmstart {rel:.3e} of its scale <= 1e-12 | {card}",
               flush=True)
-    return launches, block_launches
+    return launches, branch_launches
 
 
 def phase_loco_compiles(card):
@@ -1868,9 +1920,9 @@ def phase_loco_rate(linalg):
                           for v in ts.observation.values()),
                   "soccer.load(): bad reward or non-finite observation")
         launches = linalg.chol_solve.launches
-        block_launches = linalg.chol_solve.branch_launches["block"]
+        branch_launches = dict(linalg.chol_solve.branch_launches)
         check_branch(linalg, "soccer.load()", env.physics.model, launches,
-                     block_launches)
+                     branch_launches)
         updater_ms = 1e3 * counts["updater_s"] / steps
         reads = counts["reads"] / steps
         scans = counts["contact_scans"] / steps
@@ -1886,7 +1938,7 @@ def phase_loco_rate(linalg):
     warm = times[1:]
     return dict(task="soccer.load()", nv=env.physics.model.nv,
                 pitch=env.task.arena.size, launches=launches,
-                block_launches=block_launches,
+                branch_launches=branch_launches,
                 reset_launches=reset_launches, per_step=per_step,
                 substeps=substeps, steps_per_s=len(warm) / sum(warm),
                 first_ms=1e3 * times[0], reset_s=reset_s,
@@ -1978,20 +2030,22 @@ def phase_loco(linalg, card):
     return golden_launches, compiles, rate, check_run
 
 
-def phase_examples_rate(linalg, name):
-    """Phase 14 (a): one example environment on the card in float32: its
-    build (the tree compiled onto the card), a reset and
-    ``LOCO_EXAMPLE_STEPS`` control steps with the kernel's launch count set
-    to 0 just before the reset and read after the last step, finite
-    rewards and observations; the steps before the last timed on the
-    host's clock, the last under ``torch.profiler`` (a rat's control step
-    takes seconds: one fewer keeps phase 14 within its time)."""
+def phase_examples_rate(linalg, name, build=None):
+    """Phase 14 (a), and 15 (a): one example environment (or the one
+    ``build()`` gives) on the card in float32: its build (the tree
+    compiled onto the card), a reset and ``LOCO_EXAMPLE_STEPS`` control
+    steps with the kernel's launch count set to 0 just before the reset
+    and read after the last step, finite rewards and observations; the
+    steps before the last timed on the host's clock, the last under
+    ``torch.profiler`` (a rat's control step takes seconds: one fewer
+    keeps phase 14 within its time)."""
     from dm_control_torch.locomotion.examples import basic
 
     np.random.seed(0)  # the corridors' layout
     with host_counters() as counts:
         t0 = time.perf_counter()
-        env = getattr(basic, name)(random_state=0, dtype=torch.float32)
+        env = (build() if build is not None else
+               getattr(basic, name)(random_state=0, dtype=torch.float32))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
     m = env.physics.model
@@ -2006,7 +2060,7 @@ def phase_examples_rate(linalg, name):
         return rng.uniform(spec.minimum, spec.maximum)
 
     def finite(ts):
-        return (np.isfinite(ts.reward) and all(
+        return (np.all(np.isfinite(ts.reward)) and all(
             np.isfinite(np.asarray(v)).all()
             for v in ts.observation.values()))
 
@@ -2033,8 +2087,8 @@ def phase_examples_rate(linalg, name):
     check(all(finite(ts) for ts in steps),
           f"{name}: a non-finite reward or observation")
     launches = linalg.chol_solve.launches
-    block_launches = linalg.chol_solve.branch_launches["block"]
-    check_branch(linalg, name, env.physics.model, launches, block_launches)
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, name, env.physics.model, launches, branch_launches)
     substeps = env._n_sub_steps
     per_step = (launches - reset_launches) / len(steps)
     check(per_step >= 3 * substeps,
@@ -2045,7 +2099,7 @@ def phase_examples_rate(linalg, name):
                 substeps=substeps, build_s=build_s,
                 compile_ms=1e3 * counts["recompile_s"], reset_s=reset_s,
                 reset_launches=reset_launches, launches=launches,
-                block_launches=block_launches,
+                branch_launches=branch_launches,
                 per_step=per_step, step_types=kinds,
                 steps_per_s=len(times) / sum(times),
                 step_ms=[1e3 * t for t in times], kernels_per_step=kernels,
@@ -2055,14 +2109,22 @@ def phase_examples_rate(linalg, name):
 
 def _example_step(env, gold, t, plain, linalg):
     """One control step of ``env`` from the recording's state and action
-    at timestep ``t``, through the kernel or under ``reference_solves()``:
-    (observations, reward, qpos and qvel) as float64 host arrays."""
+    at timestep ``t`` (``_step_from``)."""
     from dm_control_torch.rl import golden
 
-    env.physics.set_data(**{f: gold[f"t{t}_step_{f}"]
-                            for f in golden.EPISODE_STATE_FIELDS})
+    return _step_from(env, {f: gold[f"t{t}_step_{f}"]
+                            for f in golden.EPISODE_STATE_FIELDS},
+                      gold["actions"][t], plain, linalg)
+
+
+def _step_from(env, state, action, plain, linalg):
+    """One control step of ``env`` from ``state`` (host arrays of
+    ``EPISODE_STATE_FIELDS``) with ``action``, through the kernel or under
+    ``reference_solves()``: (observations, reward, qpos and qvel) as
+    float64 host arrays."""
+    env.physics.set_data(**state)
     with linalg.reference_solves() if plain else contextlib.nullcontext():
-        ts = env.step(gold["actions"][t])
+        ts = env.step(action)
     d = env.physics.data
     return {"obs": np.concatenate([np.ravel(np.asarray(v, np.float64))
                                    for v in ts.observation.values()]),
@@ -2179,6 +2241,119 @@ def phase_examples(linalg, card):
     return rates, golden_launches, checks
 
 
+def _soccer_env(kwargs, dtype, seed=0):
+    from dm_control_torch.locomotion import soccer
+
+    return soccer.load(random_state=seed, dtype=dtype, **kwargs)
+
+
+def phase_walkers_selfcheck(linalg):
+    """Phase 15 (c): ``WALKER_SELFCHECK`` in float64 on the card, reset,
+    then one control step from the reset's state taken twice, through the
+    kernel and under ``reference_solves()``: every launch on the branch
+    its nv names, none under the switch; observations, rewards and state
+    within 1e-9 absolute.  Returns the largest difference of each group,
+    the launches and nv."""
+    from dm_control_torch.rl import golden
+
+    env = _soccer_env(WALKER_SELFCHECK, torch.float64)
+    env.reset()
+    d = env.physics.data
+    state = {f: getattr(d, f).cpu().numpy()
+             for f in golden.EPISODE_STATE_FIELDS}
+    spec = env.action_spec()
+    action = np.random.RandomState(1).uniform(spec.minimum, spec.maximum)
+    linalg.reset_launch_counts()
+    kernel = _step_from(env, state, action, False, linalg)
+    launches = linalg.chol_solve.launches
+    branches = dict(linalg.chol_solve.branch_launches)
+    plain = _step_from(env, state, action, True, linalg)
+    m = env.physics.model
+    check_branch(linalg, "walker selfcheck", m, launches, branches)
+    check(launches >= 3 * env._n_sub_steps
+          and linalg.chol_solve.launches == launches,
+          f"walker selfcheck: {launches} kernel launches through the "
+          f"kernel, {linalg.chol_solve.launches - launches} under "
+          f"reference_solves()")
+    worst = {g: float(np.abs(kernel[g] - plain[g]).max()) for g in kernel}
+    check(all(np.isfinite(v).all() for v in kernel.values()),
+          "walker selfcheck: a non-finite value through the kernel")
+    check(max(worst.values()) <= 1e-9,
+          f"walker selfcheck: kernel vs plain {worst} (<= 1e-9)")
+    return dict(worst=worst, launches=launches, branch_launches=branches,
+                nv=m.nv, branch=linalg.kernel_branch(m.nv, m.dtype))
+
+
+def phase_large_match(linalg):
+    """Phase 15 (d): ``LARGE_MATCH`` in float64 on the card: a reset and
+    one control step, finite, every launch on the branch its nv names."""
+    env = _soccer_env(LARGE_MATCH, torch.float64)
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts = env.reset()
+    spec = env.action_spec()
+    ts = env.step(np.random.RandomState(1).uniform(spec.minimum,
+                                                   spec.maximum))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = env.physics.model
+    launches = linalg.chol_solve.launches
+    branches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, "large match", m, launches, branches)
+    check(launches >= 3 * env._n_sub_steps,
+          f"large match: {launches} chol_solve launches")
+    check(ts.mid() and np.all(np.isfinite(ts.reward)) and all(
+        np.isfinite(np.asarray(v)).all() for v in ts.observation.values()),
+          "large match: a non-finite reward or observation")
+    return dict(nv=m.nv, launches=launches, branch_launches=branches,
+                seconds=seconds, branch=linalg.kernel_branch(m.nv, m.dtype),
+                candidates=len(env.physics.data.contact.dim))
+
+
+def phase_walkers(linalg, card):
+    """Phase 15: soccer's ANT and HUMANOID players and the matches past
+    the block kernel's first cap on the card."""
+    t15 = time.perf_counter()
+    name, kwargs = WALKER_RATE
+    r = phase_examples_rate(linalg, name, lambda: _soccer_env(
+        kwargs, torch.float32))
+    branch = linalg.kernel_branch(r["nv"], torch.float32)
+    print(f"phase 15 rate: {name} float32 (nv={r['nv']}: the {branch} "
+          f"kernel, {r['pairs']} candidate pairs, {r['candidates']} contact "
+          f"rows, {r['substeps']} substeps a control step) on the card: "
+          f"built in {r['build_s']:.2f} s, reset {r['reset_s']:.2f} s "
+          f"({r['reset_launches']} chol_solve launches), "
+          f"{len(r['step_types'])} control steps: "
+          f"{r['steps_per_s']:.3f} control steps/s (ms "
+          f"{[round(t, 1) for t in r['step_ms']]}, the last step aside), "
+          f"chol_solve launches {r['per_step']:.1f} a control step "
+          f"({r['launches']} in the path, by branch "
+          f"{r['branch_launches']}); the last control step profiled: "
+          f"{r['kernels_per_step']} device kernels, busy "
+          f"{r['busy_ms']:.3f} ms of {r['profiled_ms']:.1f} ms, idle "
+          f"share {r['idle_share']:.4f} | {card}", flush=True)
+    r["task"] = name
+    golden_launches = phase_loco_goldens(linalg, card, WALKER_GOLDENS, 15)
+    c = phase_walkers_selfcheck(linalg)
+    w = c["worst"]
+    print(f"phase 15 selfcheck: soccer humanoid 2v2 float64 (nv={c['nv']}: "
+          f"the {c['branch']} kernel), one control step from the reset's "
+          f"state through the kernel ({c['launches']} launches) vs "
+          f"reference_solves(): obs {w['obs']:.3e}, reward "
+          f"{w['reward']:.3e}, state {w['state']:.3e} absolute <= 1e-9 | "
+          f"{card}", flush=True)
+    big = phase_large_match(linalg)
+    print(f"phase 15 large match: soccer BoxHead 10v10 float64 (nv="
+          f"{big['nv']}: the {big['branch']} kernel, {big['candidates']} "
+          f"contact rows) on its drawn pitch, reset and one control step in "
+          f"{big['seconds']:.1f} s, {big['launches']} chol_solve launches, "
+          f"finite | {card}", flush=True)
+    print(f"phase 15 in {time.perf_counter() - t15:.1f} s | {card}",
+          flush=True)
+    big["task"] = "soccer boxhead 10v10"
+    return r, golden_launches, c, big
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2210,15 +2385,21 @@ def main() -> int:
           f"{_cuda_build.build_seconds.get('chol_solve.cu', 0.0):.2f} s); "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
+    t3 = time.perf_counter()
     worst = phase_kernel(linalg)
-    shapes = [time_shape(linalg, b, n) for b, n in TIMED_SHAPES]
-    singles = [time_shape(linalg, b, n, dtype)
-               for b, n, dtype in TIMED_SINGLE]
+    checked_s = time.perf_counter() - t3
+    timed = time_shapes(linalg, [(b, n, torch.float32) for b, n in
+                                 TIMED_SHAPES] + list(TIMED_SINGLE))
+    shapes, singles = timed[:len(TIMED_SHAPES)], timed[len(TIMED_SHAPES):]
+    timed_s = time.perf_counter() - t3 - checked_s
     print(f"phase 3 kernel vs plain: ok over n in {KERNEL_NS}, B in "
-          f"{KERNEL_BS}, shared matrix (stride 0) n in {SHARED_NS}, lower "
-          f"triangle only n in {LOWER_NS}, max |dx| f32 "
+          f"{KERNEL_BS} ({KERNEL_BS_LARGE} from n = {LARGE_N}), branches "
+          f"{dict(linalg.chol_solve.branch_launches)}, shared matrix "
+          f"(stride 0) n in {SHARED_NS}, lower triangle only n in "
+          f"{LOWER_NS}, max |dx| f32 "
           f"{worst[torch.float32]:.3e} f64 {worst[torch.float64]:.3e}, "
-          f"non-SPD row NaN only n in {NON_SPD_NS} | {card}", flush=True)
+          f"non-SPD row NaN only n in {NON_SPD_NS}; checks {checked_s:.1f} "
+          f"s, timings {timed_s:.1f} s | {card}", flush=True)
     for k in shapes + singles:
         print(f"phase 3 timing B={k['B']} n={k['n']} {k['dtype']} A warm "
               f"in L2: "
@@ -2340,13 +2521,17 @@ def main() -> int:
     examples, example_goldens, _ = phase_examples(linalg, card)
     print(f"phases 1-14 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    walker_rate, walker_goldens, walker_check, large = phase_walkers(
+        linalg, card)
+    print(f"phases 1-15 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "branch", "max_abs_err", "ms",
                   "plain_ms", "bound_ms", "dense_bound_ms", "bound_by",
                   "library_ms", "library_cholesky_ms", "device_ms",
                   "library_device_ms", "library_cholesky_device_ms")
-    # path -> (launches, launches of the block kernel among them)
+    # path -> (launches, its launches by branch)
     paths = {
         **{f"{r['domain']}:{r['task']}": r for r in runs},
         **{f"ppo {r['domain']}:{r['task']}": r for r in trains},
@@ -2357,14 +2542,21 @@ def main() -> int:
         "compile recipe Physics.from_xml_string": recipe,
         f"manipulation host:{host_rate['task']}": host_rate,
         f"locomotion host:{loco_rate['task']}": loco_rate,
-        **{f"locomotion example:{r['task']}": r for r in examples}}
-    counts = {name: (r["launches"], r["block_launches"])
+        **{f"locomotion example:{r['task']}": r for r in examples},
+        f"soccer walkers:{walker_rate['task']}": walker_rate,
+        "soccer walkers selfcheck:humanoid 2v2 float64": walker_check,
+        f"soccer walkers:{large['task']} float64": large}
+    counts = {name: (r["launches"], r["branch_launches"])
               for name, r in paths.items()}
     for kind, (launches, blocks) in (("locomotion host golden", loco_goldens),
                                      ("locomotion example golden",
-                                      example_goldens)):
+                                      example_goldens),
+                                     ("soccer walker golden",
+                                      walker_goldens)):
         counts.update({f"{kind}:{name}": (n, blocks[name])
                        for name, n in launches.items()})
+    block64 = linalg._BLOCK_MAX_N[torch.float64]
+    block32 = linalg._BLOCK_MAX_N[torch.float32]
     print(json.dumps({"kernels": [{
         "name": "chol_solve", "route": "cuda",
         "source": "dm_control_torch/csrc/chol_solve.cu",
@@ -2373,10 +2565,14 @@ def main() -> int:
         "branches": {
             "register": "chol_solve_reg_kernel: n <= 32, and n <= 64 in "
                         "float32",
-            "block": "chol_solve_block_kernel: 33 <= n <= 160 in float64, "
-                     "65 <= n <= 160 in float32"},
+            "block": f"chol_solve_block_kernel: 33 <= n <= {block64} in "
+                     f"float64, 65 <= n <= {block32} in float32",
+            "global": f"chol_solve_global_kernel: {block64} < n <= "
+                      f"{linalg._MAX_N} in float64, {block32} < n <= "
+                      f"{linalg._MAX_N} in float32"},
         "launches_by_path": {name: c[0] for name, c in counts.items()},
-        "block_launches_by_path": {name: c[1] for name, c in counts.items()},
+        "branch_launches_by_path": {name: c[1]
+                                    for name, c in counts.items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "dense_bound_ms": k["dense_bound_ms"],

@@ -6,8 +6,9 @@ per environment onto its device; a ``Task`` over the root entity runs in
 ``Environment``'s hook pipeline with observables (``observation/``).  The
 batched path: the ``BatchableTask`` protocol and ``compile_task``
 (``composer/batch.py``).  ``variation/`` draws parameters from a
-``RandomState`` (the corridors' layouts).  Not ported yet:
-``initializers/`` (ROADMAP A5.3).
+``RandomState`` (the corridors' layouts).  ``initializers/`` places
+props without contact (``PropPlacer``) and an arm's tool centre point by
+inverse kinematics (``ToolCenterPointInitializer``).
 """
 
 from dm_control_torch.composer.define import (  # noqa: F401

@@ -53,10 +53,11 @@
 //    first use; x is written once, coalesced.  No more than the bound's
 //    bytes come from device memory.
 //
-// Block kernel, every larger n up to 160 (float64 n > 32, float32 n > 64:
-// dog's 79 and 85, the rat's 73, the float64 host paths' 38 to 73): one
-// thread block of kBlockWarps = 4 warps per system, the matrix in shared
-// memory.  Its bound on this card is the same byte bound (2.34 us at
+// Block kernel, every larger n whose triangle fits one block's shared
+// memory (float64 33 to 202, float32 65 to 303: dog's 79 and 85, the rat's
+// 73, the float64 host paths' 38 to 73, soccer's 10v10 and 11v11 at 166 and
+// 182, a HUMANOID 2v2 match at 254 in float32): one thread block of
+// kBlockWarps = 4 warps per system, the matrix in shared memory.  Its bound on this card is the same byte bound (2.34 us at
 // (512, 85) in float32, nanoseconds at B = 1); what sets its time is the
 // chain of n pivot steps, each of which waits on the previous one's
 // reciprocal.  It replaces the first shared-memory kernel (one warp per
@@ -104,11 +105,46 @@
 //  padded to a multiple of 4 so that rows start on 16 bytes), b as row n,
 //  then the panel's L for the trailing update, the diagonal block's L and
 //  U, and the reciprocal pivots.  f64 n = 160 takes 155 KB (opted in above
-//  48 KB).
+//  48 KB); the largest n of each type is the largest whose layout fits the
+//  227 KB a block may use (block_max_n), and nothing else bounds it.
 //  Tensor cores: none.  In float32 they offer TF32 only, which cannot hold
 //  the 2e-4 gate; in float64 the trailing update is at most 1.4 MFLOP a
 //  system, a rank-32 SYRK whose time is small beside the pivot chain, so
 //  DMMA would move nothing that sets the time.
+//
+// Global kernel, every larger n (float64 n > 202, float32 n > 303: a
+// HUMANOID match of 2v2 in float64 at 254, larger HUMANOID and ANT
+// matches up to 1,370 and beyond): one thread block of kGlobalWarps = 8
+// warps per system, the same algorithm as the block kernel in the same
+// order of operations, with the packed triangle (b as row n) in a scratch
+// tensor in device memory that the wrapper allocates (B x row_off(n + 1)
+// elements).  At B = 1 a 254 float64 system is ~260 KB and a 1,370 one
+// ~7.5 MB, so both stay in the card's 50 MB L2.
+//  - The load copies A's lower triangle and b into the scratch triangle,
+//    a warp a row; a __syncthreads before the first panel reads it.
+//  - Each panel stages its diagonal block and b's entries into shared
+//    memory with 16-byte cp.async copies, waits for all of them and
+//    synchronises before warp 0 factors it (factor_diagonal, as in the
+//    block kernel); U goes back to the triangle, and 1 / D to the diagonal
+//    slot, which nothing reads after its panel.
+//  - The rows below, kChunk at a time: staged into shared memory by
+//    cp.async, a thread a row solves its row there (solve_row, as in the
+//    block kernel), and the block is written back.
+//  - The trailing update by blocks of kChunk columns and kChunk rows: the
+//    columns' rows of the panel (U) are staged by cp.async, scaled to L
+//    and transposed ([j][k], as the block kernel's Lb: a warp's tiles read
+//    consecutive addresses), then each block of rows' U is staged beside
+//    it; each thread's 4 x 4 tile is read from the triangle, takes the
+//    rank-32 update from the two staged blocks, and is written back:
+//    tiles go through L2.
+//  - Back substitution by panels, the last first: warp 0 solves the
+//    panel's triangle; then every thread takes the panel's x out of one z
+//    entry of the panels before it, j descending, which is the order the
+//    block kernel's lane takes them in.
+//  Shared memory is fixed (92 KB in float64) whatever n; the wrapper's
+//  scratch is n^2 / 2 elements a system.  What holds it back (PERF.md):
+//  one SM a system, so at B = 1 the n^3 / 6 FMAs of the trailing update
+//  run on one SM's units, and every tile goes through L2 once a panel.
 //
 // Pivots: a pivot that is not > 0 (or not finite) marks the system as not
 // positive definite and its whole row of x is written as NaN, as
@@ -220,12 +256,16 @@ __global__ void __launch_bounds__(kRegWarps * kWarp)
 constexpr int kPanel = kWarp;  // columns a panel: one lane each in warp 0
 constexpr int kBlockWarps = 4;
 constexpr int kBlockThreads = kBlockWarps * kWarp;
-constexpr int kMaxN = 160;
+// Shared memory one block may use on sm_90 (232,448 bytes, opted in above
+// 48 KB): what bounds the block kernel's n.
+constexpr size_t kSmemPerBlock = 227 * 1024;
+// Largest n of all: row offsets are int (row_off(32769) < 2^31).
+constexpr int kMaxN = 32768;
 
 // Offset of row r in the packed lower triangle: row q takes q + 1 entries
 // rounded up to 4, so rows 4u .. 4u + 3 take 4u + 4 each and
 // sum_{q < 4u + v} = 8u(u + 1) + v(4u + 4).
-__host__ __device__ inline int row_off(int r) {
+__host__ __device__ constexpr int row_off(int r) {
   const int u = r >> 2, v = r & 3;
   return 4 * (u + 1) * (2 * u + v);
 }
@@ -282,6 +322,15 @@ __device__ inline void copy_async(T* dst, const T* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
                "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+// 16 bytes (4 float32 or 2 float64 entries) from device memory to shared
+// memory; both addresses 16-byte aligned.
+template <typename T>
+__device__ inline void copy_async16(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
                : "memory");
 }
 __device__ inline void copy_commit() {
@@ -347,6 +396,31 @@ __device__ inline void factor_diagonal(T* S, T* L11, T* rd, T* ucol, int n,
   }
 }
 
+// One row below a full diagonal block solves U_r L11^T = S_r: its 32
+// entries at `row` (16-byte aligned) are read into u, solved and written
+// back as U.
+template <typename T>
+__device__ inline void solve_row(T* row, T (&u)[kPanel], const T* L11) {
+#pragma unroll
+  for (int j = 0; j < kPanel; j += 4) {
+    const Quad<T> v = load4(row + j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) u[j + e] = v.v[e];
+  }
+#pragma unroll
+  for (int j = 0; j < kPanel - 1; ++j) {
+#pragma unroll
+    for (int k4 = (j + 1) & ~3; k4 < kPanel; k4 += 4) {
+      const Quad<T> l = load4(L11 + j * kPanel + k4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k4 + e > j) u[k4 + e] -= u[j] * l.v[e];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPanel; j += 4) store4(row + j, u + j);
+}
+
 // All threads: the rows c1..n-1 below a full diagonal block at c0 solve
 // U_r L11^T = S_r (a thread a row, the 32 columns in registers); U goes
 // back to the triangle, L = U D^-1 to Lb[j][r - c1].  The columns of Lb
@@ -363,24 +437,7 @@ __device__ inline void solve_rows(T* S, T* Lb, const T* L11, const T* rd,
     }
     T* row = S + row_off(c1 + t) + c0;
     T u[kPanel];
-#pragma unroll
-    for (int j = 0; j < kPanel; j += 4) {
-      const Quad<T> v = load4(row + j);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) u[j + e] = v.v[e];
-    }
-#pragma unroll
-    for (int j = 0; j < kPanel - 1; ++j) {
-#pragma unroll
-      for (int k4 = (j + 1) & ~3; k4 < kPanel; k4 += 4) {
-        const Quad<T> l = load4(L11 + j * kPanel + k4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k4 + e > j) u[k4 + e] -= u[j] * l.v[e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPanel; j += 4) store4(row + j, u + j);
+    solve_row(row, u, L11);
 #pragma unroll
     for (int j = 0; j < kPanel; j += 4) {
       const Quad<T> r = load4(rd + c0 + j);
@@ -520,6 +577,248 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Global kernel: one thread block per system, the triangle in a scratch
+// tensor in device memory (every n above the block kernel's).
+
+constexpr int kGlobalWarps = 8;
+constexpr int kGlobalThreads = kGlobalWarps * kWarp;
+constexpr int kChunk = 128;           // rows (or columns) staged at a time
+constexpr int kChunkLd = kPanel + 4;  // a staged row: 32 entries, padded
+constexpr int kChunkT = kChunk + 4;   // a row of the transposed L
+
+// Shared memory of the global kernel, in elements, each part on 16 bytes:
+// the diagonal block packed as in the triangle (rows 0..31, b's entries as
+// row w), its L and U as in the block kernel, the panel's reciprocal
+// pivots (then its x), a chunk's L transposed, [j][k - k_lo], and a
+// chunk's rows of the panel, [r - r_lo][j].
+constexpr int kGlobalD = 0;
+constexpr int kGlobalL11 = kGlobalD + row_off(kPanel + 1);
+constexpr int kGlobalUcol = kGlobalL11 + kPanel * kPanel;
+constexpr int kGlobalRd = kGlobalUcol + kPanel * kUcol;
+constexpr int kGlobalLt = kGlobalRd + kPanel;
+constexpr int kGlobalUc = kGlobalLt + kPanel * kChunkT;
+constexpr int kGlobalTotal = kGlobalUc + kChunk * kChunkLd;
+
+// All threads: the diagonal block of columns c0..c0+w-1 (rows c0..c0+w-1
+// of the triangle G) and b's entries c0..c0+w-1 into D, by 16-byte copies
+// (row starts and c0 are multiples of 4 elements; a row's last copy ends
+// in its padding); waits for them and synchronises.
+template <typename T>
+__device__ inline void stage_diagonal(T* D, const T* G, int n, int c0,
+                                      int w) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  for (int r = warp; r < w; r += kGlobalWarps)
+    for (int m = lane * kVec; m <= r; m += kWarp * kVec)
+      copy_async16(D + row_off(r) + m, G + row_off(c0 + r) + c0 + m);
+  for (int m = threadIdx.x * kVec; m < w; m += kGlobalThreads * kVec)
+    copy_async16(D + row_off(w) + m, G + row_off(n) + c0 + m);
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+}
+
+// All threads: rows lo..hi-1 of the panel at c0 (32 entries each; row n is
+// b's) into Uc[r - lo][j] by 16-byte copies; waits for them; the rows up
+// to the next multiple of 4 past hi, which a tile reads, are set to 0.
+// Synchronises before and after the zeros.
+template <typename T>
+__device__ inline void stage_rows(T* Uc, const T* G, int c0, int lo,
+                                  int hi) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = kPanel / kVec;
+  const int rows = hi - lo;
+  for (int e = threadIdx.x; e < rows * kPerRow; e += kGlobalThreads) {
+    const int k = e / kPerRow, m = (e % kPerRow) * kVec;
+    copy_async16(Uc + k * kChunkLd + m, G + row_off(lo + k) + c0 + m);
+  }
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+  for (int e = rows * kPanel + threadIdx.x; e < ((rows + 3) & ~3) * kPanel;
+       e += kGlobalThreads)
+    Uc[(e / kPanel) * kChunkLd + e % kPanel] = T(0);
+  __syncthreads();
+}
+
+// All threads: the staged rows (U, Uc[k][j]) scaled to L = U D^-1 and
+// transposed into Lt[j][k], so that a tile's four columns are one 16-byte
+// (float32) or 32-byte (float64) read and a warp's tiles read consecutive
+// addresses, as the block kernel's Lb; the columns up to the next multiple
+// of 4 past rows are 0; synchronises.
+template <typename T>
+__device__ inline void transpose_scale(T* Lt, const T* Uc, const T* rd,
+                                       int rows) {
+  for (int e = threadIdx.x; e < ((rows + 3) & ~3) * kPanel;
+       e += kGlobalThreads) {
+    const int k = e / kPanel, j = e % kPanel;
+    Lt[j * kChunkT + k] = k < rows ? Uc[k * kChunkLd + j] * rd[j] : T(0);
+  }
+  __syncthreads();
+}
+
+// All threads: S[r][k] -= sum_j U[r][c0 + j] L[k][c0 + j] for the rows
+// r_lo..r_hi-1 (U staged in Uc) and the columns k_lo..k_hi-1 (L staged in
+// Lt), k <= r, in 4 x 4 tiles read from and written back to the triangle
+// G: tiles go through L2.  Both ranges start on multiples of 4; a warp's
+// threads take one tile row's tiles (U broadcast, L consecutive); each
+// entry gets its 32 updates in the order j, as in update_trailing.
+template <typename T>
+__device__ inline void update_tiles(T* G, const T* Uc, const T* Lt,
+                                    int r_lo, int r_hi, int k_lo, int k_hi) {
+  const int tile_rows = (r_hi - r_lo + 3) >> 2;
+  const int tile_cols = (k_hi - k_lo + 3) >> 2;
+  for (int t = threadIdx.x; t < tile_rows * tile_cols;
+       t += kGlobalThreads) {
+    const int ta = t / tile_cols, tb = t - ta * tile_cols;
+    const int ru = 4 * ta, kc = 4 * tb;  // in the staged rows and columns
+    if (k_lo + kc > r_lo + ru) continue;  // above the diagonal
+    const int r0 = r_lo + ru;
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (r0 + i < r_hi) {
+        const Quad<T> v = load4(G + row_off(r0 + i) + k_lo + kc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = v.v[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = T(0);
+      }
+    }
+#pragma unroll 2
+    for (int j = 0; j < kPanel; j += 4) {
+      Quad<T> u[4];  // u[i].v[e] = U[r0 + i][c0 + j + e]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[i] = load4(Uc + (ru + i) * kChunkLd + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const Quad<T> l = load4(Lt + (j + e) * kChunkT + kc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][q] -= u[i].v[e] * l.v[q];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i < r_hi) store4(G + row_off(r0 + i) + k_lo + kc, acc[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads)
+    chol_solve_global_kernel(const T* __restrict__ a,
+                             const T* __restrict__ b, T* __restrict__ x,
+                             T* scratch, int n, long long a_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  T* D = smem + kGlobalD;
+  T* L11 = smem + kGlobalL11;
+  T* ucol = smem + kGlobalUcol;
+  T* rdp = smem + kGlobalRd;
+  T* Lt = smem + kGlobalLt;
+  T* Uc = smem + kGlobalUc;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const T* ga = a + blockIdx.x * a_stride;
+  const T* gb = b + static_cast<long long>(blockIdx.x) * n;
+  // Read and written by this block alone: no __restrict__, no read-only
+  // cache; __syncthreads orders its threads' accesses.
+  T* G = scratch + static_cast<long long>(blockIdx.x) * row_off(n + 1);
+  T* zrow = G + row_off(n);
+
+  // The lower triangle and b into the scratch triangle, a warp a row.
+  for (int k = threadIdx.x; k < n; k += kGlobalThreads) zrow[k] = gb[k];
+  for (int r = warp; r < n; r += kGlobalWarps) {
+    const T* src = ga + static_cast<long long>(r) * n;
+    T* dst = G + row_off(r);
+    for (int k = lane; k <= r; k += kWarp) dst[k] = src[k];
+  }
+  __syncthreads();
+
+  bool bad = false;  // warp 0's: every pivot passes through it
+  for (int c0 = 0; c0 < n; c0 += kPanel) {
+    const int c1 = min(c0 + kPanel, n), w = c1 - c0;
+    stage_diagonal(D, G, n, c0, w);
+    if (warp == 0) {
+      factor_diagonal(D, L11, rdp, ucol, w, 0, w, lane, bad);
+      if (lane < w) {  // its own row of D, written by this lane
+        T* grow = G + row_off(c0 + lane) + c0;
+        for (int j = 0; j < lane; ++j) grow[j] = D[row_off(lane) + j];
+        grow[lane] = rdp[lane];  // 1 / D in the diagonal slot
+        zrow[c0 + lane] = D[row_off(w) + lane];
+      }
+    }
+    __syncthreads();
+    if (c1 == n) break;  // uniform: the last panel has no rows below
+    // The rows below, kChunk at a time: staged, solved in shared memory
+    // (a thread a row, solve_row as in the block kernel), written back.
+    for (int r_lo = c1; r_lo < n; r_lo += kChunk) {
+      const int r_hi = min(r_lo + kChunk, n);
+      stage_rows(Uc, G, c0, r_lo, r_hi);
+      for (int t = threadIdx.x; t < r_hi - r_lo; t += kGlobalThreads) {
+        T u[kPanel];
+        solve_row(Uc + t * kChunkLd, u, L11);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < (r_hi - r_lo) * kPanel;
+           e += kGlobalThreads)
+        G[row_off(r_lo + e / kPanel) + c0 + e % kPanel] =
+            Uc[(e / kPanel) * kChunkLd + e % kPanel];
+      __syncthreads();
+    }
+    // The trailing update, a block of kChunk columns (L) by kChunk rows
+    // (U, b's row n last) at a time.
+    for (int k_lo = c1; k_lo < n; k_lo += kChunk) {
+      const int k_hi = min(k_lo + kChunk, n);
+      stage_rows(Uc, G, c0, k_lo, k_hi);
+      transpose_scale(Lt, Uc, rdp, k_hi - k_lo);
+      for (int r_lo = k_lo; r_lo <= n; r_lo += kChunk) {
+        const int r_hi = min(r_lo + kChunk, n + 1);
+        stage_rows(Uc, G, c0, r_lo, r_hi);
+        update_tiles(G, Uc, Lt, r_lo, r_hi, k_lo, k_hi);
+        __syncthreads();
+      }
+    }
+  }
+
+  // Back substitution L^T x = D^-1 z by panels, the last first.  Warp 0:
+  // lane k holds z[c0 + k], whose later panels' terms are already out; for
+  // j = w-1 .. 0 one shuffle broadcasts x[c0 + j] and each lane k < j does
+  // one FMA with U[c0 + j][c0 + k].  Then all threads: each z[k], k < c0,
+  // gives up U[j][k] x[j] for j = c0+w-1 .. c0 (row j, consecutive
+  // addresses).
+  T* gx = x + static_cast<long long>(blockIdx.x) * n;
+  for (int c0 = (n - 1) & ~(kPanel - 1); c0 >= 0; c0 -= kPanel) {
+    const int w = min(n - c0, kPanel);
+    if (warp == 0) {
+      T zk = lane < w ? zrow[c0 + lane] : T(0);
+      const T rk = lane < w ? G[row_off(c0 + lane) + c0 + lane] : T(0);
+      for (int j = w - 1; j >= 0; --j) {
+        // lanes >= j read past row j's entries, into the triangle (unused)
+        const T u = G[row_off(c0 + j) + c0 + lane];
+        const T xj = __shfl_sync(kFullMask, zk * rk, j);
+        const T zu = zk - u * xj;
+        zk = lane < j ? zu : zk;
+      }
+      if (lane < w) {
+        const T xk = zk * rk;
+        rdp[lane] = xk;
+        gx[c0 + lane] = bad ? T(NAN) : xk;
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < c0; k += kGlobalThreads) {
+      T zk = zrow[k];
+      for (int j = w - 1; j >= 0; --j)
+        zk -= G[row_off(c0 + j) + k] * rdp[j];
+      zrow[k] = zk;
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T, int C>
 int launch_reg(const T* a, const T* b, T* x, int batch, int n,
                long long a_stride, cudaStream_t stream) {
@@ -544,58 +843,107 @@ int launch_block(const T* a, const T* b, T* x, int batch, int n,
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_global(const T* a, const T* b, T* x, T* scratch, int batch, int n,
+                  long long a_stride, cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(kGlobalTotal) * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        chol_solve_global_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  chol_solve_global_kernel<T><<<batch, kGlobalThreads, smem, stream>>>(
+      a, b, x, scratch, n, a_stride);
+  return cudaGetLastError();
+}
+
 // The rule, fixed on (n, type):
 //   n <= 32                 register kernel, one column per lane;
 //   32 < n <= 64, float32   register kernel, two columns per lane
 //                           (in float64 two columns are 256 registers a
 //                           thread, more than the card has);
-//   otherwise               block kernel.
+//   up to block_max_n<T>()  block kernel (float64 202, float32 303);
+//   otherwise               global kernel, with the caller's scratch.
 constexpr int kRegMaxN32 = 2 * kWarp;
 constexpr int kRegMaxN64 = kWarp;
 
-int launch(const float* a, const float* b, float* x, int batch, int n,
-           long long a_stride, cudaStream_t stream) {
+// The largest n whose block layout fits kSmemPerBlock.
+template <typename T>
+int block_max_n() {
+  static const int max_n = [] {
+    int n = 1;
+    while (static_cast<size_t>(block_layout(n + 1).total) * sizeof(T) <=
+           kSmemPerBlock)
+      ++n;
+    return n;
+  }();
+  return max_n;
+}
+
+int launch(const float* a, const float* b, float* x, float* scratch,
+           int batch, int n, long long a_stride, cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
+  if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
   if (n <= kWarp)
     return launch_reg<float, 1>(a, b, x, batch, n, a_stride, stream);
   if (n <= kRegMaxN32)
     return launch_reg<float, 2>(a, b, x, batch, n, a_stride, stream);
-  return launch_block<float>(a, b, x, batch, n, a_stride, stream);
+  if (n <= block_max_n<float>())
+    return launch_block<float>(a, b, x, batch, n, a_stride, stream);
+  return launch_global<float>(a, b, x, scratch, batch, n, a_stride, stream);
 }
 
-int launch(const double* a, const double* b, double* x, int batch, int n,
-           long long a_stride, cudaStream_t stream) {
+int launch(const double* a, const double* b, double* x, double* scratch,
+           int batch, int n, long long a_stride, cudaStream_t stream) {
   if (batch == 0) return cudaSuccess;
+  if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
   if (n <= kRegMaxN64)
     return launch_reg<double, 1>(a, b, x, batch, n, a_stride, stream);
-  return launch_block<double>(a, b, x, batch, n, a_stride, stream);
+  if (n <= block_max_n<double>())
+    return launch_block<double>(a, b, x, batch, n, a_stride, stream);
+  return launch_global<double>(a, b, x, scratch, batch, n, a_stride, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest n: the block kernel's back substitution holds 5 entries a lane
-// (f64 n = 160 takes 150 KB of the card's 227 KB of shared memory).
+// Largest n of all: the triangle's row offsets are int.
 int chol_solve_max_n() { return kMaxN; }
 
 // Largest n of the register kernel in float32 (is_f64 = 0) or float64;
-// every larger n up to chol_solve_max_n() takes the block kernel.
+// every larger n up to chol_solve_block_max_n() takes the block kernel.
 int chol_solve_register_max_n(int is_f64) {
   return is_f64 ? kRegMaxN64 : kRegMaxN32;
 }
 
+// Largest n of the block kernel in float32 (is_f64 = 0) or float64: the
+// largest whose shared-memory layout fits a block; every larger n takes
+// the global kernel.
+int chol_solve_block_max_n(int is_f64) {
+  return is_f64 ? block_max_n<double>() : block_max_n<float>();
+}
+
+// Elements of scratch a system of size n needs on the global kernel: the
+// packed triangle with b as row n.
+long long chol_solve_scratch_elems(int n) { return row_off(n + 1); }
+
 // a_stride: elements between the matrices of consecutive systems, n * n
-// for a (B, n, n) batch, 0 for one matrix shared by all systems.
-int chol_solve_f32(const float* a, const float* b, float* x, int batch,
-                   int n, long long a_stride, void* stream) {
-  return launch(a, b, x, batch, n, a_stride,
+// for a (B, n, n) batch, 0 for one matrix shared by all systems.  scratch:
+// batch * chol_solve_scratch_elems(n) elements of the type on the device
+// where n takes the global kernel, else unused (may be null).
+int chol_solve_f32(const float* a, const float* b, float* x, float* scratch,
+                   int batch, int n, long long a_stride, void* stream) {
+  return launch(a, b, x, scratch, batch, n, a_stride,
                 static_cast<cudaStream_t>(stream));
 }
 
-int chol_solve_f64(const double* a, const double* b, double* x, int batch,
-                   int n, long long a_stride, void* stream) {
-  return launch(a, b, x, batch, n, a_stride,
+int chol_solve_f64(const double* a, const double* b, double* x,
+                   double* scratch, int batch, int n, long long a_stride,
+                   void* stream) {
+  return launch(a, b, x, scratch, batch, n, a_stride,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -1,9 +1,9 @@
 """Locomotion on PyTorch (counterpart of ``dm_control_tpu/locomotion/``).
 
-Two families of tasks on both paths: soccer (``soccer.load``, a BoxHead
-match through ``composer.Environment`` on a pitch drawn every episode;
-``soccer.load_batch``, thousands of matches on a fixed pitch, one reward
-per player) and mocap tracking
+Two families of tasks on both paths: soccer (``soccer.load``, a match of
+BoxHead, ant or humanoid players through ``composer.Environment`` on a
+pitch drawn every episode; ``soccer.load_batch``, thousands of BoxHead
+matches on a fixed pitch, one reward per player) and mocap tracking
 (``tasks.reference_pose.MultiClipMocapTracking`` with the rolling ball or
 the CMU 2020 humanoid on a ``Floor``, through ``composer.Environment`` or
 ``composer.compile_task``).  On the host path, the example environments
@@ -11,7 +11,8 @@ the CMU 2020 humanoid on a ``Floor``, through ``composer.Environment`` or
 gaps or walls, going to a target, foraging in mazes, escaping a bowl and
 touching a target twice.  The walkers, the arenas, the props, the ball
 and the pitch are composer entities that build their MJCF trees, which
-the port compiles.  The ant, the humanoid soccer players, the rescaling
-helpers, the padded room, the mocap file loaders and the soccer camera
-are not ported yet (ROADMAP A5.4, A5.5, A6).
+the port compiles; ``walkers.rescale`` and ``walkers.scaled_actuators``
+edit a walker's tree, and ``arenas.PaddedRoom`` lays out a room for the
+mazes.  The mocap file loaders, ``examples/cmu_2020_tracking.py`` and the
+soccer camera are not ported yet (ROADMAP A5.4, A5.5 (c), A6).
 """

@@ -1,7 +1,7 @@
 """Locomotion arenas (counterpart of
 ``dm_control_tpu/locomotion/arenas/``): the floor, the corridors, the
-bowl, the mazes and the wall covering.  ``padded_room`` is not ported
-(ROADMAP A5.5)."""
+bowl, the mazes, the wall covering and the padded room (a grid that a
+``MazeWithTargets`` builds its arena from)."""
 
 from dm_control_torch.locomotion.arenas.floors import Floor  # noqa: F401
 from dm_control_torch.locomotion.arenas.corridors import (  # noqa: F401
@@ -12,3 +12,6 @@ from dm_control_torch.locomotion.arenas.mazes import (  # noqa: F401
     MazeWithTargets, TextMaze,
 )
 from dm_control_torch.locomotion.arenas import covering  # noqa: F401
+from dm_control_torch.locomotion.arenas.padded_room import (  # noqa: F401
+    PaddedRoom,
+)

@@ -36,10 +36,14 @@ class UniformInitializer(Initializer):
 
     def _initialize_walker(self, walker, spawn_range, physics,
                            random_state):
-        """Draws (x, y), then a yaw.  Each pose read is the last
-        forward's: a BoxHead's ``set_pose`` leaves the physics clean, and
-        its orientation comes from its steer joint, which the yaw leaves
-        as it is (as in the JAX package)."""
+        """Draws (x, y), then a yaw.  An ant's or a humanoid's free root
+        takes the drawn position, then the yaw turns its orientation
+        (``shift_pose`` reads the pose after a forward, since
+        ``set_pose`` marks the physics dirty) and its velocity is zeroed.
+        A BoxHead's ``set_pose`` leaves the physics clean, so each pose
+        read is the last forward's, and its orientation comes from its
+        steer joint, which the yaw leaves as it is; it has no free joint
+        to zero (as in the JAX package)."""
         if hasattr(walker, "reinitialize_pose"):
             walker.reinitialize_pose(physics, random_state)
         x, y = random_state.uniform(-spawn_range, spawn_range)

@@ -4,35 +4,28 @@ dm_control/locomotion/soccer/__init__.py:48-170)."""
 
 from __future__ import annotations
 
-import enum
-
+import numpy as np
 import torch
 
 from dm_control_torch import composer
 from dm_control_torch.composer.batch import compile_task
-from dm_control_torch.locomotion.soccer.pitch import Pitch, RandomizedPitch
-from dm_control_torch.locomotion.soccer.soccer_ball import SoccerBall
-from dm_control_torch.locomotion.soccer.task import (
-    MultiturnTask, Task, standard_players,
+from dm_control_torch.locomotion.soccer.pitch import (
+    MINI_FOOTBALL_GOAL_SIZE, MINI_FOOTBALL_MAX_AREA_PER_HUMANOID,
+    MINI_FOOTBALL_MIN_AREA_PER_HUMANOID, Pitch, RandomizedPitch,
+)
+from dm_control_torch.locomotion.soccer.soccer_ball import (
+    SoccerBall, regulation_soccer_ball,
+)
+from dm_control_torch.locomotion.soccer.task import (  # noqa: F401
+    MultiturnTask, Task, WalkerType, standard_players, walker_type_of,
 )
 from dm_control_torch.suite import check_device
 
 
-class WalkerType(enum.Enum):
-    BOXHEAD = 0
-    ANT = 1
-    HUMANOID = 2
-
-
-def _check_walker_type(walker_type, entry):
-    """Raises ``NotImplementedError`` naming ROADMAP A5.5 for a walker
-    type (a ``WalkerType`` or its name) other than BoxHead."""
-    if isinstance(walker_type, str):
-        walker_type = WalkerType[walker_type.upper()]
-    if walker_type != WalkerType.BOXHEAD:
-        raise NotImplementedError(
-            f"soccer.{entry}: {walker_type.name} players are not ported yet "
-            f"(ROADMAP A5.5); the port's matches are BoxHead")
+def _area_to_size(area, aspect_ratio=0.75):
+    """(half-length, half-width) of a pitch of ``area`` and aspect
+    ratio."""
+    return np.sqrt([area / aspect_ratio, area * aspect_ratio]) / 2.0
 
 
 def load(team_size=2, time_limit=45.0, random_state=None,
@@ -40,33 +33,46 @@ def load(team_size=2, time_limit=45.0, random_state=None,
          keep_aspect_ratio=False, terminate_on_goal=True,
          walker_type=WalkerType.BOXHEAD, pitch_size=None, *,
          device="cuda", dtype: torch.dtype = torch.float64):
-    """A ``team_size``-vs-``team_size`` BoxHead match as a
+    """A ``team_size``-vs-``team_size`` match of ``walker_type`` players
+    (a ``WalkerType`` or its name: BoxHead, ant or humanoid) as a
     ``composer.Environment`` on ``device`` in ``dtype`` (the card unless
     the caller asks for another, ``device="cpu"``; without CUDA the
-    default raises).  By default the pitch is a ``RandomizedPitch`` of
-    (32, 24) to (48, 36), drawn and compiled anew every episode;
-    ``pitch_size`` pins a ``Pitch`` of that size, compiled once.  A goal
-    ends the episode unless ``terminate_on_goal`` is False
-    (``MultiturnTask``).  ``walker_type`` ANT or HUMANOID raises
-    ``NotImplementedError`` (ROADMAP A5.5)."""
-    _check_walker_type(walker_type, "load")
+    default raises).  By default the pitch is a ``RandomizedPitch``
+    drawn and compiled anew every episode, of (32, 24) to (48, 36), or
+    for humanoids of the mini-football areas per player with the
+    mini-football goals and the regulation ball; ``pitch_size`` pins a
+    ``Pitch`` of that size, compiled once.  A goal ends the episode unless
+    ``terminate_on_goal`` is False (``MultiturnTask``)."""
+    walker_type = walker_type_of(walker_type)
     if not 1 <= team_size <= 11:
         raise ValueError(
             f"team_size must be between 1 and 11, got {team_size}")
     check_device(f"soccer.load(team_size={team_size})", device)
+    goal_size = None
+    min_size, max_size = (32, 24), (48, 36)
+    ball = SoccerBall()
+    if walker_type == WalkerType.HUMANOID:
+        goal_size = MINI_FOOTBALL_GOAL_SIZE
+        num_walkers = team_size * 2
+        min_size = _area_to_size(
+            MINI_FOOTBALL_MIN_AREA_PER_HUMANOID * num_walkers)
+        max_size = _area_to_size(
+            MINI_FOOTBALL_MAX_AREA_PER_HUMANOID * num_walkers)
+        ball = regulation_soccer_ball()
     if pitch_size is not None:
-        arena = Pitch(size=pitch_size, field_box=enable_field_box)
+        arena = Pitch(size=pitch_size, goal_size=goal_size,
+                      field_box=enable_field_box)
         recompile = False
     else:
         arena = RandomizedPitch(
-            min_size=(32, 24), max_size=(48, 36),
-            keep_aspect_ratio=keep_aspect_ratio,
+            min_size=min_size, max_size=max_size,
+            keep_aspect_ratio=keep_aspect_ratio, goal_size=goal_size,
             field_box=enable_field_box)
         recompile = True
     task_factory = Task if terminate_on_goal else MultiturnTask
     task = task_factory(
-        players=standard_players(team_size), arena=arena, ball=SoccerBall(),
-        disable_walker_contacts=disable_walker_contacts)
+        players=standard_players(team_size, walker_type), arena=arena,
+        ball=ball, disable_walker_contacts=disable_walker_contacts)
     return composer.Environment(
         task, time_limit=time_limit, random_state=random_state,
         recompile_mjcf_every_episode=recompile, device=device, dtype=dtype)
@@ -82,10 +88,16 @@ def load_batch(team_size=2, time_limit=45.0, pitch_size=(12, 9),
     player, (B, 2 * team_size); a goal ends the episode and the autoreset
     kicks off anew.  The device is the card unless the caller asks for
     another (``device="cpu"``); without CUDA the default raises.  A walker
-    other than BoxHead raises ``NotImplementedError``, as the JAX
-    package's ``load_batch`` builds only BoxHead matches.
+    other than BoxHead raises ``NotImplementedError``: the batched hooks
+    place slide roots and steer yaw, and the JAX package's ``load_batch``
+    builds only BoxHead matches (``load`` runs the others).
     ``contact_cap`` goes to ``BatchEnv``."""
-    _check_walker_type(walker_type, "load_batch")
+    walker_type = walker_type_of(walker_type)
+    if walker_type != WalkerType.BOXHEAD:
+        raise NotImplementedError(
+            f"soccer.load_batch: the batched path builds BoxHead matches, "
+            f"as the JAX package's load_batch does; {walker_type.name} "
+            f"matches run through soccer.load")
     check_device(f"soccer.load_batch(team_size={team_size})", device)
     task = Task(players=standard_players(team_size),
                 arena=Pitch(size=pitch_size, field_box=True),

@@ -19,6 +19,7 @@ render, which waits for ROADMAP A6.
 from __future__ import annotations
 
 import collections
+import enum
 import math
 
 import numpy as np
@@ -29,10 +30,12 @@ from dm_control_torch.composer.batch import BatchableTask
 from dm_control_torch.locomotion.soccer import initializers as initializers_lib
 from dm_control_torch.locomotion.soccer import observables as observables_lib
 from dm_control_torch.locomotion.soccer.boxhead import BoxHead
+from dm_control_torch.locomotion.soccer.humanoid import Humanoid
 from dm_control_torch.locomotion.soccer.soccer_ball import SoccerBall
 from dm_control_torch.locomotion.soccer.team import (
     RGBA_BLUE, RGBA_RED, Player, Team,
 )
+from dm_control_torch.locomotion.walkers.ant import Ant
 from dm_control_torch.rl import specs
 
 _THROW_IN_BALL_Z = 0.5
@@ -40,17 +43,50 @@ _INIT_BALL_Z = 0.5
 _SPAWN_RATIO = 0.6
 
 
-def standard_players(team_size):
-    """Home and away teams of ``team_size`` BoxHead players each, named
-    ``home<i>`` and ``away<i>`` with the team colours, interleaved home
-    then away as the JAX package's ``soccer.load`` builds them, home
-    first."""
+class WalkerType(enum.Enum):
+    BOXHEAD = 0
+    ANT = 1
+    HUMANOID = 2
+
+
+_WALKER_TYPE_ALIASES = {"boxhead": WalkerType.BOXHEAD,
+                        "ant": WalkerType.ANT,
+                        "humanoid": WalkerType.HUMANOID}
+
+
+def walker_type_of(walker_type):
+    """A ``WalkerType``, or one named by a string in any case."""
+    if isinstance(walker_type, str):
+        return _WALKER_TYPE_ALIASES[walker_type.lower()]
+    return walker_type
+
+
+def _make_walker(name, walker_id, marker_rgba,
+                 walker_type=WalkerType.BOXHEAD):
+    """One player's walker (reference soccer/__init__.py:54-77)."""
+    if walker_type == WalkerType.BOXHEAD:
+        return BoxHead(name=name, walker_id=walker_id,
+                       marker_rgba=marker_rgba)
+    if walker_type == WalkerType.ANT:
+        return Ant(name=name, marker_rgba=marker_rgba)
+    if walker_type == WalkerType.HUMANOID:
+        return Humanoid(name=name, marker_rgba=list(marker_rgba),
+                        walker_id=walker_id, visual=Humanoid.Visual.JERSEY)
+    raise ValueError(f"Unrecognized walker type: {walker_type}")
+
+
+def standard_players(team_size, walker_type=WalkerType.BOXHEAD):
+    """Home and away teams of ``team_size`` players each of ``walker_type``
+    (a ``WalkerType`` or its name), named ``home<i>`` and ``away<i>`` with
+    the team colours, home first, as the JAX package's ``soccer.load``
+    builds them."""
+    walker_type = walker_type_of(walker_type)
     home, away = [], []
     for i in range(team_size):
-        home.append(Player(Team.HOME, BoxHead(
-            name=f"home{i}", walker_id=i, marker_rgba=RGBA_BLUE)))
-        away.append(Player(Team.AWAY, BoxHead(
-            name=f"away{i}", walker_id=i, marker_rgba=RGBA_RED)))
+        home.append(Player(Team.HOME, _make_walker(
+            f"home{i}", i, RGBA_BLUE, walker_type)))
+        away.append(Player(Team.AWAY, _make_walker(
+            f"away{i}", i, RGBA_RED, walker_type)))
     return home + away
 
 

@@ -85,7 +85,9 @@ class CMUHumanoidPositionControlled(CMUHumanoid):
     [kp*(lo - slope*(-1)), -kp, 0] — with the reference's tuned per-joint
     kp / forcerange (cmu_actuator_params.py, transcribed data); the 2020
     revision additionally sets per-joint damping and a 30 ms activation
-    filter."""
+    filter.  The gains are written with 17 digits, as the JAX package's
+    humanoid writes them, not through ``scaled_actuators`` (``%g``), so the
+    compiled model is the JAX compiler's bit for bit."""
 
     _ACTUATOR_TABLE = "POSITION_ACTUATORS"
     _FILTER = None

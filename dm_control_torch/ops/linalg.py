@@ -13,10 +13,14 @@ environment and solve one right-hand side:
 (n, n) matrix shared by the batch, which is never copied B times) and
 dispatches on the device of its
 inputs: a CUDA tensor launches the fused factor+solve kernel in
-``csrc/chol_solve.cu`` or raises (the register kernel, one warp a system,
-up to n = 32, and 64 in float32; the block kernel, one thread block a
-system, above that up to 160); a CPU tensor uses
+``csrc/chol_solve.cu`` or raises; a CPU tensor uses
 ``chol_solve_reference``, the plain PyTorch version of the same function.
+The kernel takes one of three branches, fixed on (n, type)
+(``kernel_branch``): "register" (one warp a system, n <= 32, and 64 in
+float32), "block" (one thread block a system, the triangle in shared
+memory: up to n = 202 in float64 and 303 in float32) and "global" (one
+thread block a system, the triangle in a scratch tensor that the wrapper
+allocates, every larger n up to ``chol_solve_max_n()``).
 ``reference_solves()`` is the one explicit switch that sends CUDA tensors
 to the plain version too, so that a whole step can be compared on the card
 with and without the kernel.
@@ -52,30 +56,40 @@ _DTYPES = (torch.float32, torch.float64)
 _ENTRY = None  # {dtype: C entry point}, filled by the first _load()
 _MAX_N = 0
 _REGISTER_MAX_N = {}  # {dtype: largest n of the register kernel}
+_BLOCK_MAX_N = {}  # {dtype: largest n of the block kernel}
+_SCRATCH_ELEMS = None  # n -> scratch elements a system on the global branch
 _ERROR_STRING = None
 
 
 def _load() -> None:
     """Builds (or loads) the library and resolves its entry points once."""
-    global _ENTRY, _MAX_N, _REGISTER_MAX_N, _ERROR_STRING
+    global _ENTRY, _MAX_N, _REGISTER_MAX_N, _BLOCK_MAX_N, _SCRATCH_ELEMS
+    global _ERROR_STRING
     from dm_control_torch.ops import _cuda_build
 
     lib = _cuda_build.load_library("chol_solve.cu")
     ptr = ctypes.c_void_p
     for fn in (lib.chol_solve_f32, lib.chol_solve_f64):
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ptr]
         fn.restype = ctypes.c_int
     lib.chol_solve_max_n.argtypes = []
     lib.chol_solve_max_n.restype = ctypes.c_int
-    lib.chol_solve_register_max_n.argtypes = [ctypes.c_int]
-    lib.chol_solve_register_max_n.restype = ctypes.c_int
+    for fn in (lib.chol_solve_register_max_n, lib.chol_solve_block_max_n):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    lib.chol_solve_scratch_elems.argtypes = [ctypes.c_int]
+    lib.chol_solve_scratch_elems.restype = ctypes.c_longlong
+    _SCRATCH_ELEMS = lib.chol_solve_scratch_elems
     lib.chol_solve_error_string.argtypes = [ctypes.c_int]
     lib.chol_solve_error_string.restype = ctypes.c_char_p
     _ERROR_STRING = lib.chol_solve_error_string
     _MAX_N = lib.chol_solve_max_n()
     _REGISTER_MAX_N = {
         dtype: lib.chol_solve_register_max_n(int(dtype == torch.float64))
+        for dtype in _DTYPES}
+    _BLOCK_MAX_N = {
+        dtype: lib.chol_solve_block_max_n(int(dtype == torch.float64))
         for dtype in _DTYPES}
     _ENTRY = {torch.float32: lib.chol_solve_f32,
               torch.float64: lib.chol_solve_f64}
@@ -107,8 +121,8 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> int:
         _load()
     n = b.shape[1]
     if not 1 <= n <= _MAX_N:
-        raise ValueError(f"chol_solve_cuda supports 1 <= n <= {_MAX_N}, got "
-                         f"n = {n}")
+        raise ValueError(f"chol_solve_cuda supports 1 <= n <= {_MAX_N} "
+                         f"(chol_solve_max_n()), got n = {n}")
     return n
 
 
@@ -119,14 +133,21 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reads it with a batch stride of 0, nothing is copied); b: (B, n);
     both contiguous, float32 or float64, on one CUDA device.  Only the
     lower triangle of a is read, as by ``chol_solve_reference``.  Returns
-    x (B, n).  Raises on anything else.  Counts the launch in
+    x (B, n).  Raises on anything else.  On the global branch the packed
+    triangle of each system lives in a scratch tensor allocated here
+    (B x ``chol_solve_scratch_elems(n)`` elements).  Counts the launch in
     ``chol_solve.launches`` and in ``chol_solve.branch_launches`` under the
     branch that (n, type) takes.
     """
     n = _check(a, b)
+    branch = kernel_branch(n, a.dtype)
     x = torch.empty_like(b)
     device = a.device
-    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0], n,
+    scratch = (torch.empty(b.shape[0] * _SCRATCH_ELEMS(n), dtype=b.dtype,
+                           device=device)
+               if branch == "global" else None)
+    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b.shape[0], n,
             0 if a.ndim == 2 else n * n,
             torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
@@ -138,17 +159,20 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("chol_solve kernel launch failed: "
                            + _ERROR_STRING(err).decode())
     chol_solve.launches += 1
-    chol_solve.branch_launches[kernel_branch(n, a.dtype)] += 1
+    chol_solve.branch_launches[branch] += 1
     return x
 
 
 def kernel_branch(n: int, dtype: torch.dtype) -> str:
     """The branch of the launcher's rule, fixed on (n, type), that a solve
-    of size n takes: "register" (n <= 32, and n <= 64 in float32) or
-    "block"."""
+    of size n takes: "register" (n <= 32, and n <= 64 in float32), "block"
+    (up to the largest n whose triangle fits one block's shared memory:
+    202 in float64, 303 in float32) or "global"."""
     if _ENTRY is None:
         _load()
-    return "register" if n <= _REGISTER_MAX_N[dtype] else "block"
+    if n <= _REGISTER_MAX_N[dtype]:
+        return "register"
+    return "block" if n <= _BLOCK_MAX_N[dtype] else "global"
 
 
 def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -168,9 +192,10 @@ def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 #: launches of the CUDA kernel since the count was last set to 0
 chol_solve.launches = 0
-#: the same by branch: "register" (n <= 32, and n <= 64 in float32) and
-#: "block" (every larger n up to 160)
-chol_solve.branch_launches = {"register": 0, "block": 0}
+#: the same by branch: "register" (n <= 32, and n <= 64 in float32),
+#: "block" (up to n = 202 in float64, 303 in float32) and "global" (every
+#: larger n)
+chol_solve.branch_launches = {"register": 0, "block": 0, "global": 0}
 
 
 def reset_launch_counts() -> None:

@@ -7,7 +7,8 @@ also runs on a machine that has none:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: 2e-4 (float32) and 1e-10 (float64) between the kernel and its
-plain version, as tests/test_ops_linalg.py holds the Pallas kernel; 1e-8
+plain version, as tests/test_ops_linalg.py holds the Pallas kernel, at
+every n of the three branches up to 1,370 (an 11v11 HUMANOID match); 1e-8
 for a float64 control step against the JAX golden.
 """
 
@@ -56,7 +57,17 @@ def _spd(rng, b, n, dtype, device):
                                  (73, 1), (73, 4), (73, 512),
                                  (79, 1), (79, 4), (79, 512), (79, 1000),
                                  (85, 1), (85, 4), (85, 512),
-                                 (160, 1), (160, 3), (160, 4), (160, 512)])
+                                 (160, 1), (160, 3), (160, 4), (160, 512),
+                                 # soccer 10v10 and 11v11, both sides of
+                                 # the block kernel's last n (202 in
+                                 # float64, 303 in float32) and of a panel
+                                 # of the global kernel (320/321), a
+                                 # HUMANOID 2v2 match, an 11v11 one
+                                 (161, 4), (166, 1), (182, 1), (182, 64),
+                                 (202, 4), (203, 1), (203, 4), (254, 1),
+                                 (254, 4), (254, 64), (303, 4), (304, 1),
+                                 (304, 4), (320, 4), (321, 4), (1370, 1),
+                                 (1370, 4)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -69,7 +80,7 @@ def test_kernel_matches_plain_version(cuda, n, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160, 254])
 def test_shared_matrix_is_read_with_stride_0(cuda, n, dtype):
     """One (n, n) matrix for the batch: directly, and as an expanded view
     through the dispatcher, which hands over the one copy."""
@@ -88,15 +99,17 @@ def test_shared_matrix_is_read_with_stride_0(cuda, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160])
+@pytest.mark.parametrize("n", [27, 32, 33, 64, 65, 73, 85, 160, 254, 1370])
 def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
     """What stands above the diagonal of a is no input, for the kernel as
-    for the plain version, on both sides of the launcher's boundaries."""
+    for the plain version, on both sides of the launcher's boundaries and
+    on the global kernel (4 systems at n = 1,370)."""
     rng = np.random.default_rng(n)
-    a = _spd(rng, 1001, n, dtype, cuda)
-    rhs = torch.as_tensor(rng.standard_normal((1001, n)), dtype=dtype,
+    b = 4 if n > 1000 else 1001
+    a = _spd(rng, b, n, dtype, cuda)
+    rhs = torch.as_tensor(rng.standard_normal((b, n)), dtype=dtype,
                           device=cuda)
-    junk = a.tril() + torch.as_tensor(rng.standard_normal((1001, n, n)),
+    junk = a.tril() + torch.as_tensor(rng.standard_normal((b, n, n)),
                                       dtype=dtype, device=cuda).triu(1)
     ref = linalg.chol_solve_reference(a, rhs)
     torch.testing.assert_close(linalg.chol_solve_reference(junk, rhs), ref,
@@ -106,7 +119,7 @@ def test_kernel_reads_the_lower_triangle_only(cuda, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [27, 62, 73, 79, 85, 160])
+@pytest.mark.parametrize("n", [27, 62, 73, 79, 85, 160, 254, 1370])
 def test_non_spd_system_gives_nan_in_its_row_only(cuda, n, dtype):
     rng = np.random.default_rng(0)
     a = _spd(rng, 64, n, dtype, cuda)
@@ -130,19 +143,22 @@ def test_dispatch_counts_launches_and_reference_switch(cuda):
     x = linalg.chol_solve(a, rhs)
     assert linalg.chol_solve.launches == before + 1
     assert linalg.chol_solve.branch_launches == {
-        "register": branches["register"] + 1, "block": branches["block"]}
+        "register": branches["register"] + 1, "block": branches["block"],
+        "global": branches["global"]}
     with linalg.reference_solves():
         x_ref = linalg.chol_solve(a, rhs)
     assert linalg.chol_solve.launches == before + 1
     # the block kernel above the register path: n = 65 in float32, 33 in
-    # float64
-    for n, dtype in ((65, torch.float32), (33, torch.float64)):
+    # float64, up to 303 and 202; the global kernel above them
+    for n, dtype in ((65, torch.float32), (33, torch.float64),
+                     (303, torch.float32), (202, torch.float64),
+                     (304, torch.float32), (203, torch.float64)):
         linalg.chol_solve(_spd(rng, 2, n, dtype, cuda),
                           torch.ones(2, n, dtype=dtype, device=cuda))
     assert linalg.chol_solve.branch_launches == {
         "register": branches["register"] + 1,
-        "block": branches["block"] + 2}
-    assert linalg.chol_solve.launches == before + 3
+        "block": branches["block"] + 4, "global": branches["global"] + 2}
+    assert linalg.chol_solve.launches == before + 7
     torch.testing.assert_close(x, x_ref, rtol=2e-4, atol=2e-4)
     # one matrix shared by the batch
     x_b = linalg.chol_solve(a[0], rhs)
@@ -157,9 +173,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         linalg.chol_solve_cuda(a, rhs)
     with pytest.raises(TypeError):
         linalg.chol_solve_cuda(a.contiguous(), rhs.double())
-    with pytest.raises(ValueError, match="n <="):
-        big = torch.eye(200, device=cuda).expand(1, 200, 200).contiguous()
-        linalg.chol_solve_cuda(big, torch.ones(1, 200, device=cuda))
+    n = linalg._MAX_N + 1  # no system, so nothing of that size is made
+    assert linalg._MAX_N >= 2048
+    with pytest.raises(ValueError, match="chol_solve_max_n"):
+        linalg.chol_solve_cuda(torch.empty(0, n, n, device=cuda),
+                               torch.empty(0, n, device=cuda))
 
 
 @pytest.mark.parametrize("prefix", PREFIXES)
@@ -304,3 +322,74 @@ def test_locomotion_example_runs_on_the_card(cuda, name):
     for v in ts.observation.values():
         assert np.all(np.isfinite(np.asarray(v)))
     assert linalg.chol_solve.launches - before >= env._n_sub_steps
+
+
+def test_branch_rule_and_scratch(cuda):
+    """The launcher's rule: the register kernel up to 32 (64 in float32),
+    the block kernel up to the largest n whose triangle fits a block's
+    shared memory (202 in float64, 303 in float32), the global kernel
+    above, to at least 2,048; the global kernel's scratch is the packed
+    triangle with b as row n, whose offsets stay within int at the
+    largest n."""
+    rule = {torch.float64: (32, 202), torch.float32: (64, 303)}
+    for dtype, (reg, block) in rule.items():
+        assert linalg.kernel_branch(reg, dtype) == "register"
+        assert linalg.kernel_branch(reg + 1, dtype) == "block"
+        assert linalg.kernel_branch(block, dtype) == "block"
+        assert linalg.kernel_branch(block + 1, dtype) == "global"
+        assert linalg.kernel_branch(2048, dtype) == "global"
+    assert linalg._SCRATCH_ELEMS(1370) == 942564
+    assert linalg._SCRATCH_ELEMS(linalg._MAX_N) < 2 ** 31
+
+
+def _soccer(team_size, walker_type="boxhead", dtype=torch.float64,
+            pitch_size=(12, 9)):
+    from dm_control_torch.locomotion import soccer
+
+    return soccer.load(team_size=team_size, walker_type=walker_type,
+                       pitch_size=pitch_size, random_state=0, dtype=dtype)
+
+
+@pytest.mark.parametrize("team_size,nv", [(10, 166), (11, 182)])
+def test_large_boxhead_match_runs_on_the_card(cuda, team_size, nv):
+    """BoxHead ten and eleven a side (nv 166 and 182, over the block
+    kernel's first cap of 160) on their drawn pitches (a (12, 9) pitch
+    holds no 22 players apart) reset and step one control step in
+    float64: finite, and every solve on the block kernel."""
+    env = _soccer(team_size, pitch_size=None)
+    assert env.physics.model.nv == nv
+    assert linalg.kernel_branch(nv, torch.float64) == "block"
+    linalg.reset_launch_counts()
+    assert env.reset().first()
+    spec = env.action_spec()
+    ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
+                                                   spec.maximum))
+    assert ts.mid() and np.all(np.isfinite(ts.reward))
+    for v in ts.observation.values():
+        assert np.all(np.isfinite(np.asarray(v)))
+    counts = linalg.chol_solve.branch_launches
+    assert counts["block"] == linalg.chol_solve.launches
+    assert counts["block"] >= 2 * env._n_sub_steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("walker_type,nv", [("ant", 62), ("humanoid", 254)])
+def test_walker_match_runs_on_the_card(cuda, walker_type, nv, dtype):
+    """ANT and HUMANOID matches two a side reset and step one control step
+    in both types: finite, every solve on the branch its (nv, type) names
+    (the humanoids' 254: the global kernel in float64, the block kernel
+    in float32)."""
+    env = _soccer(2, walker_type, dtype)
+    assert env.physics.model.nv == nv
+    branch = linalg.kernel_branch(nv, dtype)
+    linalg.reset_launch_counts()
+    assert env.reset().first()
+    spec = env.action_spec()
+    ts = env.step(np.random.RandomState(0).uniform(spec.minimum,
+                                                   spec.maximum))
+    assert ts.mid() and np.all(np.isfinite(ts.reward))
+    for v in ts.observation.values():
+        assert np.all(np.isfinite(np.asarray(v)))
+    counts = linalg.chol_solve.branch_launches
+    assert counts[branch] == linalg.chol_solve.launches
+    assert counts[branch] >= 2 * env._n_sub_steps

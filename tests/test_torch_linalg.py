@@ -19,7 +19,12 @@ solved against its L, the trailing update in the tiles' order, the back
 substitution from U's rows), held to the plain version and the JAX
 package's ``_xla_chol_solve``, which is what the JAX package runs at these
 n (above its Pallas kernel's ``_MAX_N`` of 44, and below B = 256).
+``_global_algorithm`` is the global kernel's (the same factor, the back
+substitution by panels), held to both at n past the block kernel's
+largest, and to the Pallas kernel in interpret mode with narrow panels.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -242,18 +247,21 @@ def test_register_algorithm_shared_matrix():
 _PANEL = 32  # the block kernel's panel width: one lane a column
 
 
-def _block_algorithm(a, rhs):
-    """The block kernel of csrc/chol_solve.cu, systems as an array axis.
+def _factor_panels(a, rhs, panel):
+    """The factor of the block and global kernels of csrc/chol_solve.cu,
+    systems as an array axis, panels of ``panel`` columns (32 in the
+    kernels).
 
-    For each panel of 32 columns: the diagonal block is factored as warp 0
-    does (lane i holds row i; at step j its multiplier g_i = S[i][j] / p
-    scales column j, S[k][j], out of the row), its multipliers kept as
-    L11[j][i] and b's entries carried along; the rows below it solve
-    U_r L11^T = S_r column by column; the trailing lower triangle and b's
-    row take the rank-32 update, entry by entry in the order j of the
-    panel (a tile holds its entries through the update).  Then the back
-    substitution from U's rows, j descending.  Only the lower triangle of
-    a is read; every operation stays in the type of the inputs.
+    For each panel: the diagonal block is factored as warp 0 does (lane i
+    holds row i; at step j its multiplier g_i = S[i][j] / p scales column
+    j, S[k][j], out of the row), its multipliers kept as L11[j][i] and b's
+    entries carried along; the rows below it solve U_r L11^T = S_r column
+    by column; the trailing lower triangle and b's row take the rank-32
+    update, entry by entry in the order j of the panel (a tile holds its
+    entries through the update).  Only the lower triangle of a is read;
+    every operation stays in the type of the inputs.  Returns U (the
+    factor's rows, lower triangle), z = L^-1 b, the reciprocal pivots and
+    which systems are not positive definite.
     """
     batch, n = rhs.shape
     S = np.tril(a)  # what stands above the diagonal is never read
@@ -262,8 +270,8 @@ def _block_algorithm(a, rhs):
     bad = np.zeros(batch, bool)
     one = np.ones((), a.dtype)
     with np.errstate(all="ignore"):
-        for c0 in range(0, n, _PANEL):
-            c1 = min(c0 + _PANEL, n)
+        for c0 in range(0, n, panel):
+            c1 = min(c0 + panel, n)
             w = c1 - c0
             block = np.tril(S[:, c0:c1, c0:c1])  # [s, i, k]: lane i's row
             L11 = np.zeros((batch, w, w), a.dtype)
@@ -289,9 +297,41 @@ def _block_algorithm(a, rhs):
             for j in range(w):  # the tiles: entry by entry, j in order
                 S[:, c1:, c1:] -= u[:, :, j, None] * lb[:, None, :, j]
                 z[:, c1:] -= z[:, c0 + j, None] * lb[:, :, j]
-        for j in reversed(range(n)):
+    return S, z, rd, bad
+
+
+def _block_algorithm(a, rhs):
+    """The block kernel: ``_factor_panels`` with panels of 32 columns, then
+    the back substitution from U's rows, j descending."""
+    S, z, rd, bad = _factor_panels(a, rhs, _PANEL)
+    with np.errstate(all="ignore"):
+        for j in reversed(range(rhs.shape[1])):
             xj = z[:, j] * rd[:, j]  # broadcast from the lane holding j
             z[:, :j] -= S[:, j, :j] * xj[:, None]  # row j of U
+        x = z * rd
+    x[bad] = np.nan
+    assert x.dtype == a.dtype
+    return x
+
+
+def _global_algorithm(a, rhs, panel=_PANEL):
+    """The global kernel: ``_factor_panels`` (the triangle in device memory,
+    the same operations in the same order), then the back substitution by
+    panels, the last first: warp 0 solves the panel's triangle from its
+    lanes' z, then every z entry of the panels before it gives up the
+    panel's x, j descending.  Each z entry takes its terms in the order
+    the block kernel's lane takes them in."""
+    S, z, rd, bad = _factor_panels(a, rhs, panel)
+    n = rhs.shape[1]
+    with np.errstate(all="ignore"):
+        for c0 in reversed(range(0, n, panel)):
+            c1 = min(c0 + panel, n)
+            for j in reversed(range(c0, c1)):  # warp 0, one shuffle a step
+                xj = z[:, j] * rd[:, j]
+                z[:, c0:j] -= S[:, j, c0:j] * xj[:, None]
+            x_panel = z[:, c0:c1] * rd[:, c0:c1]
+            for j in reversed(range(c0, c1)):  # every thread, a z entry each
+                z[:, :c0] -= S[:, j, :c0] * x_panel[:, j - c0, None]
         x = z * rd
     x[bad] = np.nan
     assert x.dtype == a.dtype
@@ -399,3 +439,73 @@ def test_build_without_nvcc_says_what_is_missing(monkeypatch):
     monkeypatch.setattr(_cuda_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda_build.nvcc_path()
+
+
+#: n on both sides of the global kernel's start (203 in float64, 304 in
+#: float32), a HUMANOID 2v2 match's nv (254) and one past a panel (321)
+_GLOBAL_NS = [161, 203, 254, 304, 321]
+_GLOBAL_CASES = [(n, dtype) for n in _GLOBAL_NS
+                 for dtype in (np.float32, np.float64)]
+
+
+@functools.lru_cache(maxsize=None)
+def _global_case(n, dtype):
+    """Four seeded systems, one not positive definite, and the same matrices
+    with junk above the diagonal; the global algorithm's x of the junk."""
+    rng = np.random.default_rng(600 + n)
+    b, bad = 4, 2
+    a = _spd(rng, b, n, dtype)
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    a[bad] = -a[bad]
+    rhs = rng.standard_normal((b, n)).astype(dtype)
+    junk = np.tril(a) + np.triu(rng.standard_normal((b, n, n)), 1).astype(
+        dtype)
+    x = _global_algorithm(junk, rhs)
+    assert np.isnan(x[bad]).all()
+    good = np.arange(b) != bad
+    assert np.isfinite(x[good]).all()
+    return a, rhs, x, bad, good
+
+
+@pytest.mark.parametrize("n,dtype", _GLOBAL_CASES)
+def test_global_algorithm_matches_plain_version(n, dtype):
+    a, rhs, x, bad, good = _global_case(n, dtype)
+    ref = _torch(a, rhs)
+    assert np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("n,dtype", _GLOBAL_CASES)
+def test_global_algorithm_matches_xla(n, dtype):
+    a, rhs, x, bad, good = _global_case(n, dtype)
+    ref = np.asarray(jlinalg._xla_chol_solve(jnp.asarray(a),
+                                             jnp.asarray(rhs)))
+    assert ref.dtype == dtype and np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("n,panel", [(11, 4)])
+def test_global_algorithm_matches_pallas_interpret(n, panel):
+    """Panels narrow enough that several run, against the Pallas kernel in
+    interpret mode (float32 only; its NaN for a pivot that is not > 0 stays
+    in that system's lane)."""
+    a, rhs, _, bad, good = _algorithm_case(n, np.float32)
+    x = _global_algorithm(a, rhs, panel)
+    ref = np.asarray(jlinalg._pallas_chol_solve(
+        jnp.asarray(a), jnp.asarray(rhs), interpret=True))
+    assert np.isnan(x[bad]).all() and np.isnan(ref[bad]).all()
+    np.testing.assert_allclose(x[good], ref[good], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_global_algorithm_takes_the_block_kernels_order(dtype):
+    """Same factor, and each z entry of the back substitution takes its
+    terms in the same order: the two kernels' algorithms agree bit for
+    bit."""
+    rng = np.random.default_rng(700)
+    a = _spd(rng, 3, 97, dtype)
+    rhs = rng.standard_normal((3, 97)).astype(dtype)
+    np.testing.assert_array_equal(_global_algorithm(a, rhs),
+                                  _block_algorithm(a, rhs))

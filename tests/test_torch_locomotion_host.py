@@ -25,8 +25,9 @@ package's, in float64 on the CPU: ``soccer.load`` and
   hits, and fed from live contacts; every enabled observable key against
   the JAX task's; a goal ends ``Task``'s episode and re-kicks off in
   ``MultiturnTask``'s; the randomized pitch recompiles every episode.
-- What the port does not build raises (ANT and HUMANOID players, tracking
-  cameras); the default device is the card.
+- What the port does not build raises (ANT and HUMANOID players on the
+  batched path, tracking cameras); ``load`` builds ANT and HUMANOID
+  matches; the default device is the card.
 
 JAX environments are built with ``composer.Environment`` replaced (no
 MJCF compile, nothing jitted).  Marked ``slow``: each host golden equals
@@ -45,6 +46,7 @@ from _torch_helpers import export_tool
 from dm_control_torch import composer as tcomposer
 from dm_control_torch.composer import batch as tbatch
 from dm_control_torch.locomotion import soccer as tsoccer
+from dm_control_torch.locomotion import walkers as twalkers
 from dm_control_torch.locomotion.walkers import cmu_actuator_params
 from dm_control_torch.mjcf import compiler as tcompiler
 from dm_control_torch.physics import engine as tengine
@@ -110,13 +112,9 @@ def _golden(name):
 def _port_env(name):
     """The port's environment of a host golden, as ``loco_env`` builds the
     JAX one."""
+    if name in tgolden.SOCCER_EPISODES:
+        return tsoccer.load(**tgolden.SOCCER_EPISODES[name], device="cpu")
     seed = export_tool().LOCO_ENV_SEED
-    if name == "soccer_1v1":
-        return tsoccer.load(team_size=1, random_state=seed, device="cpu")
-    if name == "soccer_2v2_fixed":
-        return tsoccer.load(team_size=2, pitch_size=(12, 9),
-                            enable_field_box=True, random_state=seed,
-                            device="cpu")
     return tcomposer.Environment(
         ttracking._task(name),
         time_limit=export_tool().TRACKING_TIME_LIMITS[name],
@@ -534,9 +532,14 @@ def test_cmu_tracking_runs():
 
 
 def test_refusals_and_default_device():
-    for walker_type in (tsoccer.WalkerType.ANT, "humanoid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
-            tsoccer.load(walker_type=walker_type, device="cpu")
+    for walker_type, cls in ((tsoccer.WalkerType.ANT, twalkers.Ant),
+                             ("humanoid", tsoccer.Humanoid)):
+        env = tsoccer.load(team_size=1, walker_type=walker_type,
+                           device="cpu")
+        assert [type(p.walker) for p in env.task.players] == [cls, cls]
+        with pytest.raises(NotImplementedError, match="BoxHead"):
+            tsoccer.load_batch(walker_type=walker_type, device="cpu",
+                               dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tsoccer.Task(tsoccer.task.standard_players(1), tsoccer.Pitch(),
                      tracking_cameras=(object(),))

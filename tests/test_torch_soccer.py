@@ -271,15 +271,17 @@ def test_pitch_and_boxhead_match_jax():
 
 
 def test_refusals():
-    """What the port does not build raises and names the ROADMAP item: ANT
-    and HUMANOID players (A5.5), tracking cameras (A6); the batched path
-    refuses ``MultiturnTask``, whose goals re-kick off on the host."""
+    """What the port does not build raises: the batched path refuses ANT
+    and HUMANOID players, as the JAX package's ``load_batch`` builds only
+    BoxHead matches (``load`` builds them), tracking cameras name ROADMAP
+    A6, and the batched path refuses ``MultiturnTask``, whose goals
+    re-kick off on the host."""
     for kwargs in ({"walker_type": tsoccer.WalkerType.ANT},
                    {"walker_type": "humanoid"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
+        with pytest.raises(NotImplementedError, match="BoxHead"):
             tsoccer.load_batch(device="cpu", dtype=torch.float64, **kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
-            tsoccer.load(device="cpu", **kwargs)
+        task = tsoccer.load(device="cpu", **kwargs).task
+        assert len(task.players) == 4
     players = tsoccer.task.standard_players(1)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tsoccer.Task(players, tsoccer.Pitch(), tracking_cameras=(object(),))

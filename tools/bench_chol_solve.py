@@ -6,9 +6,10 @@ calls, all in one process on one card.
         [--variant COPY.cu ...] [--n 27 62] \
         [--batch 256 1024 8192] [--main-path STEPS] [--out FILE.json]
 
-``--old`` names an earlier source with the present C interface (a batch
-stride), for example ``git show b122ab7:dm_control_torch/csrc/chol_solve.cu
-> _checkout/chol_solve_old.cu`` (the shared-memory kernel that the block
+``--old`` names an earlier source with a batch stride in its C interface
+(with or without the global kernel's scratch pointer), for example
+``git show b122ab7:dm_control_torch/csrc/chol_solve.cu >
+_checkout/chol_solve_old.cu`` (the shared-memory kernel that the block
 kernel replaced).  Each ``--variant`` is a copy of this checkout's source
 with an edit to try (another ``kBlockWarps``, say).  Both are called
 through the C interface alone, the output allocated per call as the
@@ -30,7 +31,7 @@ For every (n, B, type) and every implementation it prints, and with
   show);
 - ``bound_us``: the bytes (the lower triangle of A, which is the
   function's input, and b read once, x written once) over 3.35 TB/s, or
-  the operations over the float32/float64 rate if larger.
+  the operations over the float32/float64 peak (67e12 each) if larger.
 
 Implementations are timed in turns (old, new, variants, library, then
 the same backwards) and both readings are kept.
@@ -59,8 +60,9 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12
-# H100 SXM, outside the tensor cores
-FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# H100 SXM data sheet: float32 outside the tensor cores, float64 on them
+# (DMMA; outside them, half of it)
+FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 GRAPH_LAUNCHES = 50
 COLD_BYTES = 64 << 20
 
@@ -93,15 +95,28 @@ def raw_launcher(lib):
     ptr = ctypes.c_void_p
     fns = {torch.float32: lib.chol_solve_f32,
            torch.float64: lib.chol_solve_f64}
+    # Sources since the global kernel take a scratch pointer after x.
+    scratch_elems = getattr(lib, "chol_solve_scratch_elems", None)
+    if scratch_elems is not None:
+        scratch_elems.argtypes = [ctypes.c_int]
+        scratch_elems.restype = ctypes.c_longlong
     for fn in fns.values():
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ptr]
+        fn.argtypes = [ptr, ptr, ptr] + ([ptr] if scratch_elems else []) + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ptr]
         fn.restype = ctypes.c_int
+    scratch = {}
 
     def launch(a, b, x):
         batch, n = b.shape
-        err = fns[a.dtype](a.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n,
-                           0 if a.ndim == 2 else n * n,
+        extra = ()
+        if scratch_elems is not None:  # one scratch per shape, reused
+            key = (batch, n, a.dtype)
+            if key not in scratch:
+                scratch[key] = torch.empty(batch * scratch_elems(n),
+                                           dtype=a.dtype, device=a.device)
+            extra = (scratch[key].data_ptr(),)
+        err = fns[a.dtype](a.data_ptr(), b.data_ptr(), x.data_ptr(), *extra,
+                           batch, n, 0 if a.ndim == 2 else n * n,
                            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed with CUDA error {err}")

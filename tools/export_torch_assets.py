@@ -116,7 +116,14 @@ It writes, for every ported domain (or only the ones named),
   (``model_body_pos``: the targets the maze and two-touch resets place).
   ``JAX_PLATFORMS=cpu python tools/export_torch_assets.py
   loco_example_goldens`` (or ``loco_env_golden:rodent_two_touch``, say)
-  writes them.
+  writes them;
+- on request, the same for the soccer matches of other players in
+  ``LOCO_WALKER_GOLDENS`` (``soccer.load`` with ANT players two a side on
+  a fixed (12, 9) pitch, and with HUMANOID players one a side on the
+  pitch drawn from the humanoids' areas, with the regulation ball; every
+  soccer recording's arguments and seed are the port's
+  ``rl.golden.SOCCER_EPISODES``): ``JAX_PLATFORMS=cpu python
+  tools/export_torch_assets.py loco_walker_goldens``.
 """
 
 from __future__ import annotations
@@ -295,6 +302,9 @@ LOCO_ENV_STEPS = 3
 #: bowl's height field, two-touch's state machine
 LOCO_EXAMPLE_GOLDENS = ("cmu_humanoid_run_gaps", "cmu_humanoid_maze_forage",
                         "rodent_escape_bowl", "rodent_two_touch")
+#: soccer matches of other players whose host episodes are recorded
+#: (``loco_env``): ants two a side on a fixed pitch, humanoids one a side
+LOCO_WALKER_GOLDENS = ("soccer_ant_2v2", "soccer_humanoid_1v1")
 
 
 def golden_domain(golden):
@@ -377,43 +387,47 @@ def make_manip_env_golden(name):
     return out
 
 
-def loco_env(name):
+def loco_env(name, seed=None):
     """The JAX package's locomotion host environment of a name of
-    ``LOCO_ENV_GOLDENS`` with seed ``LOCO_ENV_SEED``: ``soccer.load`` one a
-    side on its default ``RandomizedPitch`` (drawn and compiled every
-    episode), two a side on a fixed (12, 9) pitch with the field box, and
-    the two tracking tasks of ``locomotion_task`` through
-    ``composer.Environment`` with their time limits; or the example
-    environment of a name of ``LOCO_EXAMPLE_GOLDENS``, built after
-    numpy's global state is seeded with ``LOCO_ENV_SEED``."""
+    ``LOCO_ENV_GOLDENS``, ``LOCO_EXAMPLE_GOLDENS`` or
+    ``LOCO_WALKER_GOLDENS``: a soccer match of the port's
+    ``rl.golden.SOCCER_EPISODES`` (``soccer.load`` with its arguments: one
+    a side on its default ``RandomizedPitch``, drawn and compiled every
+    episode; two a side on a fixed (12, 9) pitch with the field box; ants
+    two a side on that pitch; humanoids one a side), the two tracking
+    tasks of ``locomotion_task`` through ``composer.Environment`` with
+    their time limits and seed ``LOCO_ENV_SEED``, or the example
+    environment, built after numpy's global state is seeded with
+    ``LOCO_ENV_SEED``.  ``seed`` takes the place of the recording's."""
+    from dm_control_torch.rl.golden import SOCCER_EPISODES
+
+    if name in SOCCER_EPISODES:
+        from dm_control_tpu.locomotion import soccer
+
+        kwargs = dict(SOCCER_EPISODES[name])
+        if seed is not None:
+            kwargs["random_state"] = seed
+        return soccer.load(**kwargs)
+    seed = LOCO_ENV_SEED if seed is None else seed
     if name in LOCO_EXAMPLE_GOLDENS:
         from dm_control_tpu.locomotion.examples import basic
 
-        np.random.seed(LOCO_ENV_SEED)
-        return getattr(basic, name)(random_state=LOCO_ENV_SEED)
-    if name == "soccer_1v1":
-        from dm_control_tpu.locomotion import soccer
-
-        return soccer.load(team_size=1, random_state=LOCO_ENV_SEED)
-    if name == "soccer_2v2_fixed":
-        from dm_control_tpu.locomotion import soccer
-
-        return soccer.load(team_size=2, pitch_size=(12, 9),
-                           enable_field_box=True, random_state=LOCO_ENV_SEED)
+        np.random.seed(seed)
+        return getattr(basic, name)(random_state=seed)
     from dm_control_tpu import composer
 
     return composer.Environment(locomotion_task(name),
                                 time_limit=TRACKING_TIME_LIMITS[name],
-                                random_state=LOCO_ENV_SEED)
+                                random_state=seed)
 
 
-def make_loco_env_golden(name):
-    """One float64 host episode of ``loco_env(name)``: the reset and
+def make_loco_env_golden(name, seed=None):
+    """One float64 host episode of ``loco_env(name, seed)``: the reset and
     ``LOCO_ENV_STEPS`` control steps with actions drawn as for the
     manipulation host goldens, with the compiled model's ``geom_size``
     and ``geom_rbound`` after the reset (the drawn pitch's size), and
     ``body_pos`` for the example environments (the placed targets)."""
-    env = loco_env(name)
+    env = loco_env(name, seed)
     spec = env.action_spec()
     rng = np.random.RandomState(ENV_ACTION_SEED)
     out = _episode(env, np.stack([rng.uniform(spec.minimum, spec.maximum)
@@ -769,9 +783,11 @@ def main(argv=None):
         if domain.startswith("manip_env_golden:"):
             write_manip_env_golden(domain[len("manip_env_golden:"):])
             continue
-        if domain in ("loco_env_goldens", "loco_example_goldens"):
-            for name in (LOCO_ENV_GOLDENS if domain == "loco_env_goldens"
-                         else LOCO_EXAMPLE_GOLDENS):
+        if domain in ("loco_env_goldens", "loco_example_goldens",
+                      "loco_walker_goldens"):
+            for name in {"loco_env_goldens": LOCO_ENV_GOLDENS,
+                         "loco_example_goldens": LOCO_EXAMPLE_GOLDENS,
+                         "loco_walker_goldens": LOCO_WALKER_GOLDENS}[domain]:
                 write_loco_env_golden(name)
             continue
         if domain.startswith("loco_env_golden:"):
