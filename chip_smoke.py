@@ -78,9 +78,10 @@ side (nv 254) in float32 with its rate, launches by branch, candidates,
 contact rows and idle share, the ANT two a side and HUMANOID one a side
 float64 host goldens replayed one control step at a time, HUMANOID two a
 side in float64 (the kernel's global branch) with and without the
-kernel, and BoxHead ten a side (nv 166) in float64 on the card.  Each
-phase prints one line (phases 11 to 15 one per model); any failure exits
-with a non-zero code.  The last line is a
+kernel (the kernel's step profiled: the card's busy time and the global
+kernel's share of it), and BoxHead ten a side (nv 166) in float64 on the
+card.  Each phase prints one line (phases 11 to 15 one per model); any
+failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -163,8 +164,10 @@ TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
 #: single environment's float64 and in float32 (CMU 2019's 62 in float32 is
 #: phase 14's humanoid rate path), and phase 15's float64 BoxHead 10v10
 #: (166, the block kernel), HUMANOID 2v2 (254: the global kernel in
-#: float64, the block kernel in float32) and an 11v11 HUMANOID match's
-#: 1,370 (the global kernel)
+#: float64, the block kernel in float32; and 4 systems of it in float64),
+#: an 11v11 HUMANOID match's 1,370 (the global kernel in both types), an
+#: ANT 11v11 match's 314 and a HUMANOID 3v3 match's 378 in float32 (the
+#: global kernel)
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 21, torch.float64), (1, 21, torch.float32),
                 (1, 39, torch.float64), (1, 39, torch.float32),
@@ -174,7 +177,9 @@ TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 62, torch.float64), (1, 62, torch.float32),
                 (1, 73, torch.float64), (1, 73, torch.float32),
                 (1, 166, torch.float64), (1, 254, torch.float64),
-                (1, 254, torch.float32), (1, 1370, torch.float64))
+                (1, 254, torch.float32), (1, 1370, torch.float64),
+                (1, 314, torch.float32), (1, 378, torch.float32),
+                (1, 1370, torch.float32), (4, 254, torch.float64))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
@@ -329,6 +334,28 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+def ptxas_kernels(report: str) -> list:
+    """Each kernel's registers, stack and spills from nvcc's ``-Xptxas -v``
+    report, named by branch and type (``global<double>``)."""
+    out, name = [], None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            branch = next((b for b in ("reg", "block", "global")
+                           if f"chol_solve_{b}_kernel" in mangled), mangled)
+            kind = "double" if "IdL" in mangled or "IdE" in mangled else \
+                "float"
+            cols = "Li2E" in mangled and ", 2 columns" or ""
+            name, stack = f"{branch}<{kind}{cols}>", ""
+        elif "bytes stack frame" in ln:
+            stack = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {stack}")
+            name = None
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -341,10 +368,12 @@ def card_line() -> str:
 #: n on both sides of every boundary of the launcher's rule (32, and 64 in
 #: float32; the block kernel's last, 202 in float64 and 303 in float32) and
 #: of the block kernel's panels (64/65, 96/97, 128/129), and every ported
-#: nv (soccer 10v10 and 11v11: 166, 182; HUMANOID 2v2: 254; 11v11: 1,370)
+#: nv (soccer 10v10 and 11v11: 166, 182; HUMANOID 2v2: 254; 11v11: 1,370),
+#: and on the global kernel fewer chunks of 32 rows below the first panel
+#: than a cluster has CTAs (230), ANT 11v11 (314) and HUMANOID 3v3 (378)
 KERNEL_NS = (1, 2, 3, 4, 7, 8, 9, 11, 13, 14, 15, 17, 20, 21, 22, 27, 28, 31,
              32, 33, 39, 40, 62, 63, 64, 65, 73, 79, 85, 96, 97, 128, 129,
-             160, 166, 182, 202, 203, 254, 303, 304, 1370)
+             160, 166, 182, 202, 203, 230, 254, 303, 304, 314, 378, 1370)
 #: 1001 fills no block of 4 warps evenly; 4 and 512 are the block kernel's
 #: small batches and dog's
 KERNEL_BS = (1, 4, 512, 1001, 1024)
@@ -2250,10 +2279,12 @@ def _soccer_env(kwargs, dtype, seed=0):
 def phase_walkers_selfcheck(linalg):
     """Phase 15 (c): ``WALKER_SELFCHECK`` in float64 on the card, reset,
     then one control step from the reset's state taken twice, through the
-    kernel and under ``reference_solves()``: every launch on the branch
-    its nv names, none under the switch; observations, rewards and state
-    within 1e-9 absolute.  Returns the largest difference of each group,
-    the launches and nv."""
+    kernel (under ``profiled``: the card's busy time, and the global
+    kernel's device time and share of it) and under ``reference_solves()``:
+    every launch on the branch its nv names, none under the switch;
+    observations, rewards and state within 1e-9 absolute.  Returns the
+    largest difference of each group, the launches and nv, and the
+    profile's figures."""
     from dm_control_torch.rl import golden
 
     env = _soccer_env(WALKER_SELFCHECK, torch.float64)
@@ -2263,10 +2294,19 @@ def phase_walkers_selfcheck(linalg):
              for f in golden.EPISODE_STATE_FIELDS}
     spec = env.action_spec()
     action = np.random.RandomState(1).uniform(spec.minimum, spec.maximum)
-    linalg.reset_launch_counts()
-    kernel = _step_from(env, state, action, False, linalg)
+    held = {}
+
+    def kernel_step():  # a retry of the profile steps and counts anew
+        linalg.reset_launch_counts()
+        held["kernel"] = _step_from(env, state, action, False, linalg)
+
+    events, wall = profiled(kernel_step, "walker selfcheck's kernel step")
+    kernel = held["kernel"]
     launches = linalg.chol_solve.launches
     branches = dict(linalg.chol_solve.branch_launches)
+    solves = [e for e in events if "chol_solve_global_kernel" in e.name()]
+    busy_ms = sum(e.duration_ns() for e in events) / 1e6
+    global_ms = sum(e.duration_ns() for e in solves) / 1e6
     plain = _step_from(env, state, action, True, linalg)
     m = env.physics.model
     check_branch(linalg, "walker selfcheck", m, launches, branches)
@@ -2281,7 +2321,9 @@ def phase_walkers_selfcheck(linalg):
     check(max(worst.values()) <= 1e-9,
           f"walker selfcheck: kernel vs plain {worst} (<= 1e-9)")
     return dict(worst=worst, launches=launches, branch_launches=branches,
-                nv=m.nv, branch=linalg.kernel_branch(m.nv, m.dtype))
+                nv=m.nv, branch=linalg.kernel_branch(m.nv, m.dtype),
+                busy_ms=busy_ms, profiled_ms=wall * 1e3, global_ms=global_ms,
+                global_kernels=len(solves), global_share=global_ms / busy_ms)
 
 
 def phase_large_match(linalg):
@@ -2338,7 +2380,10 @@ def phase_walkers(linalg, card):
     w = c["worst"]
     print(f"phase 15 selfcheck: soccer humanoid 2v2 float64 (nv={c['nv']}: "
           f"the {c['branch']} kernel), one control step from the reset's "
-          f"state through the kernel ({c['launches']} launches) vs "
+          f"state through the kernel ({c['launches']} launches; profiled: "
+          f"busy {c['busy_ms']:.3f} ms of {c['profiled_ms']:.1f} ms, the "
+          f"global kernel {c['global_ms']:.3f} ms in {c['global_kernels']} "
+          f"launches, {c['global_share']:.4f} of busy) vs "
           f"reference_solves(): obs {w['obs']:.3e}, reward "
           f"{w['reward']:.3e}, state {w['state']:.3e} absolute <= 1e-9 | "
           f"{card}", flush=True)
@@ -2379,11 +2424,18 @@ def main() -> int:
     t0 = time.perf_counter()
     linalg.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.split(":", 2)[-1].strip() for ln in _cuda_build.ptxas_report
-             .get("chol_solve.cu", "").splitlines() if "registers" in ln]
+    ptxas = ptxas_kernels(_cuda_build.ptxas_report.get("chol_solve.cu", ""))
+    ctas = {dtype: linalg.cluster_ctas(dtype, 1)
+            for dtype in (torch.float32, torch.float64)}
+    held = {dtype: linalg.global_active_clusters(dtype, c)
+            for dtype, c in ctas.items()}
     print(f"phase 2 build: chol_solve.cu in {build_s:.2f} s (nvcc "
           f"{_cuda_build.build_seconds.get('chol_solve.cu', 0.0):.2f} s); "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+          f"ptxas: {' | '.join(ptxas)}; global kernel: clusters of "
+          f"{ctas[torch.float64]} CTAs a system at B = 1 (float32 "
+          f"{ctas[torch.float32]}), {held[torch.float64]} of them on the "
+          f"card at once in float64 ({held[torch.float32]} in float32)",
+          flush=True)
 
     t3 = time.perf_counter()
     worst = phase_kernel(linalg)

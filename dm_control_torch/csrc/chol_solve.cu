@@ -114,37 +114,57 @@
 //
 // Global kernel, every larger n (float64 n > 202, float32 n > 303: a
 // HUMANOID match of 2v2 in float64 at 254, larger HUMANOID and ANT
-// matches up to 1,370 and beyond): one thread block of kGlobalWarps = 8
-// warps per system, the same algorithm as the block kernel in the same
-// order of operations, with the packed triangle (b as row n) in a scratch
-// tensor in device memory that the wrapper allocates (B x row_off(n + 1)
-// elements).  At B = 1 a 254 float64 system is ~260 KB and a 1,370 one
-// ~7.5 MB, so both stay in the card's 50 MB L2.
-//  - The load copies A's lower triangle and b into the scratch triangle,
-//    a warp a row; a __syncthreads before the first panel reads it.
-//  - Each panel stages its diagonal block and b's entries into shared
-//    memory with 16-byte cp.async copies, waits for all of them and
-//    synchronises before warp 0 factors it (factor_diagonal, as in the
-//    block kernel); U goes back to the triangle, and 1 / D to the diagonal
-//    slot, which nothing reads after its panel.
-//  - The rows below, kChunk at a time: staged into shared memory by
-//    cp.async, a thread a row solves its row there (solve_row, as in the
-//    block kernel), and the block is written back.
-//  - The trailing update by blocks of kChunk columns and kChunk rows: the
-//    columns' rows of the panel (U) are staged by cp.async, scaled to L
-//    and transposed ([j][k], as the block kernel's Lb: a warp's tiles read
-//    consecutive addresses), then each block of rows' U is staged beside
-//    it; each thread's 4 x 4 tile is read from the triangle, takes the
-//    rank-32 update from the two staged blocks, and is written back:
-//    tiles go through L2.
-//  - Back substitution by panels, the last first: warp 0 solves the
-//    panel's triangle; then every thread takes the panel's x out of one z
-//    entry of the panels before it, j descending, which is the order the
-//    block kernel's lane takes them in.
-//  Shared memory is fixed (92 KB in float64) whatever n; the wrapper's
-//  scratch is n^2 / 2 elements a system.  What holds it back (PERF.md):
-//  one SM a system, so at B = 1 the n^3 / 6 FMAs of the trailing update
-//  run on one SM's units, and every tile goes through L2 once a panel.
+// matches up to 1,370 and beyond): one system on a thread-block cluster of
+// kClusterCtas = 16 CTAs of 8 warps (fewer CTAs where the batch's clusters
+// would not all be on the card at once), the same factor as the block
+// kernel, with the packed triangle (b as row n) in a scratch tensor in
+// device memory that the wrapper allocates (B x row_off(n + 1) elements; a
+// 254 float64 system is ~260 KB, a 1,370 one ~7.5 MB, both within the
+// card's 50 MB L2).  What bounds it on an H100: operations.  n^3 / 3 + 2 n^2
+// of them at float64's 67 TFLOP/s on the tensor cores (DMMA) is 12.85 us
+// at (1, 1,370) and 0.083 us at (1, 254); the bytes are less.  What stands
+// between the kernel and that bound: the pivot chain (n steps of ~410
+// cycles in float64, on one warp), the trailing update's n^3 / 6 FMAs with
+// each tile read from and written back to L2 once a panel, and three
+// cluster barriers a panel.  What each part of the design does:
+//  (1) One system on a cluster, not on one SM.  Rank 0's warp 0 stages
+//      each diagonal block and factors it (factor_diagonal, as in the block
+//      kernel).  The other ranks rebuild the panel's multipliers from the
+//      factored block in the triangle (panel_multipliers: the same
+//      products; read through L2, which serves all ranks at once, where
+//      reads of rank 0's shared memory queue at its SM).  The rows below
+//      are dealt out in chunks of kRowChunk = 32 (chunk i to rank i % C),
+//      staged by cp.async and solved there a thread a row (solve_row).  The
+//      trailing triangle's 64 x 64 blocks are cut into runs of equal count,
+//      column by column.  The z update of the back substitution is dealt
+//      out over the cluster's warps in blocks of 32 entries, each panel's x
+//      read from rank 0's shared memory (distributed shared memory).
+//      Cluster barriers (release / acquire) separate the phases, and every
+//      read of the triangle goes through L2 (cp.async.cg, ld.global.cg): a
+//      tile written by one rank is read by another in a later phase.
+//  (2) Float64's rank-32 update on the tensor cores: mma.sync m16n8k4 f64
+//      (DMMA), a warp owning a 16 x 32 part of a block (4 tiles of 16 x 8,
+//      its D fragments read from and written back to the triangle), A and
+//      B read from the staged rows of the panel ([row][j], 36 apart: a
+//      fragment load is one wavefront a half-warp), B scaled by -1 / D[j]
+//      as it is loaded, so no transposed copy of L is made; 8 k-groups of
+//      4, j ascending.  Float32 stays on FFMA (TF32 cannot hold the 2e-4
+//      gate): a thread a 4 x 4 tile, L transposed once a column block (Lt),
+//      each entry taking its 32 updates in the order j.
+//  (3) Staging ahead: while a CTA updates one block, the next block's
+//      panel rows are in flight (cp.async into the next of three buffers,
+//      wait_group 1; each row's 32-entry segment is contiguous and starts
+//      on 16 bytes) and, in float64, its D fragments are read; in the back
+//      substitution, rank 0 stages the next panel's block of U while the
+//      ranks update z.
+//  (4) Lookahead: the first column block of the trailing update (which
+//      holds the next panel's columns) goes first, over every rank; rank 0
+//      then factors the next panel while ranks 1.. take the rest of the
+//      update (a split cluster barrier, arrive then wait, lets rank 0 go on
+//      as soon as that column is done).  The pivot chain is hidden where
+//      the rest of the update takes longer than it.
+//  Shared memory is fixed (219.5 KB a CTA in float64, 109.8 KB in float32)
+//  whatever n.
 //
 // Pivots: a pivot that is not > 0 (or not finite) marks the system as not
 // positive definite and its whole row of x is written as NaN, as
@@ -153,7 +173,9 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see dm_control_torch/ops/_cuda_build.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -578,95 +600,188 @@ __global__ void __launch_bounds__(kBlockThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Global kernel: one thread block per system, the triangle in a scratch
-// tensor in device memory (every n above the block kernel's).
+// Global kernel: one system on a thread-block cluster, the triangle in a
+// scratch tensor in device memory (every n above the block kernel's).
 
+// CTAs of a cluster, one system: 16, the largest cluster an H100 runs
+// (the portable largest is 8; 16 needs the non-portable opt-in and a GPC
+// with 16 free SMs, which global_ctas asks the card for, taking fewer where
+// it holds none).  Timed against 8 on an H100 (PERF.md): as fast at 203
+// and 254, faster from 626 on, most at 1,370.
+constexpr int kClusterCtas = 16;
 constexpr int kGlobalWarps = 8;
 constexpr int kGlobalThreads = kGlobalWarps * kWarp;
-constexpr int kChunk = 128;           // rows (or columns) staged at a time
-constexpr int kChunkLd = kPanel + 4;  // a staged row: 32 entries, padded
-constexpr int kChunkT = kChunk + 4;   // a row of the transposed L
+constexpr int kRowChunk = kWarp;  // rows below a panel dealt out at once
+constexpr int kTile = 64;         // rows and columns of an update block
+// A staged row: 32 entries, padded to 36, so that the four rows one DMMA
+// fragment load reads start 32 bytes apart in the banks (float64).
+constexpr int kChunkLd = kPanel + 4;
+constexpr int kTileT = kTile + 4;  // a row of the transposed L (float32)
 
-// Shared memory of the global kernel, in elements, each part on 16 bytes:
-// the diagonal block packed as in the triangle (rows 0..31, b's entries as
-// row w), its L and U as in the block kernel, the panel's reciprocal
-// pivots (then its x), a chunk's L transposed, [j][k - k_lo], and a
-// chunk's rows of the panel, [r - r_lo][j].
+// Shared memory of one CTA, in elements, each part on 16 bytes: the
+// diagonal block packed as in the triangle (rows 0..31, b's entries as row
+// w), its L and U as in the block kernel, the panel's reciprocal pivots,
+// the panel's x (rank 0) and a copy of it (every rank), the rows below being
+// solved ([t][j], a thread a row), blocks of the panel's rows for L
+// ([k - k_lo][j], three) and for U ([r - r_lo][j], three), and (float32) L
+// transposed ([j][k - k_lo]).  219.5 KB in float64, 109.8 KB in float32.
 constexpr int kGlobalD = 0;
 constexpr int kGlobalL11 = kGlobalD + row_off(kPanel + 1);
 constexpr int kGlobalUcol = kGlobalL11 + kPanel * kPanel;
 constexpr int kGlobalRd = kGlobalUcol + kPanel * kUcol;
-constexpr int kGlobalLt = kGlobalRd + kPanel;
-constexpr int kGlobalUc = kGlobalLt + kPanel * kChunkT;
-constexpr int kGlobalTotal = kGlobalUc + kChunk * kChunkLd;
+constexpr int kGlobalX = kGlobalRd + kPanel;
+constexpr int kGlobalXl = kGlobalX + kPanel;
+constexpr int kGlobalRows = kGlobalXl + kPanel;
+constexpr int kGlobalLb = kGlobalRows + kGlobalThreads * kChunkLd;
+constexpr int kGlobalUb = kGlobalLb + 3 * kTile * kChunkLd;
+constexpr int kGlobalLt = kGlobalUb + 3 * kTile * kChunkLd;
+constexpr int kGlobalTotal = kGlobalLt + kPanel * kTileT;
 
-// All threads: the diagonal block of columns c0..c0+w-1 (rows c0..c0+w-1
-// of the triangle G) and b's entries c0..c0+w-1 into D, by 16-byte copies
-// (row starts and c0 are multiples of 4 elements; a row's last copy ends
-// in its padding); waits for them and synchronises.
+// The triangle is written by every CTA of the cluster and read by others
+// after a cluster barrier: every read of it goes through L2 (cp.async.cg,
+// ld.global.cg), never through an SM's own L1, whose lines may be stale.
+__device__ inline Quad<float> load4_cg(const float* p) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  return {{q.x, q.y, q.z, q.w}};
+}
+__device__ inline void store4_cg(float* p, const float* v) {
+  __stcg(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ inline void store4_cg(double* p, const double* v) {
+  __stcg(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  __stcg(reinterpret_cast<double2*>(p) + 1, make_double2(v[2], v[3]));
+}
+
+// One warp: the diagonal block of columns c0..c0+w-1 (rows c0..c0+w-1 of
+// the triangle G, packed as there) into D by 16-byte copies (row starts and
+// c0 are multiples of 4 elements; a row's last copy ends in its padding);
+// the caller commits.  stage_diagonal adds b's entries c0..c0+w-1 as row w
+// and waits for them.
 template <typename T>
-__device__ inline void stage_diagonal(T* D, const T* G, int n, int c0,
-                                      int w) {
+__device__ inline void stage_block(T* D, const T* G, int c0, int w,
+                                   int lane) {
   constexpr int kVec = 16 / sizeof(T);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  for (int r = warp; r < w; r += kGlobalWarps)
-    for (int m = lane * kVec; m <= r; m += kWarp * kVec)
+  const int m = lane * kVec;
+  for (int r = 0; r < w; ++r)
+    if (m <= r)
       copy_async16(D + row_off(r) + m, G + row_off(c0 + r) + c0 + m);
-  for (int m = threadIdx.x * kVec; m < w; m += kGlobalThreads * kVec)
-    copy_async16(D + row_off(w) + m, G + row_off(n) + c0 + m);
+}
+
+template <typename T>
+__device__ inline void stage_diagonal(T* D, const T* G, int n, int c0, int w,
+                                      int lane) {
+  constexpr int kVec = 16 / sizeof(T);
+  stage_block(D, G, c0, w, lane);
+  const int m = lane * kVec;
+  if (m < w) copy_async16(D + row_off(w) + m, G + row_off(n) + c0 + m);
   copy_commit();
   copy_wait<0>();
+  __syncwarp();
+}
+
+// All threads of a rank other than 0: the panel's multipliers and
+// reciprocal pivots, rebuilt from the factored block in the triangle (U
+// below the diagonal, 1 / D on it) as factor_diagonal made them,
+// L11[j][i] = U[i][j] (1 / D[j]) for i > j: the same product of the same
+// two numbers.  The block comes through L2, which serves every rank at
+// once; from rank 0's shared memory (distributed shared memory) the ranks'
+// reads queue at one SM.
+template <typename T>
+__device__ inline void panel_multipliers(T* D, T* L11, T* rd, const T* G,
+                                         int c0) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = kPanel / kVec;
+  for (int e = threadIdx.x; e < kPanel * kPerRow; e += kGlobalThreads) {
+    const int r = e / kPerRow, m = (e % kPerRow) * kVec;
+    if (m <= r)
+      copy_async16(D + row_off(r) + m, G + row_off(c0 + r) + c0 + m);
+  }
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < kPanel * kPanel; e += kGlobalThreads) {
+    const int j = e / kPanel, i = e % kPanel;
+    L11[e] = i > j ? D[row_off(i) + j] * D[row_off(j) + j] : T(0);
+  }
+  if (threadIdx.x < kPanel)
+    rd[threadIdx.x] = D[row_off(threadIdx.x) + threadIdx.x];
   __syncthreads();
 }
 
 // All threads: rows lo..hi-1 of the panel at c0 (32 entries each; row n is
-// b's) into Uc[r - lo][j] by 16-byte copies; waits for them; the rows up
-// to the next multiple of 4 past hi, which a tile reads, are set to 0.
-// Synchronises before and after the zeros.
+// b's) into buf[r - lo][j] by 16-byte copies; the caller commits and waits.
 template <typename T>
-__device__ inline void stage_rows(T* Uc, const T* G, int c0, int lo,
+__device__ inline void stage_rows(T* buf, const T* G, int c0, int lo,
                                   int hi) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = kPanel / kVec;
-  const int rows = hi - lo;
-  for (int e = threadIdx.x; e < rows * kPerRow; e += kGlobalThreads) {
+  for (int e = threadIdx.x; e < (hi - lo) * kPerRow; e += kGlobalThreads) {
     const int k = e / kPerRow, m = (e % kPerRow) * kVec;
-    copy_async16(Uc + k * kChunkLd + m, G + row_off(lo + k) + c0 + m);
+    copy_async16(buf + k * kChunkLd + m, G + row_off(lo + k) + c0 + m);
   }
-  copy_commit();
-  copy_wait<0>();
-  __syncthreads();
-  for (int e = rows * kPanel + threadIdx.x; e < ((rows + 3) & ~3) * kPanel;
-       e += kGlobalThreads)
-    Uc[(e / kPanel) * kChunkLd + e % kPanel] = T(0);
-  __syncthreads();
 }
 
-// All threads: the staged rows (U, Uc[k][j]) scaled to L = U D^-1 and
-// transposed into Lt[j][k], so that a tile's four columns are one 16-byte
-// (float32) or 32-byte (float64) read and a warp's tiles read consecutive
-// addresses, as the block kernel's Lb; the columns up to the next multiple
-// of 4 past rows are 0; synchronises.
+// The rank's share of the rows c1..n-1 below a full diagonal block at c0:
+// chunks of kRowChunk rows, chunk i to rank i % ranks.  A pass stages up to
+// kGlobalWarps of the rank's chunks into R (a thread a row), solves
+// U_r L11^T = S_r there (solve_row, as in the block kernel) and writes U
+// back to the triangle.
 template <typename T>
-__device__ inline void transpose_scale(T* Lt, const T* Uc, const T* rd,
+__device__ inline void solve_rank_rows(T* G, T* R, const T* L11, int n,
+                                       int c0, int c1, int rank, int ranks) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = kPanel / kVec;
+  const int chunks = (n - c1 + kRowChunk - 1) / kRowChunk;
+  const int t = threadIdx.x;
+  for (int first = rank; first < chunks; first += kGlobalWarps * ranks) {
+    for (int e = t; e < kGlobalThreads * kPerRow; e += kGlobalThreads) {
+      const int s = e / kPerRow, m = (e % kPerRow) * kVec;
+      const int chunk = first + (s / kRowChunk) * ranks;
+      const int r = c1 + chunk * kRowChunk + s % kRowChunk;
+      if (chunk < chunks && r < n)
+        copy_async16(R + s * kChunkLd + m, G + row_off(r) + c0 + m);
+    }
+    copy_commit();
+    copy_wait<0>();
+    __syncthreads();
+    const int chunk = first + (t / kRowChunk) * ranks;
+    const int r = c1 + chunk * kRowChunk + t % kRowChunk;
+    if (chunk < chunks && r < n) {
+      T u[kPanel];
+      solve_row(R + t * kChunkLd, u, L11);
+#pragma unroll
+      for (int j = 0; j < kPanel; j += 4)
+        store4_cg(G + row_off(r) + c0 + j, u + j);
+    }
+    __syncthreads();
+  }
+}
+
+// Float32: the staged rows of L's block (U, Lb[k][j]) scaled to
+// L = U D^-1 and transposed into Lt[j][k], so that a tile's four columns
+// are one 16-byte read and a warp's tiles read consecutive addresses, as
+// the block kernel's Lb; the columns up to the next multiple of 4 past
+// rows are 0; synchronises.
+template <typename T>
+__device__ inline void transpose_scale(T* Lt, const T* Lb, const T* rd,
                                        int rows) {
   for (int e = threadIdx.x; e < ((rows + 3) & ~3) * kPanel;
        e += kGlobalThreads) {
     const int k = e / kPanel, j = e % kPanel;
-    Lt[j * kChunkT + k] = k < rows ? Uc[k * kChunkLd + j] * rd[j] : T(0);
+    Lt[j * kTileT + k] = k < rows ? Lb[k * kChunkLd + j] * rd[j] : T(0);
   }
   __syncthreads();
 }
 
-// All threads: S[r][k] -= sum_j U[r][c0 + j] L[k][c0 + j] for the rows
-// r_lo..r_hi-1 (U staged in Uc) and the columns k_lo..k_hi-1 (L staged in
-// Lt), k <= r, in 4 x 4 tiles read from and written back to the triangle
-// G: tiles go through L2.  Both ranges start on multiples of 4; a warp's
-// threads take one tile row's tiles (U broadcast, L consecutive); each
-// entry gets its 32 updates in the order j, as in update_trailing.
-template <typename T>
-__device__ inline void update_tiles(T* G, const T* Uc, const T* Lt,
-                                    int r_lo, int r_hi, int k_lo, int k_hi) {
+// Float32, all threads: S[r][k] -= sum_j U[r][c0 + j] L[k][c0 + j] for the
+// rows r_lo..r_hi-1 (U staged in Uc) and the columns k_lo..k_hi-1 (L
+// staged in Lt), k <= r, in 4 x 4 tiles read from and written back to the
+// triangle G.  Both ranges start on multiples of 4; a warp's threads take
+// two tile rows' tiles (U broadcast, L consecutive); each entry gets its
+// 32 updates in the order j, as in update_trailing.
+__device__ inline void update_tiles(float* G, const float* Uc,
+                                    const float* Lt, int r_lo, int r_hi,
+                                    int k_lo, int k_hi) {
   const int tile_rows = (r_hi - r_lo + 3) >> 2;
   const int tile_cols = (k_hi - k_lo + 3) >> 2;
   for (int t = threadIdx.x; t < tile_rows * tile_cols;
@@ -675,26 +790,26 @@ __device__ inline void update_tiles(T* G, const T* Uc, const T* Lt,
     const int ru = 4 * ta, kc = 4 * tb;  // in the staged rows and columns
     if (k_lo + kc > r_lo + ru) continue;  // above the diagonal
     const int r0 = r_lo + ru;
-    T acc[4][4];
+    float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i < r_hi) {
-        const Quad<T> v = load4(G + row_off(r0 + i) + k_lo + kc);
+        const Quad<float> v = load4_cg(G + row_off(r0 + i) + k_lo + kc);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = v.v[e];
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = T(0);
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
       }
     }
 #pragma unroll 2
     for (int j = 0; j < kPanel; j += 4) {
-      Quad<T> u[4];  // u[i].v[e] = U[r0 + i][c0 + j + e]
+      Quad<float> u[4];  // u[i].v[e] = U[r0 + i][c0 + j + e]
 #pragma unroll
       for (int i = 0; i < 4; ++i) u[i] = load4(Uc + (ru + i) * kChunkLd + j);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const Quad<T> l = load4(Lt + (j + e) * kChunkT + kc);
+        const Quad<float> l = load4(Lt + (j + e) * kTileT + kc);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -703,119 +818,355 @@ __device__ inline void update_tiles(T* G, const T* Uc, const T* Lt,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (r0 + i < r_hi) store4(G + row_off(r0 + i) + k_lo + kc, acc[i]);
+      if (r0 + i < r_hi) store4_cg(G + row_off(r0 + i) + k_lo + kc, acc[i]);
   }
 }
 
+// Float64 on the tensor cores (DMMA, m16n8k4, sm_90): D (16 x 8) +=
+// A (16 x 4) B (4 x 8).  A thread holds a_h = A[g + 8 h][q], b = B[q][g]
+// and d[2 h + e] = D[g + 8 h][2 q + e] (g = lane / 4, q = lane % 4).  On an
+// H100 it gave the same bits as sm_80's m8n8k4 and sm_90's m16n8k8 and
+// m16n8k16 (each entry takes its products in the order k), and the least
+// time of the four (PERF.md: m8n8k4 against it).
+__device__ inline void dmma(double& d0, double& d1, double& d2, double& d3,
+                            double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// Float64: warp w's part of an update block, rows r_lo + 16 (w / 2) + 0..15
+// and columns k_lo + 32 (w % 2) + 0..31, as 4 tiles of 16 x 8, each
+// thread holding its D fragment of each: acc[h][ni][e] = D[g + 8 h][8 ni +
+// 2 q + e] of the part.  An entry is read and written
+// where it lies in the triangle's storage: row i < r_hi and column
+// k <= (i | 3) (past i only the row's padding, never read as data); a
+// thread's two columns 2q, 2q + 1 are one 16-byte access.
+struct Part {
+  double acc[2][4][2];
+};
+
+__device__ inline void load_part(Part& p, const double* G, int r_lo,
+                                 int r_hi, int k_lo) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int i0 = r_lo + 16 * (warp >> 1) + (lane >> 2);
+  const int k0 = k_lo + 32 * (warp & 1) + 2 * (lane & 3);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int i = i0 + 8 * mi;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int k = k0 + 8 * ni;
+      double2 v = make_double2(0.0, 0.0);
+      if (i < r_hi && k <= (i | 3))
+        v = __ldcg(reinterpret_cast<const double2*>(G + row_off(i) + k));
+      p.acc[mi][ni][0] = v.x;
+      p.acc[mi][ni][1] = v.y;
+    }
+  }
+}
+
+__device__ inline void store_part(const Part& p, double* G, int r_lo,
+                                  int r_hi, int k_lo) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int i0 = r_lo + 16 * (warp >> 1) + (lane >> 2);
+  const int k0 = k_lo + 32 * (warp & 1) + 2 * (lane & 3);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int i = i0 + 8 * mi;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int k = k0 + 8 * ni;
+      if (i < r_hi && k <= (i | 3))
+        __stcg(reinterpret_cast<double2*>(G + row_off(i) + k),
+               make_double2(p.acc[mi][ni][0], p.acc[mi][ni][1]));
+    }
+  }
+}
+
+// Float64: the rank-32 update of warp w's part, S[r][k] += U[r][j] B[j][k]
+// with B[j][k] = -L[k][j] = U[k][j] (-1 / D[j]), both operands read from the
+// staged rows ([row][j], the scale applied as B's fragment is loaded): 8
+// k-groups of 4, j ascending, 4 DMMA each.  A part wholly above the
+// diagonal (a diagonal block's upper right) is skipped.
+__device__ inline void update_part(Part& p, const double* Ub,
+                                   const double* Lb, const double* rd,
+                                   int r_lo, int k_lo) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int wr = 16 * (warp >> 1), wc = 32 * (warp & 1);
+  if (k_lo + wc > r_lo + wr + 15) return;  // warp-uniform
+  const int g = lane >> 2, q = lane & 3;
+  const double* ua = Ub + (wr + g) * kChunkLd + q;
+  const double* lb = Lb + (wc + g) * kChunkLd + q;
+#pragma unroll
+  for (int j = 0; j < kPanel; j += 4) {
+    const double nr = -rd[j + q];
+    const double a0 = ua[j], a1 = ua[8 * kChunkLd + j];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      dmma(p.acc[0][ni][0], p.acc[0][ni][1], p.acc[1][ni][0], p.acc[1][ni][1],
+           a0, a1, lb[8 * ni * kChunkLd + j] * nr);
+  }
+}
+
+// Rank 0's warp 0: the diagonal block of the panel at c0 staged from the
+// triangle and factored (factor_diagonal, as in the block kernel): L11 and
+// the reciprocal pivots stay in its shared memory, U and b's z go back to
+// the triangle, and 1 / D to the diagonal slot.
 template <typename T>
-__global__ void __launch_bounds__(kGlobalThreads)
+__device__ inline void factor_panel(T* G, T* D, T* L11, T* rd, T* ucol,
+                                    int n, int c0, int lane, bool& bad) {
+  const int w = min(n - c0, kPanel);
+  stage_diagonal(D, G, n, c0, w, lane);
+  factor_diagonal(D, L11, rd, ucol, w, 0, w, lane, bad);
+  if (lane < w) {  // its own row of D, written by this lane
+    T* grow = G + row_off(c0 + lane) + c0;
+    for (int j = 0; j < lane; ++j) grow[j] = D[row_off(lane) + j];
+    grow[lane] = rd[lane];  // 1 / D in the diagonal slot
+    G[row_off(n) + c0 + lane] = D[row_off(w) + lane];
+  }
+}
+
+// The split cluster barrier: arrive (release) now, wait (acquire) later.
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// All threads: `count` blocks of the trailing update of the panel at c0
+// (rows below it from c1), kTile rows (U; b's row n in the last) by kTile
+// columns (L) of the lower triangle, taken column by column from block
+// `first` of the columns from kb on, so that each column's rows are staged
+// once.  The next block's rows are in flight (cp.async into the next of
+// three buffers) and, in float64, its D fragments are read while the CTA
+// updates one: one __syncthreads a block, and one at the end.
+template <typename T>
+__device__ inline void update_run(T* G, T* Lb, T* Ub, T* Lt, const T* rd,
+                                  int n, int c0, int c1, int kb, int first,
+                                  int count) {
+  if (count <= 0) return;  // uniform
+  const int row_blocks = (n + 1 - c1 + kTile - 1) / kTile;
+  int rb = first;
+  while (rb >= row_blocks - kb) {
+    rb -= row_blocks - kb;
+    ++kb;
+  }
+  rb += kb;
+  stage_rows(Lb + (kb % 3) * kTile * kChunkLd, G, c0, c1 + kTile * kb,
+             min(c1 + kTile * (kb + 1), n));
+  stage_rows(Ub, G, c0, c1 + kTile * rb, min(c1 + kTile * (rb + 1), n + 1));
+  copy_commit();
+  int shown = -1;  // float32: the column block whose L stands in Lt
+  Part part;       // float64: the block's D fragments
+  if constexpr (sizeof(T) == 8)
+    load_part(part, G, c1 + kTile * rb, min(c1 + kTile * (rb + 1), n + 1),
+              c1 + kTile * kb);
+  for (int t = 0, s = 0; t < count; ++t, s = s == 2 ? 0 : s + 1) {
+    const int r_lo = c1 + kTile * rb, r_hi = min(r_lo + kTile, n + 1);
+    const int k_lo = c1 + kTile * kb, k_hi = min(k_lo + kTile, n);
+    const T* Ls = Lb + (kb % 3) * kTile * kChunkLd;
+    const T* Us = Ub + s * kTile * kChunkLd;
+    int kb2 = kb, rb2 = rb + 1;
+    if (rb2 == row_blocks) rb2 = ++kb2;
+    const int r2_lo = c1 + kTile * rb2, r2_hi = min(r2_lo + kTile, n + 1);
+    Part next;
+    if (t + 1 < count) {
+      // The buffers that blocks t - 2 and before read: every warp is past
+      // them (a column may hold a single block).
+      if (kb2 != kb)
+        stage_rows(Lb + (kb2 % 3) * kTile * kChunkLd, G, c0,
+                   c1 + kTile * kb2, min(c1 + kTile * (kb2 + 1), n));
+      stage_rows(Ub + (s == 2 ? 0 : s + 1) * kTile * kChunkLd, G, c0, r2_lo,
+                 r2_hi);
+      copy_commit();
+      if constexpr (sizeof(T) == 8)  // block t + 1's, read meanwhile
+        load_part(next, G, r2_lo, r2_hi, c1 + kTile * kb2);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (sizeof(T) == 8) {
+      update_part(part, Us, Ls, rd, r_lo, k_lo);
+      store_part(part, G, r_lo, r_hi, k_lo);
+      part = next;
+    } else {
+      if (kb != shown) {
+        __syncthreads();  // every warp is done with the last column's Lt
+        transpose_scale(Lt, Ls, rd, k_hi - k_lo);
+        shown = kb;
+      }
+      update_tiles(G, Us, Lt, r_lo, r_hi, k_lo, k_hi);
+    }
+    kb = kb2;
+    rb = rb2;
+  }
+  __syncthreads();  // the buffers are free for the next run
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads, 1)
     chol_solve_global_kernel(const T* __restrict__ a,
                              const T* __restrict__ b, T* __restrict__ x,
                              T* scratch, int n, long long a_stride) {
+  namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
   T* D = smem + kGlobalD;
   T* L11 = smem + kGlobalL11;
   T* ucol = smem + kGlobalUcol;
   T* rdp = smem + kGlobalRd;
+  T* xs = smem + kGlobalX;
+  T* xl = smem + kGlobalXl;
+  T* R = smem + kGlobalRows;
+  T* Lb = smem + kGlobalLb;
+  T* Ub = smem + kGlobalUb;
   T* Lt = smem + kGlobalLt;
-  T* Uc = smem + kGlobalUc;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int sys = blockIdx.x / ranks;
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const T* ga = a + blockIdx.x * a_stride;
-  const T* gb = b + static_cast<long long>(blockIdx.x) * n;
-  // Read and written by this block alone: no __restrict__, no read-only
-  // cache; __syncthreads orders its threads' accesses.
-  T* G = scratch + static_cast<long long>(blockIdx.x) * row_off(n + 1);
+  const T* ga = a + sys * a_stride;
+  const T* gb = b + static_cast<long long>(sys) * n;
+  // Read and written by the cluster alone: no __restrict__, no read-only
+  // cache; cluster barriers order its CTAs' accesses.
+  T* G = scratch + static_cast<long long>(sys) * row_off(n + 1);
   T* zrow = G + row_off(n);
 
-  // The lower triangle and b into the scratch triangle, a warp a row.
-  for (int k = threadIdx.x; k < n; k += kGlobalThreads) zrow[k] = gb[k];
-  for (int r = warp; r < n; r += kGlobalWarps) {
+  // The lower triangle and b into the scratch triangle, a warp a row, the
+  // rows dealt out over the cluster's warps.
+  if (rank == 0)
+    for (int k = threadIdx.x; k < n; k += kGlobalThreads) zrow[k] = gb[k];
+  for (int r = rank * kGlobalWarps + warp; r < n;
+       r += ranks * kGlobalWarps) {
     const T* src = ga + static_cast<long long>(r) * n;
     T* dst = G + row_off(r);
     for (int k = lane; k <= r; k += kWarp) dst[k] = src[k];
   }
-  __syncthreads();
+  cluster.sync();
 
-  bool bad = false;  // warp 0's: every pivot passes through it
-  for (int c0 = 0; c0 < n; c0 += kPanel) {
-    const int c1 = min(c0 + kPanel, n), w = c1 - c0;
-    stage_diagonal(D, G, n, c0, w);
-    if (warp == 0) {
-      factor_diagonal(D, L11, rdp, ucol, w, 0, w, lane, bad);
-      if (lane < w) {  // its own row of D, written by this lane
-        T* grow = G + row_off(c0 + lane) + c0;
-        for (int j = 0; j < lane; ++j) grow[j] = D[row_off(lane) + j];
-        grow[lane] = rdp[lane];  // 1 / D in the diagonal slot
-        zrow[c0 + lane] = D[row_off(w) + lane];
+  // Panel by panel, with lookahead: the trailing update's first column
+  // block (which holds the next panel's columns) goes first, over every
+  // rank; then rank 0's warp 0 factors the next panel while the other
+  // ranks take the rest of the update.
+  bool bad = false;  // rank 0's warp 0: every pivot passes through it
+  if (rank == 0 && warp == 0)
+    factor_panel(G, D, L11, rdp, ucol, n, 0, lane, bad);
+  cluster.sync();
+  for (int c0 = 0; c0 + kPanel < n; c0 += kPanel) {
+    const int c1 = c0 + kPanel;  // a full panel, with rows below it
+    if (rank != 0) panel_multipliers(D, L11, rdp, G, c0);
+    solve_rank_rows(G, R, L11, n, c0, c1, rank, ranks);
+    cluster.sync();
+    const int row_blocks = (n + 1 - c1 + kTile - 1) / kTile;
+    const int col_blocks = (n - c1 + kTile - 1) / kTile;
+    const int blocks =
+        col_blocks * row_blocks - col_blocks * (col_blocks - 1) / 2;
+    // Run 0: column block 0 over every rank (in a cluster of one, every
+    // block); run 1: the other columns over ranks 1...
+    const bool ahead = ranks > 1;
+    for (int run = 0; run < 2; ++run) {
+      int kb = run, first = 0, count = 0;
+      if (run == 0) {
+        first = ahead ? rank * row_blocks / ranks : 0;
+        count = ahead ? (rank + 1) * row_blocks / ranks - first : blocks;
+      } else if (ahead && rank > 0) {
+        const int rest = blocks - row_blocks;
+        first = (rank - 1) * rest / (ranks - 1);
+        count = rank * rest / (ranks - 1) - first;
+      }
+      update_run(G, Lb, Ub, Lt, rdp, n, c0, c1, kb, first, count);
+      if (run == 0) {
+        cluster_arrive();  // the next panel's columns are updated
+        if (rank == 0) {
+          cluster_wait();
+          if (warp == 0)
+            factor_panel(G, D, L11, rdp, ucol, n, c1, lane, bad);
+        }
       }
     }
-    __syncthreads();
-    if (c1 == n) break;  // uniform: the last panel has no rows below
-    // The rows below, kChunk at a time: staged, solved in shared memory
-    // (a thread a row, solve_row as in the block kernel), written back.
-    for (int r_lo = c1; r_lo < n; r_lo += kChunk) {
-      const int r_hi = min(r_lo + kChunk, n);
-      stage_rows(Uc, G, c0, r_lo, r_hi);
-      for (int t = threadIdx.x; t < r_hi - r_lo; t += kGlobalThreads) {
-        T u[kPanel];
-        solve_row(Uc + t * kChunkLd, u, L11);
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < (r_hi - r_lo) * kPanel;
-           e += kGlobalThreads)
-        G[row_off(r_lo + e / kPanel) + c0 + e % kPanel] =
-            Uc[(e / kPanel) * kChunkLd + e % kPanel];
-      __syncthreads();
-    }
-    // The trailing update, a block of kChunk columns (L) by kChunk rows
-    // (U, b's row n last) at a time.
-    for (int k_lo = c1; k_lo < n; k_lo += kChunk) {
-      const int k_hi = min(k_lo + kChunk, n);
-      stage_rows(Uc, G, c0, k_lo, k_hi);
-      transpose_scale(Lt, Uc, rdp, k_hi - k_lo);
-      for (int r_lo = k_lo; r_lo <= n; r_lo += kChunk) {
-        const int r_hi = min(r_lo + kChunk, n + 1);
-        stage_rows(Uc, G, c0, r_lo, r_hi);
-        update_tiles(G, Uc, Lt, r_lo, r_hi, k_lo, k_hi);
-        __syncthreads();
-      }
-    }
+    if (rank != 0) cluster_wait();
+    cluster.sync();  // the next panel is factored, this one's update done
   }
 
-  // Back substitution L^T x = D^-1 z by panels, the last first.  Warp 0:
-  // lane k holds z[c0 + k], whose later panels' terms are already out; for
-  // j = w-1 .. 0 one shuffle broadcasts x[c0 + j] and each lane k < j does
-  // one FMA with U[c0 + j][c0 + k].  Then all threads: each z[k], k < c0,
-  // gives up U[j][k] x[j] for j = c0+w-1 .. c0 (row j, consecutive
-  // addresses).
-  T* gx = x + static_cast<long long>(blockIdx.x) * n;
-  for (int c0 = (n - 1) & ~(kPanel - 1); c0 >= 0; c0 -= kPanel) {
-    const int w = min(n - c0, kPanel);
-    if (warp == 0) {
-      T zk = lane < w ? zrow[c0 + lane] : T(0);
-      const T rk = lane < w ? G[row_off(c0 + lane) + c0 + lane] : T(0);
+  // Back substitution L^T x = D^-1 z by panels, the last first.  Rank 0's
+  // warp 0 holds the panel's block of U (1 / D on its diagonal), staged
+  // while the panel before was solved, and reads z: lane k holds z[c0 + k],
+  // whose later panels' terms are already out; for j = w-1 .. 0 one
+  // shuffle broadcasts x[c0 + j] and each lane k < j does one FMA with
+  // U[c0 + j][c0 + k].  Then every rank, with the panel's x read from rank
+  // 0's shared memory: each z[k], k < c0, in blocks of 32 dealt out over the
+  // cluster's warps, gives up U[j][k] x[j] for j = c0+w-1 .. c0 (row j,
+  // consecutive addresses), U's entries read before the panel's x is.
+  T* gx = x + static_cast<long long>(sys) * n;
+  // U's block of a panel, by panel parity: D, or the factor's U buffer
+  const auto block = [&](int p) { return p & 1 ? ucol : D; };
+  const int last = (n - 1) / kPanel;
+  if (rank == 0 && warp == 0) {
+    stage_block(block(last), G, last * kPanel, n - last * kPanel, lane);
+    copy_commit();
+  }
+  for (int p = last; p >= 0; --p) {
+    const int c0 = p * kPanel, w = min(n - c0, kPanel);
+    if (rank == 0 && warp == 0) {
+      const T* U = block(p);
+      copy_wait<0>();
+      __syncwarp();
+      if (p > 0) {  // the panel before's block lands meanwhile
+        stage_block(block(p - 1), G, c0 - kPanel, kPanel, lane);
+        copy_commit();
+      }
+      T zk = lane < w ? __ldcg(zrow + c0 + lane) : T(0);
+      const T rk = lane < w ? U[row_off(lane) + lane] : T(0);
       for (int j = w - 1; j >= 0; --j) {
-        // lanes >= j read past row j's entries, into the triangle (unused)
-        const T u = G[row_off(c0 + j) + c0 + lane];
+        // lanes >= j read past row j's entries, into the block (unused)
+        const T u = U[row_off(j) + lane];
         const T xj = __shfl_sync(kFullMask, zk * rk, j);
         const T zu = zk - u * xj;
         zk = lane < j ? zu : zk;
       }
       if (lane < w) {
         const T xk = zk * rk;
-        rdp[lane] = xk;
+        xs[lane] = xk;
         gx[c0 + lane] = bad ? T(NAN) : xk;
       }
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < c0; k += kGlobalThreads) {
-      T zk = zrow[k];
-      for (int j = w - 1; j >= 0; --j)
-        zk -= G[row_off(c0 + j) + k] * rdp[j];
-      zrow[k] = zk;
+    if (p == 0) break;  // uniform: no z entry before the first panel
+    // The warp's first block of z entries and its U entries, read now.
+    const int kb0 = rank + ranks * warp;
+    T uv[kPanel];
+    T z0 = T(0);
+    if (kb0 < p) {
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j)
+        uv[j] = j < w ? __ldcg(G + row_off(c0 + j) + kb0 * kPanel + lane)
+                      : T(0);
+      z0 = __ldcg(zrow + kb0 * kPanel + lane);
     }
+    cluster.sync();
+    if (threadIdx.x < w)
+      xl[threadIdx.x] = cluster.map_shared_rank(xs, 0)[threadIdx.x];
     __syncthreads();
+    if (kb0 < p) {
+#pragma unroll
+      for (int j = kPanel - 1; j >= 0; --j)
+        if (j < w) z0 -= uv[j] * xl[j];
+      __stcg(zrow + kb0 * kPanel + lane, z0);
+    }
+    for (int kb = kb0 + ranks * kGlobalWarps; kb < p;
+         kb += ranks * kGlobalWarps) {
+      const int k = kb * kPanel + lane;
+      T zk = __ldcg(zrow + k);
+#pragma unroll
+      for (int j = kPanel - 1; j >= 0; --j)
+        if (j < w) zk -= __ldcg(G + row_off(c0 + j) + k) * xl[j];
+      __stcg(zrow + k, zk);
+    }
+    cluster.sync();  // z is whole, and no rank reads xs any more
   }
 }
 
@@ -843,19 +1194,96 @@ int launch_block(const T* a, const T* b, T* x, int batch, int n,
   return cudaGetLastError();
 }
 
+// One cluster a system: a grid of batch x ctas CTAs launched with the
+// cluster dimension.
+template <typename T>
+cudaLaunchConfig_t global_config(int batch, int ctas, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * ctas);
+  config.blockDim = dim3(kGlobalThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(kGlobalTotal) * sizeof(T);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+template <typename T>
+int global_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_solve_global_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kGlobalTotal * sizeof(T)));
+  if (err == cudaSuccess && kClusterCtas > 8)
+    err = cudaFuncSetAttribute(chol_solve_global_kernel<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  return err;
+}
+
+// Clusters of `ctas` CTAs (a power of two up to kClusterCtas) of the global
+// kernel that the card holds at once, asked once a process and type.
+template <typename T>
+int global_clusters(int ctas, int* clusters) {
+  static int held[5] = {-1, -1, -1, -1, -1};  // by log2(ctas)
+  int& h = held[31 - __builtin_clz(ctas)];
+  if (h < 0) {
+    const int err = global_attributes<T>();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t config = global_config<T>(1, ctas, nullptr,
+                                                       &attr);
+    int count = 0;
+    const cudaError_t asked = cudaOccupancyMaxActiveClusters(
+        &count, chol_solve_global_kernel<T>, &config);
+    if (asked != cudaSuccess) return asked;
+    h = count;
+  }
+  *clusters = h;
+  return cudaSuccess;
+}
+
+// CTAs a system at this batch: kClusterCtas, halved while the card cannot
+// hold the batch's clusters at once (an H100 holds 7 clusters of 16), or
+// one such cluster at all, down to 1: a batch that fills the card gains
+// nothing from splitting a system, and pays for its barriers.  Each
+// system's arithmetic is the same whatever the count.
+template <typename T>
+int global_ctas(int batch, int* ctas) {
+  for (int c = kClusterCtas; c >= 1; c /= 2) {
+    int clusters = 0;
+    const int err = global_clusters<T>(c, &clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters >= 1 && (batch <= clusters || c == 1)) {
+      *ctas = c;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorLaunchOutOfResources;  // not one CTA fits an SM
+}
+
+// Refused (the wrapper says so) for a null scratch and where the card
+// holds no cluster of the kernel.
 template <typename T>
 int launch_global(const T* a, const T* b, T* x, T* scratch, int batch, int n,
                   long long a_stride, cudaStream_t stream) {
-  if (scratch == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kGlobalTotal) * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_solve_global_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  chol_solve_global_kernel<T><<<batch, kGlobalThreads, smem, stream>>>(
-      a, b, x, scratch, n, a_stride);
+  if (scratch == nullptr || batch > INT_MAX / kClusterCtas)
+    return cudaErrorInvalidValue;
+  int ctas = 0;
+  int err = global_ctas<T>(batch, &ctas);
+  if (err == cudaSuccess) err = global_attributes<T>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = global_config<T>(batch, ctas, stream,
+                                                     &attr);
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, chol_solve_global_kernel<T>, a, b, x, scratch, n, a_stride);
+  if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
 }
 
@@ -929,6 +1357,31 @@ int chol_solve_block_max_n(int is_f64) {
 // Elements of scratch a system of size n needs on the global kernel: the
 // packed triangle with b as row n.
 long long chol_solve_scratch_elems(int n) { return row_off(n + 1); }
+
+// CTAs of the thread-block cluster that solves one system of float32
+// (is_f64 = 0) or float64 on the global kernel at this batch on the current
+// card (16 for a few systems on an H100, fewer for more), or -1 with the
+// CUDA error in *err.
+int chol_solve_cluster_ctas(int is_f64, int batch, int* err) {
+  int ctas = 0;
+  *err = is_f64 ? global_ctas<double>(batch, &ctas)
+                : global_ctas<float>(batch, &ctas);
+  return *err == cudaSuccess ? ctas : -1;
+}
+
+// Clusters of `ctas` CTAs of the global kernel in float32 or float64 that
+// the current card holds at once (systems in flight), or -1 with the CUDA
+// error in *err.
+int chol_solve_global_active_clusters(int is_f64, int ctas, int* err) {
+  if (ctas < 1 || ctas > kClusterCtas || (ctas & (ctas - 1))) {
+    *err = cudaErrorInvalidValue;
+    return -1;
+  }
+  int clusters = 0;
+  *err = is_f64 ? global_clusters<double>(ctas, &clusters)
+                : global_clusters<float>(ctas, &clusters);
+  return *err == cudaSuccess ? clusters : -1;
+}
 
 // a_stride: elements between the matrices of consecutive systems, n * n
 // for a (B, n, n) batch, 0 for one matrix shared by all systems.  scratch:

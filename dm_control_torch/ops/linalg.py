@@ -18,8 +18,9 @@ inputs: a CUDA tensor launches the fused factor+solve kernel in
 The kernel takes one of three branches, fixed on (n, type)
 (``kernel_branch``): "register" (one warp a system, n <= 32, and 64 in
 float32), "block" (one thread block a system, the triangle in shared
-memory: up to n = 202 in float64 and 303 in float32) and "global" (one
-thread block a system, the triangle in a scratch tensor that the wrapper
+memory: up to n = 202 in float64 and 303 in float32) and "global" (a
+thread-block cluster a system, 16 CTAs for a few systems on an H100
+(``cluster_ctas``), the triangle in a scratch tensor that the wrapper
 allocates, every larger n up to ``chol_solve_max_n()``).
 ``reference_solves()`` is the one explicit switch that sends CUDA tensors
 to the plain version too, so that a whole step can be compared on the card
@@ -58,13 +59,14 @@ _MAX_N = 0
 _REGISTER_MAX_N = {}  # {dtype: largest n of the register kernel}
 _BLOCK_MAX_N = {}  # {dtype: largest n of the block kernel}
 _SCRATCH_ELEMS = None  # n -> scratch elements a system on the global branch
+_LIB = None
 _ERROR_STRING = None
 
 
 def _load() -> None:
     """Builds (or loads) the library and resolves its entry points once."""
     global _ENTRY, _MAX_N, _REGISTER_MAX_N, _BLOCK_MAX_N, _SCRATCH_ELEMS
-    global _ERROR_STRING
+    global _LIB, _ERROR_STRING
     from dm_control_torch.ops import _cuda_build
 
     lib = _cuda_build.load_library("chol_solve.cu")
@@ -75,6 +77,11 @@ def _load() -> None:
         fn.restype = ctypes.c_int
     lib.chol_solve_max_n.argtypes = []
     lib.chol_solve_max_n.restype = ctypes.c_int
+    for fn in (lib.chol_solve_cluster_ctas,
+               lib.chol_solve_global_active_clusters):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     for fn in (lib.chol_solve_register_max_n, lib.chol_solve_block_max_n):
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int
@@ -85,6 +92,7 @@ def _load() -> None:
     lib.chol_solve_error_string.restype = ctypes.c_char_p
     _ERROR_STRING = lib.chol_solve_error_string
     _MAX_N = lib.chol_solve_max_n()
+    _LIB = lib
     _REGISTER_MAX_N = {
         dtype: lib.chol_solve_register_max_n(int(dtype == torch.float64))
         for dtype in _DTYPES}
@@ -99,6 +107,50 @@ def build() -> None:
     """Builds (or loads) the CUDA library now rather than on first use."""
     if _ENTRY is None:
         _load()
+
+
+def _ask(name: str, dtype: torch.dtype, arg: int, what: str) -> int:
+    """Calls the library's ``name(is_f64, arg, &err)``; raises on an
+    error."""
+    build()
+    err = ctypes.c_int(0)
+    value = getattr(_LIB, name)(int(dtype == torch.float64), arg,
+                                ctypes.byref(err))
+    if err.value != 0:
+        raise RuntimeError(f"chol_solve: {what} could not be counted: "
+                           + _ERROR_STRING(err.value).decode())
+    return value
+
+
+def cluster_ctas(dtype: torch.dtype, batch: int) -> int:
+    """CTAs of the thread-block cluster that solves one system on the
+    global branch at this batch on the current card: 16 for a few systems
+    on an H100, halved while the card cannot hold the batch's clusters at
+    once."""
+    return _ask("chol_solve_cluster_ctas", dtype, batch,
+                "the cluster's CTAs")
+
+
+def global_active_clusters(dtype: torch.dtype, ctas: int) -> int:
+    """Clusters of ``ctas`` CTAs of the global kernel that the current
+    card holds at once: the systems of that branch in flight."""
+    return _ask("chol_solve_global_active_clusters", dtype, ctas,
+                "the card's clusters")
+
+
+def launch_error(err: int, branch: str, n: int, batch: int,
+                 dtype: torch.dtype, scratch: bool) -> str:
+    """What a refused launch says: the branch, n, the batch and the type,
+    and on the global branch that it launches a thread-block cluster a
+    system and whether a scratch was given, beside the CUDA error's own
+    text."""
+    where = f"the {branch} kernel at n = {n}, B = {batch}, {dtype}"
+    if branch == "global":
+        where += (" (a thread-block cluster a system; "
+                  + ("scratch given" if scratch else "no scratch: the "
+                     "global kernel keeps its triangle there") + ")")
+    return (f"chol_solve: {where} was not launched: CUDA error {err}, "
+            + _ERROR_STRING(err).decode())
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -133,9 +185,11 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reads it with a batch stride of 0, nothing is copied); b: (B, n);
     both contiguous, float32 or float64, on one CUDA device.  Only the
     lower triangle of a is read, as by ``chol_solve_reference``.  Returns
-    x (B, n).  Raises on anything else.  On the global branch the packed
-    triangle of each system lives in a scratch tensor allocated here
-    (B x ``chol_solve_scratch_elems(n)`` elements).  Counts the launch in
+    x (B, n).  Raises on anything else, and where the launch is refused
+    (``launch_error`` names the branch and n).  On the global branch the
+    packed triangle of each system lives in a scratch tensor allocated here
+    (B x ``chol_solve_scratch_elems(n)`` elements), and each system is
+    solved by a thread-block cluster.  Counts the launch in
     ``chol_solve.launches`` and in ``chol_solve.branch_launches`` under the
     branch that (n, type) takes.
     """
@@ -156,8 +210,8 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(device):
             err = _ENTRY[a.dtype](*args)
     if err != 0:
-        raise RuntimeError("chol_solve kernel launch failed: "
-                           + _ERROR_STRING(err).decode())
+        raise RuntimeError(launch_error(err, branch, n, b.shape[0], a.dtype,
+                                        scratch is not None))
     chol_solve.launches += 1
     chol_solve.branch_launches[branch] += 1
     return x
@@ -165,9 +219,11 @@ def chol_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def kernel_branch(n: int, dtype: torch.dtype) -> str:
     """The branch of the launcher's rule, fixed on (n, type), that a solve
-    of size n takes: "register" (n <= 32, and n <= 64 in float32), "block"
-    (up to the largest n whose triangle fits one block's shared memory:
-    202 in float64, 303 in float32) or "global"."""
+    of size n takes: "register" (n <= 32, and n <= 64 in float32; a warp a
+    system), "block" (up to the largest n whose triangle fits one block's
+    shared memory: 202 in float64, 303 in float32; a thread block a system)
+    or "global" (a thread-block cluster a system, the triangle in device
+    memory)."""
     if _ENTRY is None:
         _load()
     if n <= _REGISTER_MAX_N[dtype]:

@@ -9,7 +9,9 @@ also runs on a machine that has none:
 Tolerances: 2e-4 (float32) and 1e-10 (float64) between the kernel and its
 plain version, as tests/test_ops_linalg.py holds the Pallas kernel, at
 every n of the three branches up to 1,370 (an 11v11 HUMANOID match); 1e-8
-for a float64 control step against the JAX golden.
+for a float64 control step against the JAX golden.  The global kernel is
+also held to its own bits over 20 calls (a race between a cluster's CTAs
+would show there).
 """
 
 import numpy as np
@@ -62,12 +64,17 @@ def _spd(rng, b, n, dtype, device):
                                  # the block kernel's last n (202 in
                                  # float64, 303 in float32) and of a panel
                                  # of the global kernel (320/321), a
-                                 # HUMANOID 2v2 match, an 11v11 one
+                                 # HUMANOID 2v2 match, an 11v11 one; on
+                                 # the global kernel, fewer chunks of 32
+                                 # rows below the first panel than a
+                                 # cluster has CTAs (203, 230), ANT 11v11
+                                 # (314), HUMANOID 3v3 (378)
                                  (161, 4), (166, 1), (182, 1), (182, 64),
-                                 (202, 4), (203, 1), (203, 4), (254, 1),
-                                 (254, 4), (254, 64), (303, 4), (304, 1),
-                                 (304, 4), (320, 4), (321, 4), (1370, 1),
-                                 (1370, 4)])
+                                 (202, 4), (203, 1), (203, 4), (230, 1),
+                                 (230, 4), (254, 1), (254, 4), (254, 64),
+                                 (303, 4), (304, 1), (304, 4), (314, 1),
+                                 (320, 4), (321, 4), (378, 1), (378, 4),
+                                 (1370, 1), (1370, 4)])
 def test_kernel_matches_plain_version(cuda, n, b, dtype):
     rng = np.random.default_rng(n)
     a = _spd(rng, b, n, dtype, cuda)
@@ -132,6 +139,78 @@ def test_non_spd_system_gives_nan_in_its_row_only(cuda, n, dtype):
     keep = torch.arange(64, device=cuda) != 5
     torch.testing.assert_close(x[keep], ref[keep], rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [203, 254, 1370])
+@pytest.mark.parametrize("b", [1, 4])
+def test_kernel_repeats_bit_for_bit(cuda, n, b, dtype):
+    """The same call 20 times gives the same bits: on the global kernel
+    (float64 from 203, float32 at 1,370) one CTA of a cluster writes a tile
+    of the triangle that another reads later, so a race between them shows
+    as calls that differ."""
+    rng = np.random.default_rng(900 + n)
+    a = _spd(rng, b, n, dtype, cuda)
+    rhs = torch.as_tensor(rng.standard_normal((b, n)), dtype=dtype,
+                          device=cuda)
+    x = linalg.chol_solve_cuda(a, rhs)
+    for _ in range(19):
+        assert torch.equal(linalg.chol_solve_cuda(a, rhs), x)
+    torch.testing.assert_close(x, linalg.chol_solve_reference(a, rhs),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [254, 378, 1370])
+def test_global_kernel_shared_matrix_junk_and_non_spd(cuda, n, dtype):
+    """On the global kernel (and the block kernel at 254 in float32): one
+    matrix shared by 4 systems (a batch stride of 0), junk above the
+    diagonal, and a system that is not positive definite among 4, whose row
+    alone is NaN."""
+    rng = np.random.default_rng(1000 + n)
+    a = _spd(rng, 4, n, dtype, cuda)
+    rhs = torch.as_tensor(rng.standard_normal((4, n)), dtype=dtype,
+                          device=cuda)
+    tol = dict(rtol=TOL[dtype], atol=TOL[dtype])
+    shared = linalg.chol_solve_cuda(a[0].contiguous(), rhs)
+    torch.testing.assert_close(shared, linalg.chol_solve_reference(
+        a[0].expand(4, n, n), rhs), **tol)
+    junk = a.tril() + torch.as_tensor(rng.standard_normal((4, n, n)),
+                                      dtype=dtype, device=cuda).triu(1)
+    torch.testing.assert_close(linalg.chol_solve_cuda(junk, rhs),
+                               linalg.chol_solve_reference(a, rhs), **tol)
+    a[2] = -a[2]
+    x = linalg.chol_solve_cuda(a, rhs)
+    assert torch.isnan(x).any(-1).nonzero().flatten().tolist() == [2]
+    assert torch.isnan(x[2]).all()
+    keep = torch.tensor([0, 1, 3], device=cuda)
+    torch.testing.assert_close(x[keep], linalg.chol_solve_reference(
+        a, rhs)[keep], **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_global_kernel_launches_a_cluster(cuda, dtype):
+    """The global kernel solves a system on a thread-block cluster: the
+    library's count of its CTAs is at least 2 for a few systems, the card
+    holds such a cluster, a batch that fills the card takes one CTA a
+    system, and a launch without a scratch is refused with the branch and
+    n named."""
+    ctas = linalg.cluster_ctas(dtype, 1)
+    assert ctas >= 2 and linalg.cluster_ctas(dtype, 4) >= 2
+    assert linalg.global_active_clusters(dtype, ctas) >= 1
+    assert linalg.cluster_ctas(dtype, 4096) == 1
+    n = linalg._BLOCK_MAX_N[dtype] + 1
+    assert linalg.kernel_branch(n, dtype) == "global"
+    rng = np.random.default_rng(2)
+    a = _spd(rng, 1, n, dtype, cuda)
+    rhs = torch.ones(1, n, dtype=dtype, device=cuda)
+    x = torch.empty_like(rhs)
+    err = linalg._ENTRY[dtype](a.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+                               None, 1, n, n * n,
+                               torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    msg = linalg.launch_error(err, "global", n, 1, dtype, False)
+    assert f"global kernel at n = {n}" in msg and "no scratch" in msg
 
 
 def test_dispatch_counts_launches_and_reference_switch(cuda):

@@ -317,10 +317,21 @@ def _block_algorithm(a, rhs):
 def _global_algorithm(a, rhs, panel=_PANEL):
     """The global kernel: ``_factor_panels`` (the triangle in device memory,
     the same operations in the same order), then the back substitution by
-    panels, the last first: warp 0 solves the panel's triangle from its
-    lanes' z, then every z entry of the panels before it gives up the
-    panel's x, j descending.  Each z entry takes its terms in the order
-    the block kernel's lane takes them in."""
+    panels, the last first: rank 0's warp 0 solves the panel's triangle
+    from its lanes' z, then every z entry of the panels before it gives up
+    the panel's x, j descending.  Each z entry takes its terms in the order
+    the block kernel's lane takes them in.
+
+    What of the kernel's order the model keeps: every entry of the trailing
+    update takes its 32 updates in the order j, as the kernel's float32
+    tiles do one FMA at a time and as its float64 DMMA does in 8 k-groups
+    of 4 (an H100 rounds each product of a k-group in turn: m16n8k4 gave
+    the same bits as FMAs one after the other).  How the kernel deals the
+    rows below, the update's blocks and the z entries out over a cluster's
+    CTAs, and the lookahead that factors the next panel during the update,
+    change no entry's order.  The model rounds each product before it
+    subtracts it, where the kernel fuses the two: it keeps the kernel's
+    order, not its last bits."""
     S, z, rd, bad = _factor_panels(a, rhs, panel)
     n = rhs.shape[1]
     with np.errstate(all="ignore"):
@@ -432,6 +443,22 @@ def test_cuda_kernel_rejects_cpu_tensors():
         tlinalg.chol_solve_cuda(a, torch.ones(2, 3, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("branch,scratch", [("global", False),
+                                            ("global", True),
+                                            ("block", False)])
+def test_refused_launch_names_branch_and_n(monkeypatch, branch, scratch):
+    """What the wrapper raises when the launcher refuses: the branch, n,
+    the batch and the type beside the CUDA error's text, and on the global
+    branch its cluster and the scratch (the launcher refuses a null one)."""
+    monkeypatch.setattr(tlinalg, "_ERROR_STRING",
+                        lambda err: b"invalid argument")
+    msg = tlinalg.launch_error(1, branch, 254, 4, torch.float64, scratch)
+    assert f"the {branch} kernel at n = 254, B = 4, torch.float64" in msg
+    assert msg.endswith("CUDA error 1, invalid argument")
+    assert ("thread-block cluster" in msg) == (branch == "global")
+    assert ("no scratch" in msg) == (branch == "global" and not scratch)
+
+
 def test_build_without_nvcc_says_what_is_missing(monkeypatch):
     from dm_control_torch.ops import _cuda_build
 
@@ -442,8 +469,9 @@ def test_build_without_nvcc_says_what_is_missing(monkeypatch):
 
 
 #: n on both sides of the global kernel's start (203 in float64, 304 in
-#: float32), a HUMANOID 2v2 match's nv (254) and one past a panel (321)
-_GLOBAL_NS = [161, 203, 254, 304, 321]
+#: float32), a HUMANOID 2v2 match's nv (254), an ANT 11v11 match's (314), a
+#: HUMANOID 3v3 match's (378) and one past a panel (321)
+_GLOBAL_NS = [161, 203, 254, 304, 314, 321, 378]
 _GLOBAL_CASES = [(n, dtype) for n in _GLOBAL_NS
                  for dtype in (np.float32, np.float64)]
 

@@ -3,25 +3,30 @@ earlier source, edited copies, the plain version and PyTorch's library
 calls, all in one process on one card.
 
     python3 tools/bench_chol_solve.py [--old EARLIER.cu] \
-        [--variant COPY.cu ...] [--n 27 62] \
-        [--batch 256 1024 8192] [--main-path STEPS] [--out FILE.json]
+        [--variant COPY.cu ...] [--n 27 62] [--batch 256 1024 8192] \
+        [--graph-replays 20] [--main-path STEPS] [--out FILE.json]
 
 ``--old`` names an earlier source with a batch stride in its C interface
 (with or without the global kernel's scratch pointer), for example
 ``git show b122ab7:dm_control_torch/csrc/chol_solve.cu >
 _checkout/chol_solve_old.cu`` (the shared-memory kernel that the block
-kernel replaced).  Each ``--variant`` is a copy of this checkout's source
-with an edit to try (another ``kBlockWarps``, say).  Both are called
-through the C interface alone, the output allocated per call as the
-wrapper does.
+kernel replaced) or, for the global kernel, ``git show
+78371a7:dm_control_torch/csrc/chol_solve.cu > _checkout/chol_solve_old.cu``
+(its first design, one thread block a system).  Each ``--variant`` is a
+copy of this checkout's source with an edit to try (another
+``kClusterCtas``, say).  Both are called through the C interface alone,
+the output allocated per call as the wrapper does.
 
 For every (n, B, type) and every implementation it prints, and with
 ``--out`` writes as JSON:
 
 - ``graph_us``: microseconds per launch over a CUDA graph of 50 launches
-  replayed 20 times (back to back on the device, no host in the way),
-  with A warm in L2 (one A) and cold (A rotated over more than 64 MB);
-- ``device_us``: device time per call from ``torch.profiler``;
+  replayed ``--graph-replays`` times (20; back to back on the device, no
+  host in the way), with A warm in L2 (one A) and cold (A rotated over
+  more than 64 MB); ``--graph-replays 0`` leaves it out (a slow kernel at a
+  large n takes seconds a replay);
+- ``device_us``: device time per call from ``torch.profiler``'s raw
+  events, with ``device_kernels_per_call`` beside it;
 - ``call_us``: CUDA events around one call through the Python wrapper,
   median of 200 (the kernel as the engine calls it, host half included;
   for ``--old`` and the variants through the C interface alone);
@@ -64,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12
 # (DMMA; outside them, half of it)
 FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 GRAPH_LAUNCHES = 50
+PROFILE_PAD_S = 0.05  # margin of each profiled window
 COLD_BYTES = 64 << 20
 
 
@@ -129,9 +135,12 @@ def raw_call(raw):
     return lambda a, b: raw(a, b, torch.empty_like(b))
 
 
-def kernel_events(prof):
-    return [e for e in prof.events()
-            if "CUDA" in str(getattr(e, "device_type", ""))]
+def device_events(prof):
+    """The card's kernels, copies and sets, from the profiler's raw events
+    (``prof.events()`` was seen to lose up to half of the kernels of a long
+    run of sessions, as ``device_kernels_per_call`` below 1 showed)."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if "CUDA" in str(e.device_type())]
 
 
 def device_us(fn, calls=50):
@@ -139,11 +148,13 @@ def device_us(fn, calls=50):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)  # the card's stamps may precede a launch's
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ev = kernel_events(prof)
-    total = sum(getattr(e, "device_time", None) or e.cuda_time for e in ev)
+        time.sleep(PROFILE_PAD_S)
+    ev = device_events(prof)
+    total = sum(e.duration_ns() for e in ev) / 1e3
     return total / calls, len(ev) / calls
 
 
@@ -180,7 +191,7 @@ def host_us(fn, calls=2000, seconds=0.25):
     return 1e6 * dt / calls
 
 
-def graph_us(launch_k, replays=20):
+def graph_us(launch_k, replays):
     """launch_k(k) enqueues the k-th launch on the current stream."""
     graph = torch.cuda.CUDAGraph()
     launch_k(0)
@@ -213,7 +224,7 @@ def library_calls():
             "cholesky_ex+cholesky_solve": cholesky}
 
 
-def measure(impls, n, batch, dtype, rng):
+def measure(impls, n, batch, dtype, rng, replays):
     q = rng.standard_normal((batch, n, n))
     a_np = q @ q.transpose(0, 2, 1) + n * np.eye(n)
     a = torch.as_tensor(a_np, dtype=dtype, device="cuda")
@@ -230,11 +241,12 @@ def measure(impls, n, batch, dtype, rng):
         row = rows.setdefault(name, {"graph_warm_us": [], "graph_cold_us": [],
                                      "device_us": [], "call_us": [],
                                      "host_us": []})
-        if impl.get("raw"):
+        if impl.get("raw") and replays:
             raw = impl["raw"]
-            row["graph_warm_us"].append(graph_us(lambda k: raw(a, b, x)))
+            row["graph_warm_us"].append(graph_us(lambda k: raw(a, b, x),
+                                                 replays))
             row["graph_cold_us"].append(
-                graph_us(lambda k: raw(a_cold[k % copies], b, x)))
+                graph_us(lambda k: raw(a_cold[k % copies], b, x), replays))
         call = impl["call"]
         dev, kernels = device_us(lambda: call(a, b))
         row["device_us"].append(dev)
@@ -294,6 +306,8 @@ def main() -> int:
     parser.add_argument("--batch", type=int, nargs="*",
                         default=[256, 1024, 8192])
     parser.add_argument("--dtypes", nargs="*", default=["float32", "float64"])
+    parser.add_argument("--graph-replays", type=int, default=20,
+                        help="replays of each CUDA graph; 0: no graphs")
     parser.add_argument("--main-path", type=int, default=0, metavar="STEPS",
                         help="alternate old and new on humanoid:run")
     parser.add_argument("--out", help="also write the JSON to this file")
@@ -336,7 +350,8 @@ def main() -> int:
         for n in args.n:
             for batch in args.batch:
                 bound, by = bound_us(batch, n, dtype)
-                rows = measure(impls, n, batch, dtype, rng)
+                rows = measure(impls, n, batch, dtype, rng,
+                                args.graph_replays)
                 shape = {"n": n, "batch": batch, "dtype": dtype_name,
                          "bound_us": bound, "bound_by": by, "impls": rows}
                 out["shapes"].append(shape)
