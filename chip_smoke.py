@@ -21,9 +21,9 @@ noslip post-pass at B = ``DOG_BATCH``) and checks that every dense solve
 on it went through the kernel, then compares a short rollout with and
 without the kernel, and last trains PPO on the card (``rl/ppo.py``:
 ``init_train_state`` and ``train_step`` on cartpole:swingup at B = 2048,
-T = 32 and humanoid:run at B = 512, T = 16, the JAX package's bench
-sizes; one float64 train step of pendulum:swingup with and without the
-kernel), and last drives the single environment (``suite.load(domain,
+T = 16 and humanoid:run at B = 512, T = 8, the JAX package's bench
+batch sizes at half its rollout length; one float64 train step of
+pendulum:swingup with and without the kernel), and last drives the single environment (``suite.load(domain,
 task)`` -> ``Environment.reset`` and ``step``): six recorded float64
 episodes of the JAX package's ``suite.load`` against the port's on the
 card, humanoid:run in float32 with its rate, launches and idle share,
@@ -80,8 +80,19 @@ float64 host goldens replayed one control step at a time, HUMANOID two a
 side in float64 (the kernel's global branch) with and without the
 kernel (the kernel's step profiled: the card's busy time and the global
 kernel's share of it), and BoxHead ten a side (nv 166) in float64 on the
-card.  Each phase prints one line (phases 11 to 15 one per model); any
-failure exits with a non-zero code.  The last line is a
+card; and last rendering (``dm_control_torch/rendering``: the ray caster
+on the card): ``pixels.Wrapper`` over humanoid_CMU:run in float32 (a
+reset and 10 control steps observed in pixels, the kernel's launches by
+branch), quadruped:escape's height field box, stack_3_bricks_vision's
+front_close camera at 84 x 84 with a ``MujocoCamera`` observable and an
+inline mesh's k-DOP, soccer two a side with a ``MultiplayerTrackingCamera``
+at 1920 x 1080 (a reset and 3 control steps), and the headless viewer on
+cartpole:swingup with a click-select and a perturbation on the card: each
+with its frames/s, kernels and bytes to the host a frame and peak memory,
+its frames held to the port's CPU frames of the same state, and the four
+recorded states of ``rendering.golden`` held to the JAX package's frames
+of them.  Each phase prints one line (phases 11 to 16 one per model or
+item); any failure exits with a non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -94,6 +105,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -105,7 +117,9 @@ MAIN_BATCH = 1024
 #: stays under 60 GB (every candidate's rows are kept: noslip forbids
 #: compaction)
 DOG_BATCH = 512
-MAIN_STEPS = 3  # control steps after a reset; the first is the warm-up
+#: control steps after a reset; the first is the warm-up (3 until phase 16
+#: came: the script's time limit)
+MAIN_STEPS = 2
 PROFILE_PAD_S = 0.1  # the profiling window's margin on each side
 PROFILE_ATTEMPTS = 3  # traces taken before a trace with no device event fails
 #: the main paths: (domain, task, batch); cartpole and cheetah at the sizes
@@ -188,12 +202,15 @@ ENV_GOLDENS = (("cartpole", "swingup"), ("cheetah", "run"),
                ("humanoid", "run"), ("hopper", "hop"),
                ("manipulator", "bring_ball"), ("swimmer", "swimmer6"))
 ENV_SEED = 11
-SINGLE_STEPS = 20  # phase 8's float32 humanoid:run control steps
+SINGLE_STEPS = 10  # phase 8's float32 humanoid:run control steps (20 before
+#: phase 16)
 #: phase 7's training paths in float32, (domain, task, batch,
-#: steps_per_batch), at the sizes of the JAX package's ppo_train and
-#: ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4 minibatches
-TRAIN_PATHS = (("cartpole", "swingup", 2048, 32),
-               ("humanoid", "run", 512, 16))
+#: steps_per_batch), at the batch sizes of the JAX package's ppo_train
+#: and ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4
+#: minibatches (T halved since phase 16 came, for the script's time
+#: limit: the rungs run T = 32 and 16)
+TRAIN_PATHS = (("cartpole", "swingup", 2048, 16),
+               ("humanoid", "run", 512, 8))
 #: timed train steps per path, after one warm-up (a rollout of the host
 #: paths takes 15-25 s of the script's time limit)
 TRAIN_TIMED = 1
@@ -207,7 +224,8 @@ MANIP_PATHS = (("reach_site", "reach_site_features"),
                ("lift_brick", "lift_brick_features"),
                ("lift_large_box", "lift_large_box_features"))
 MANIP_BATCH = MAIN_BATCH
-MANIP_TRAIN = ("reach_site_features", 256, 8)  # (task, batch, steps)
+#: (task, batch, steps; 8 steps before phase 16 came)
+MANIP_TRAIN = ("reach_site_features", 256, 4)
 #: phase 11: a model no reference file holds, stepped at the headline
 #: batch: (domain, task, task arguments, batch)
 COMPILE_PATH = ("cartpole", "three_poles", {"num_poles": 5}, 8192)
@@ -237,8 +255,9 @@ HOST_TREES = (("reach_site", "reach_site_features"),
               ("stack_2_free", "stack_2_bricks_moveable_base_features"),
               ("stack_3_free", "stack_2_of_3_bricks_random_order_features"),
               ("stack_5_free", "reassemble_5_bricks_random_order_features"))
-#: the float32 rate path: (name, control steps after the reset)
-HOST_RATE = ("stack_3_bricks_features", 10)
+#: the float32 rate path: (name, control steps after the reset; 5 since
+#: phase 16 came, 10 before)
+HOST_RATE = ("stack_3_bricks_features", 5)
 #: the float64 selfcheck, kernel against ``reference_solves()``: (name,
 #: seed, control steps after the reset); nv = 39 runs the block kernel in
 #: float64.  The seed's episode is one where a
@@ -266,8 +285,8 @@ LOCO_HOST_SEED = 11
 LOCO_TREES = ("soccer_1v1", "soccer_2v2", "tracking_ball",
               "tracking_cmu2020")
 #: the float32 rate path, ``soccer.load()`` (2 a side on a randomized
-#: pitch): control steps after the reset
-LOCO_RATE_STEPS = 10
+#: pitch): control steps after the reset (10 before phase 16)
+LOCO_RATE_STEPS = 5
 #: the float64 selfcheck, kernel against ``reference_solves()``: (asset,
 #: seed, control steps after the reset); nv = 62 runs the block kernel in
 #: float64.  Seed 2's episode is one where a change
@@ -285,7 +304,9 @@ LOCO_EXAMPLES = ("cmu_humanoid_run_walls", "cmu_humanoid_run_gaps",
                  "cmu_humanoid_go_to_target", "cmu_humanoid_maze_forage",
                  "cmu_humanoid_heterogeneous_forage", "rodent_escape_bowl",
                  "rodent_run_gaps", "rodent_maze_forage", "rodent_two_touch")
-LOCO_EXAMPLE_STEPS = 2  # the last of them profiled
+#: the last of them profiled; with one, the rate is the profiled step's
+#: wall time (2 until phase 16 came: the script's time limit)
+LOCO_EXAMPLE_STEPS = 1
 #: the examples' host episode goldens (tests/data/torch_locomotion_env_
 #: <name>_f64.npz: a reset and 3 control steps of the JAX package's
 #: example with numpy's global state and random_state seeded with 11),
@@ -323,6 +344,30 @@ WALKER_SELFCHECK = {"team_size": 2, "walker_type": "humanoid"}
 #: BoxHead ten a side (nv 166: the block kernel, over its first cap) in
 #: float64 on its drawn pitch: a reset and one control step
 LARGE_MATCH = {"team_size": 10}
+#: phase 16, rendering: (a)'s control steps (humanoid_CMU:run through
+#: ``pixels.Wrapper``), (d)'s (soccer two a side with a tracking camera),
+#: (e)'s frames (the viewer on cartpole:swingup), the frames each item
+#: times after a warm-up, and the bytes a frame may copy to the host
+#: besides its image
+RENDER_STEPS = 10
+RENDER_SOCCER_STEPS = 3
+VIEWER_FRAMES = 4
+RENDER_TIMED_FRAMES = 3
+RENDER_D2H_SLACK = 4096
+#: (c)'s mesh: an octahedron (a k-DOP of 26 planes) before a fixed camera
+MESH_XML = """
+<mujoco>
+  <asset>
+    <mesh name="octa" vertex="0.3 0 0  -0.3 0 0  0 0.3 0  0 -0.3 0
+                              0 0 0.3  0 0 -0.3"/>
+  </asset>
+  <worldbody>
+    <geom name="octa" type="mesh" mesh="octa" pos="0 0 1" rgba=".2 .8 .2 1"
+          contype="0" conaffinity="0"/>
+    <camera name="front" pos="0 -3 1" quat="0.7071068 0.7071068 0 0"/>
+  </worldbody>
+</mujoco>
+"""
 
 
 class PhaseError(RuntimeError):
@@ -2120,6 +2165,8 @@ def phase_examples_rate(linalg, name, build=None):
     check_branch(linalg, name, env.physics.model, launches, branch_launches)
     substeps = env._n_sub_steps
     per_step = (launches - reset_launches) / len(steps)
+    # the unprofiled steps' times, else the profiled step's wall
+    step_ms = [1e3 * t for t in times] or [wall_ms]
     check(per_step >= 3 * substeps,
           f"{name}: chol_solve launched {per_step} times a control step of "
           f"{substeps} substeps (< 3 a substep)")
@@ -2130,8 +2177,8 @@ def phase_examples_rate(linalg, name, build=None):
                 reset_launches=reset_launches, launches=launches,
                 branch_launches=branch_launches,
                 per_step=per_step, step_types=kinds,
-                steps_per_s=len(times) / sum(times),
-                step_ms=[1e3 * t for t in times], kernels_per_step=kernels,
+                steps_per_s=1e3 * len(step_ms) / sum(step_ms),
+                step_ms=step_ms, kernels_per_step=kernels,
                 busy_ms=busy_ms, profiled_ms=wall_ms,
                 idle_share=1 - busy_ms / wall_ms)
 
@@ -2242,8 +2289,9 @@ def phase_examples(linalg, card):
               f"({r['reset_launches']} chol_solve launches), "
               f"{len(r['step_types'])} control steps (step types "
               f"{r['step_types']}): {r['steps_per_s']:.3f} control steps/s "
-              f"(ms {[round(t, 1) for t in r['step_ms']]}, the last step "
-              f"aside), chol_solve launches {r['per_step']:.1f} a control "
+              f"(ms {[round(t, 1) for t in r['step_ms']]}; the profiled "
+              f"step's wall without another), chol_solve launches "
+              f"{r['per_step']:.1f} a control "
               f"step ({r['launches']} in the path); the last control step "
               f"profiled: "
               f"{r['kernels_per_step']} device kernels, busy "
@@ -2367,7 +2415,8 @@ def phase_walkers(linalg, card):
           f"({r['reset_launches']} chol_solve launches), "
           f"{len(r['step_types'])} control steps: "
           f"{r['steps_per_s']:.3f} control steps/s (ms "
-          f"{[round(t, 1) for t in r['step_ms']]}, the last step aside), "
+          f"{[round(t, 1) for t in r['step_ms']]}; the profiled step's "
+          f"wall without another), "
           f"chol_solve launches {r['per_step']:.1f} a control step "
           f"({r['launches']} in the path, by branch "
           f"{r['branch_launches']}); the last control step profiled: "
@@ -2397,6 +2446,333 @@ def phase_walkers(linalg, card):
           flush=True)
     big["task"] = "soccer boxhead 10v10"
     return r, golden_launches, c, big
+
+
+def frame_profile(render, what):
+    """One frame: ``render()`` under ``torch.profiler``, the window padded
+    as ``profiled`` pads it.  Returns the frame, the card's kernels in it
+    and the bytes copied from the card to the host, both read from the
+    exported trace (the raw events carry no memory copy's size)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            frame = render()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        d2h = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+                  if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"])
+        if kernels:
+            return frame, kernels, d2h
+        print(f"chip_smoke: torch.profiler saw no kernel in {what} (attempt "
+              f"{attempt} of {PROFILE_ATTEMPTS})", file=sys.stderr,
+              flush=True)
+    check(False, f"torch.profiler saw no kernel on the device in {what} "
+                 f"({PROFILE_ATTEMPTS} attempts)")
+
+
+def render_frames_fps(render, frames=RENDER_TIMED_FRAMES):
+    """Frames a second of ``render`` (which returns a host array) on the
+    host's clock after one warm-up frame."""
+    render()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        render()
+    return frames / (time.perf_counter() - t0)
+
+
+def cpu_twin(physics):
+    """A ``Physics`` on the CPU with a copy of ``physics``' model and of
+    its state (the batched Data behind the view)."""
+    from dm_control_torch.physics import model_io
+    from dm_control_torch.physics.model import map_tensors
+    from dm_control_torch.physics.physics import Physics
+
+    return Physics(model_io.to(physics.model, "cpu", physics.model.dtype),
+                   map_tensors(physics._data, lambda t: t.cpu()))
+
+
+def check_frames(ours, ref, what):
+    """``ours`` (the card's) against ``ref`` within the render gate;
+    returns the figures."""
+    from dm_control_torch.rendering import golden
+
+    fig = golden.frame_figures(ours, ref)
+    check(golden.within_gate(fig),
+          f"{what}: frames {fig} outside the gate {golden.GATE}")
+    return fig
+
+
+def render_item(camera, what, item):
+    """Profiles one rgb frame of ``camera`` (kernels, bytes to the host),
+    checks the bytes against the image's, times ``RENDER_TIMED_FRAMES``
+    frames and holds the card's rgb, depth and segmentation of the state
+    to the same camera's on the CPU twin of the physics: the figures
+    land in ``item``."""
+    from dm_control_torch.rendering import golden
+    from dm_control_torch.rendering.camera import Camera, MovableCamera
+
+    frame, kernels, d2h = frame_profile(camera.render, what)
+    h, w = camera.height, camera.width
+    check(frame.shape == (h, w, 3) and frame.dtype == np.uint8,
+          f"{what}: a frame of {frame.shape} {frame.dtype}")
+    check(h * w * 3 <= d2h <= frame.nbytes + RENDER_D2H_SLACK,
+          f"{what}: {d2h} bytes from the card in a frame of "
+          f"{frame.nbytes} bytes (allowed: the image and "
+          f"{RENDER_D2H_SLACK})")
+    fps = render_frames_fps(camera.render)
+    twin = cpu_twin(camera._physics)
+    if isinstance(camera, MovableCamera):
+        cpu = MovableCamera(twin, h, w)
+        cpu.set_pose(*camera.get_pose())
+    else:
+        cpu = Camera(twin, h, w, camera._camera_id)
+    fig = check_frames(golden.camera_frames(camera),
+                       golden.camera_frames(cpu), f"{what} against the CPU")
+    item.update(kernels=kernels, d2h=d2h, image_bytes=frame.nbytes,
+                render_fps=fps, cpu=fig, size=(h, w))
+    return frame
+
+
+def render_line(letter, what, item, card):
+    h, w = item["size"]
+    extra = "".join(f", {k} {v}" for k, v in item.get("notes", {}).items())
+    print(f"phase 16 ({letter}) {what}: {h}x{w} frames, "
+          f"{item['render_fps']:.2f} frames/s rendered, "
+          f"{item['kernels']} device kernels and {item['d2h']} bytes to the "
+          f"host a frame (the image {item['image_bytes']}), peak "
+          f"{item['peak_gb']:.3f} GB; card vs CPU frames {item['cpu']}"
+          f"{extra} | {card}", flush=True)
+
+
+def _launches(linalg, what, model, item):
+    launches = linalg.chol_solve.launches
+    branches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, what, model, launches, branches)
+    item.update(launches=launches, branch_launches=branches)
+
+
+def phase_render_pixels(linalg, item):
+    """(a): ``pixels.Wrapper`` over humanoid_CMU:run in float32 on the
+    card, camera 0: a reset and ``RENDER_STEPS`` control steps."""
+    from dm_control_torch import suite
+    from dm_control_torch.rendering.camera import Camera
+    from dm_control_torch.suite.wrappers import pixels
+
+    env = pixels.Wrapper(suite.load("humanoid_CMU", "run",
+                                    task_kwargs={"random": 3},
+                                    dtype=torch.float32))
+    spec = env.action_spec()
+    rng = np.random.RandomState(1)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = [env.reset()]
+    for _ in range(RENDER_STEPS):
+        steps.append(env.step(rng.uniform(spec.minimum, spec.maximum)))
+    seconds = time.perf_counter() - t0
+    m = env.physics.model
+    _launches(linalg, "render (a)", m, item)
+    check(all(ts.observation["pixels"].shape == (240, 320, 3)
+              and ts.observation["pixels"].dtype == np.uint8
+              for ts in steps), "render (a): a pixels observation's spec")
+    check(np.array_equal(steps[-1].observation["pixels"],
+                         env.physics.render(240, 320, 0)),
+          "render (a): the observation is not the physics' frame")
+    render_item(Camera(env.physics, 240, 320, 0), "render (a)", item)
+    item["notes"] = {
+        "env frames/s (reset and steps, each observed in pixels)":
+            round(len(steps) / seconds, 3),
+        "chol_solve launches": item["launches"],
+        "by branch": item["branch_launches"]}
+
+
+def phase_render_hfield(item):
+    """(b): quadruped:escape's physics.render of the height field's box,
+    rgb, depth and segmentation, from the camera that frames it."""
+    from dm_control_torch import suite
+    from dm_control_torch.physics.model import GeomType
+    from dm_control_torch.rendering.camera import Camera
+
+    env = suite.load("quadruped", "escape", task_kwargs={"random": 3},
+                     dtype=torch.float32)
+    env.reset()
+    m = env.physics.model
+    cam = Camera(env.physics, 240, 320, "y")
+    render_item(cam, "render (b)", item)
+    seg = env.physics.render(240, 320, "y", segmentation=True)[..., 0]
+    hfield = m.geom_type.index(int(GeomType.HFIELD))
+    depth = env.physics.render(240, 320, "y", depth=True)
+    check(bool((seg == hfield).any()) and np.all(
+        (depth > 0) == (seg >= 0)), "render (b): the height field's box is "
+                                    "not in the frame")
+    item["notes"] = {"height field box pixels": int((seg == hfield).sum())}
+
+
+def phase_render_manipulation(item):
+    """(c): stack_3_bricks_vision with the front_close camera: an 84x84
+    ``physics.render`` and a ``MujocoCamera`` observable of it, and an
+    inline mesh model's k-DOP on the card (the Jaco here is built of
+    primitives: no model of the port's tasks has a mesh)."""
+    from dm_control_torch.composer.observation import MujocoCamera
+    from dm_control_torch.physics.physics import Physics
+    from dm_control_torch.rendering import golden
+    from dm_control_torch.rendering.camera import Camera
+
+    env, _ = golden.stack_3_bricks_vision("cuda", torch.float32, 3)
+    env.reset()
+    physics = env.physics
+    frame = render_item(Camera(physics, 84, 84, "front_close"),
+                        "render (c)", item)
+    observed = MujocoCamera("front_close", height=84, width=84)(physics)
+    check(np.array_equal(observed, frame),
+          "render (c): the MujocoCamera observable is not the frame")
+    mesh = Physics.from_xml_string(MESH_XML, dtype=torch.float32)
+    mesh.forward()
+    fig = check_frames(
+        golden.camera_frames(Camera(mesh, 96, 96, 0)),
+        golden.camera_frames(Camera(cpu_twin(mesh), 96, 96, 0)),
+        "render (c) mesh against the CPU")
+    seg = mesh.render(96, 96, 0, segmentation=True)[..., 0]
+    item["notes"] = {"mesh k-DOP pixels": int((seg == 0).sum()),
+                     "mesh card vs CPU": fig}
+
+
+def phase_render_soccer(linalg, item):
+    """(d): a soccer.Task two a side with a MultiplayerTrackingCamera at
+    its default 1920x1080: a reset and ``RENDER_SOCCER_STEPS`` control
+    steps, a frame after each."""
+    from dm_control_torch.rendering import golden
+
+    env, cam = golden.soccer_tracked("cuda", torch.float32, 3)
+    spec = env.action_spec()
+    rng = np.random.RandomState(1)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.reset()
+    frames = [cam.render()]
+    poses = [cam.camera.get_pose()]
+    for _ in range(RENDER_SOCCER_STEPS):
+        env.step(rng.uniform(spec.minimum, spec.maximum))
+        frames.append(cam.render())
+        poses.append(cam.camera.get_pose())
+    seconds = time.perf_counter() - t0
+    _launches(linalg, "render (d)", env.physics.model, item)
+    check(all(f.shape == (1080, 1920, 3) for f in frames),
+          "render (d): a tracking frame is not 1920x1080")
+    check(len({p.distance for p in poses}) > 1,
+          "render (d): the tracking camera did not move")
+    render_item(cam.camera, "render (d)", item)
+    item["notes"] = {
+        "env frames/s (reset and steps, a 1080p frame each)":
+            round(len(frames) / seconds, 3),
+        "chol_solve launches": item["launches"],
+        "by branch": item["branch_launches"]}
+
+
+def phase_render_viewer(linalg, item):
+    """(e): the headless viewer Application on cartpole:swingup for
+    ``VIEWER_FRAMES`` frames, then a click-select and a perturbation on
+    the card."""
+    from dm_control_torch import suite, viewer
+    from dm_control_torch.rendering.camera import MovableCamera
+    from dm_control_torch.viewer.viewer import Viewer, apply_perturbation
+
+    env = suite.load("cartpole", "swingup", task_kwargs={"random": 3})
+    frames = []
+
+    def on_frame(frame, runtime):
+        frames.append(frame)
+        if len(frames) == VIEWER_FRAMES:
+            runtime.stop()
+
+    app = viewer.Application(width=320, height=240)
+    app.set_frame_callback(on_frame)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    app.launch(env, max_episodes=1)
+    seconds = time.perf_counter() - t0
+    check(len(frames) == VIEWER_FRAMES and all(f.shape == (240, 320, 3)
+                                               for f in frames),
+          f"render (e): {len(frames)} viewer frames")
+    cam = MovableCamera(env.physics, 240, 320)
+    view = Viewer(cam, env.physics, n_fixed_cameras=env.physics.model.ncam)
+    body = view.select_at((160, 120))
+    check(body is not None, "render (e): the click selected nothing")
+    view.manipulator.set_move_horizontal_mode(True)
+    view.manipulator.on_move((160, 120), (20.0, 0.0))
+    bid, force = view.manipulator.perturbation_force
+    check(apply_perturbation(env, bid, force), "render (e): no live state")
+    xfrc = env.physics.data.xfrc_applied
+    check(xfrc.device.type == "cuda" and float(xfrc[bid, 0]) == force[0],
+          f"render (e): the perturbation is not on the card ({xfrc.device})")
+    ts = env.step(np.zeros(1))
+    check(np.isfinite(ts.reward), "render (e): the perturbed step")
+    _launches(linalg, "render (e)", env.physics.model, item)
+    render_item(cam, "render (e)", item)
+    item["notes"] = {"viewer frames/s (steps and frames)":
+                     round(len(frames) / seconds, 3),
+                     "selected body": bid, "perturbation": force[:3].tolist(),
+                     "chol_solve launches": item["launches"]}
+
+
+def phase_render_goldens(card):
+    """The four recorded scenes (``rendering.golden``) on the card against
+    the JAX package's frames of them."""
+    from dm_control_torch.rendering import golden
+
+    for name in golden.SCENES:
+        path = os.path.join(ROOT, "tests", "data", f"torch_render_{name}.npz")
+        with np.load(path, allow_pickle=False) as z:
+            gold = {k: z[k] for k in z.files}
+        physics = golden.scene_physics(name, gold, "cuda")
+        ours = golden.render_frames(physics, name, gold.get("pose"))
+        fig = check_frames(ours, gold, f"render golden {name}")
+        h, w = ours["depth"].shape
+        print(f"phase 16 golden: {name} {h}x{w} on the card vs the JAX "
+              f"frames of the recorded state: {fig} (gate "
+              f"{golden.GATE}) | {card}", flush=True)
+
+
+def phase_render(linalg, card):
+    """Phase 16: rendering on the card."""
+    from dm_control_torch.suite.wrappers import pixels
+
+    t16 = time.perf_counter()
+    items = {}
+    for letter, what, run in (
+            ("a", "pixels.Wrapper humanoid_CMU:run float32",
+             lambda item: phase_render_pixels(linalg, item)),
+            ("b", "quadruped:escape physics.render (height field box)",
+             phase_render_hfield),
+            ("c", "stack_3_bricks_vision front_close 84x84 and a mesh",
+             phase_render_manipulation),
+            ("d", "soccer 2v2 MultiplayerTrackingCamera 1920x1080",
+             lambda item: phase_render_soccer(linalg, item)),
+            ("e", "viewer Application cartpole:swingup",
+             lambda item: phase_render_viewer(linalg, item))):
+        item = items[letter] = {"task": what}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(item)
+        item["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        render_line(letter, what, item, card)
+    check(pixels._RENDER_BACKEND is None,
+          "render: something set pixels.set_render_backend")
+    phase_render_goldens(card)
+    print(f"phase 16 in {time.perf_counter() - t16:.1f} s | {card}",
+          flush=True)
+    return items
 
 
 def main() -> int:
@@ -2577,6 +2953,9 @@ def main() -> int:
         linalg, card)
     print(f"phases 1-15 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    renders = phase_render(linalg, card)
+    print(f"phases 1-16 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "branch", "max_abs_err", "ms",
@@ -2597,7 +2976,9 @@ def main() -> int:
         **{f"locomotion example:{r['task']}": r for r in examples},
         f"soccer walkers:{walker_rate['task']}": walker_rate,
         "soccer walkers selfcheck:humanoid 2v2 float64": walker_check,
-        f"soccer walkers:{large['task']} float64": large}
+        f"soccer walkers:{large['task']} float64": large,
+        **{f"render ({k}) {r['task']}": r for k, r in renders.items()
+           if "launches" in r}}
     counts = {name: (r["launches"], r["branch_launches"])
               for name, r in paths.items()}
     for kind, (launches, blocks) in (("locomotion host golden", loco_goldens),

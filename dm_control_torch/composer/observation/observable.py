@@ -114,9 +114,9 @@ class Generic(Observable):
 
 
 class MujocoCamera(Observable):
-    """Pixel observable rendered from a named model camera (reference
-    observable/base.py:241-308).  Rendering is not ported: observing one
-    raises, as ``Physics.render`` does."""
+    """Pixel observable rendered from a named model camera through
+    ``physics.render``, on the physics' device (reference
+    observable/base.py:241-308)."""
 
     def __init__(self, camera_name, height=240, width=320, depth=False,
                  **kwargs):
@@ -147,9 +147,11 @@ class MujocoCamera(Observable):
 
     def _callable(self, physics):
         def observe():
-            raise NotImplementedError(
-                f"camera observable {self._camera_name!r}: rendering is not "
-                f"ported yet (ROADMAP A6)")
+            img = physics.render(self._height, self._width,
+                                 self._camera_name, depth=self._depth)
+            if self._depth:
+                img = np.asarray(img, np.float32)[..., None]
+            return img
         return observe
 
 

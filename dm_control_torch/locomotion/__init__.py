@@ -13,6 +13,7 @@ touching a target twice.  The walkers, the arenas, the props, the ball
 and the pitch are composer entities that build their MJCF trees, which
 the port compiles; ``walkers.rescale`` and ``walkers.scaled_actuators``
 edit a walker's tree, and ``arenas.PaddedRoom`` lays out a room for the
-mazes.  The mocap file loaders, ``examples/cmu_2020_tracking.py`` and the
-soccer camera are not ported yet (ROADMAP A5.4, A5.5 (c), A6).
+mazes; ``soccer.MultiplayerTrackingCamera`` follows a match and renders
+it.  The mocap file loaders and ``examples/cmu_2020_tracking.py`` are not
+ported yet (ROADMAP A5.4, A5.5 (c)).
 """

@@ -1,6 +1,7 @@
 """Preconfigured locomotion environments (counterpart of
 ``dm_control_tpu/locomotion/examples/``): ``basic`` serves the nine
 corridor, go-to-target, maze, bowl and two-touch environments of the CMU
-2019 humanoid and the rat through ``composer.Environment``.
-``cmu_2020_tracking`` and ``explore`` are not ported (ROADMAP A5.4, A6).
+2019 humanoid and the rat through ``composer.Environment``, and
+``explore`` opens any of them in the viewer.  ``cmu_2020_tracking`` is not
+ported (ROADMAP A5.4).
 """

@@ -1,10 +1,14 @@
 """Multi-agent soccer (counterpart of ``dm_control_tpu/locomotion/soccer/``):
 ``load`` runs a match of BoxHead, ant or humanoid players through
 ``composer.Environment`` on the host, ``load_batch`` steps thousands of
-BoxHead matches on the device, one reward per player.  The soccer camera
-renders, which waits for ROADMAP A6."""
+BoxHead matches on the device, one reward per player.
+``MultiplayerTrackingCamera`` (``Task(tracking_cameras=...)``) follows a
+match and renders it on the physics' device."""
 
 from dm_control_torch.locomotion.soccer.boxhead import BoxHead  # noqa: F401
+from dm_control_torch.locomotion.soccer.camera import (  # noqa: F401
+    MultiplayerTrackingCamera,
+)
 from dm_control_torch.locomotion.soccer.humanoid import Humanoid  # noqa: F401
 from dm_control_torch.locomotion.soccer.initializers import (  # noqa: F401
     Initializer, UniformInitializer,

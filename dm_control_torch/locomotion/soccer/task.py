@@ -13,7 +13,8 @@ initializer, the throw-in, the possession trackers fed by the contacts,
 the goal detectors, the observables), and the batched hooks
 (``composer.BatchableTask``: thousands of matches in lockstep on the
 device, whose autoreset kicks off anew after a goal).  Tracking cameras
-render, which waits for ROADMAP A6.
+(``soccer.MultiplayerTrackingCamera``) follow the ball and the players on
+the host path and render on the physics' device.
 """
 
 from __future__ import annotations
@@ -106,10 +107,6 @@ class Task(composer.Task, BatchableTask):
                  observables=None, disable_walker_contacts=False,
                  physics_timestep=0.005, control_timestep=0.025,
                  tracking_cameras=()):
-        if tuple(tracking_cameras):
-            raise NotImplementedError(
-                "soccer.Task: tracking cameras render, which is not ported "
-                "yet (ROADMAP A6)")
         self.arena = arena
         self.players = list(players)
         self._initializer = (initializer
@@ -129,6 +126,7 @@ class Task(composer.Task, BatchableTask):
             arena.add_free_entity(player.walker)
             self.ball.register_player(player)
             self._observables_adder(self, player)
+        self._tracking_cameras = tuple(tracking_cameras)
         # one reward per player on the batched path
         self.batch_reward_shape = (len(self.players),)
         self.set_timesteps(control_timestep, physics_timestep)
@@ -148,12 +146,28 @@ class Task(composer.Task, BatchableTask):
     def initialize_episode_mjcf(self, random_state):
         self.arena.initialize_episode_mjcf(random_state)
 
+    def after_compile(self, physics, random_state):
+        super().after_compile(physics, random_state)
+        for camera in self._tracking_cameras:
+            camera.after_compile(physics)
+
+    def _tracked_entity_positions(self, physics):
+        """The ball's and every player's position (what the tracking
+        cameras follow)."""
+        positions = [np.asarray(self.ball.get_pose(physics)[0])]
+        for player in self.players:
+            positions.append(np.asarray(player.walker.get_pose(physics)[0]))
+        return positions
+
     def initialize_episode(self, physics, random_state):
         self.arena.initialize_episode(physics, random_state)
         self.ball.initialize_episode(physics, random_state)
         self._initializer(self, physics, random_state)
         if hasattr(self.arena, "update_detection"):
             self.arena.update_detection(physics)
+        for camera in self._tracking_cameras:
+            camera.initialize_episode(
+                self._tracked_entity_positions(physics))
 
     # -- actions ------------------------------------------------------------
 
@@ -234,6 +248,8 @@ class Task(composer.Task, BatchableTask):
         scored = self.arena.detected_goal()
         if scored is not None:
             self._scores[scored] += 1
+        for camera in self._tracking_cameras:
+            camera.after_step(self._tracked_entity_positions(physics))
 
     @property
     def scores(self):

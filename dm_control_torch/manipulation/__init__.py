@@ -10,9 +10,11 @@ the port compiles.  ``load`` gives any of them as a single
 on the batched path, ``load_batch``: ``reach_site``, ``reach_duplo``,
 ``lift_brick`` and ``lift_large_box``, each as ``_features`` and
 ``_vision``.  A ``_vision`` variant has the physics of its ``_features``
-variant without the privileged prop state among its observations
-(pixels are not ported, ROADMAP A6; on the batched path both variants
-observe the same keys, as in the JAX package).
+variant without the privileged prop state among its observations (as in
+the JAX package, no camera observable is added: ``Physics.render`` and
+``composer.observation.MujocoCamera`` render one where a caller adds the
+camera, ``shared.cameras.add_camera_observables``; on the batched path
+both variants observe the same keys).
 """
 
 from __future__ import annotations

@@ -23,8 +23,8 @@ FRONT_FAR = CameraSpec(
 def add_camera_observables(arena, obs_settings, *specs):
     """Adds cameras to the arena worldbody; returns observable names.
 
-    Only the ``<camera>`` elements: rendering, which camera observables
-    need, is not ported (ROADMAP A6).
+    Only the ``<camera>`` elements, as in the JAX package: a
+    ``composer.observation.MujocoCamera`` of a returned name renders it.
     """
     wb = arena.mjcf_model.first("worldbody")
     names = []

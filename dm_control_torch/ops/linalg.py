@@ -241,6 +241,8 @@ def chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_solve: unsupported device {a.device}")
     if _USE_REFERENCE_ON_CUDA:
         return chol_solve_reference(a, b)
+    if b.shape[-1] == 0:  # no unknowns (a model without dofs): no launch
+        return b.clone()
     if a.ndim == 3 and a.stride(0) == 0:
         a = a[0]  # an expanded shared matrix: hand over the one copy
     return chol_solve_cuda(a.contiguous(), b.contiguous())

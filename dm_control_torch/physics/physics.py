@@ -121,8 +121,19 @@ class Physics:
         """The forward after a state write (engine.py:268-295)."""
         self.forward()
 
-    def render(self, *args, **kwargs):
-        raise NotImplementedError("rendering is not ported yet (ROADMAP A6)")
+    def render(self, height: int = 240, width: int = 320, camera_id=-1,
+               overlays=(), depth: bool = False, segmentation: bool = False,
+               scene_option=None, render_flag_overrides=None,
+               scene_callback=None):
+        """Ray-cast render on the model's device (reference Physics.render,
+        engine.py:168-217): uint8 (H, W, 3) RGB, float32 (H, W) plane depth
+        in meters, or int32 (H, W, 2) [objid, objtype] segmentation, as
+        numpy."""
+        from dm_control_torch import rendering
+
+        return rendering.render(
+            self, height=height, width=width, camera_id=camera_id,
+            depth=depth, segmentation=segmentation)
 
     def reset(self):
         self._data = make_data(self._model, 1)

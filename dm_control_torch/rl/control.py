@@ -293,7 +293,7 @@ class Environment(environment.Environment):
 
     @property
     def physics(self):
-        return _PhysicsView(self._model, self._data)
+        return _PhysicsView(self)
 
     @property
     def task(self):
@@ -430,11 +430,17 @@ class Environment(environment.Environment):
 
 class _PhysicsView:
     """Read access to an ``Environment``'s current state: ``model`` and
-    ``data`` (one environment, no batch axis)."""
+    ``data`` (one environment, no batch axis), read from the environment
+    at each access (a camera or a viewer holding the view sees every
+    step)."""
 
-    def __init__(self, model: Model, data: Optional[Data]):
-        self.model = model
-        self._data = data
+    def __init__(self, env: "Environment"):
+        self._env = env
+        self.model = env._model
+
+    @property
+    def _data(self) -> Optional[Data]:
+        return self._env._data
 
     @property
     def data(self) -> Data:
@@ -443,8 +449,16 @@ class _PhysicsView:
     def time(self) -> float:
         return float(self._data.time[0])
 
-    def render(self, *args, **kwargs):
-        raise NotImplementedError("rendering is not ported yet (ROADMAP A6)")
+    def render(self, height=240, width=320, camera_id=-1, overlays=(),
+               depth=False, segmentation=False, scene_option=None,
+               render_flag_overrides=None, scene_callback=None):
+        """Ray-cast render of the current state on the model's device
+        (engine.py:168-217)."""
+        from dm_control_torch import rendering
+
+        return rendering.render(self, height=height, width=width,
+                                camera_id=camera_id, depth=depth,
+                                segmentation=segmentation)
 
 
 def action_spec(model: Model) -> specs.BoundedArray:

@@ -87,8 +87,9 @@ def load(domain_name, task_name, task_kwargs=None, environment_kwargs=None,
     ``random`` (the seed or RandomState of the episodes, and of lqr's
     model), ``time_limit`` and the task's own (``fully_observable``,
     three_poles' ``num_poles`` and ``sparse``); ``environment_kwargs`` go
-    to the ``Environment``.  ``visualize_reward`` is accepted and unused:
-    rendering is not ported (ROADMAP A6)."""
+    to the ``Environment``.  ``visualize_reward`` is accepted and unused,
+    as in the JAX package: the ray-cast renderer colours geoms by their
+    rgba."""
     del visualize_reward
     return build_environment(domain_name, task_name, task_kwargs,
                              environment_kwargs, device=device, dtype=dtype)

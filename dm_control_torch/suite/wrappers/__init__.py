@@ -1,2 +1,2 @@
-"""Environment wrappers of the suite (pixels waits for rendering,
-ROADMAP A6)."""
+"""Environment wrappers of the suite: action noise and scale, the
+profiling wrapper, and pixel observations (``pixels``)."""

@@ -34,6 +34,12 @@ def export_tool():
 
 
 @functools.lru_cache(maxsize=None)
+def jax_render_tool():
+    """The JAX renderer's tool (tools/jax_render.py) as a module."""
+    return export_tool().jax_render_tool()
+
+
+@functools.lru_cache(maxsize=None)
 def jax_model(asset):
     """The JAX package's compiled model behind one of the port's asset
     names (``export_tool().ASSETS``)."""

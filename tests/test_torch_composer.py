@@ -12,7 +12,7 @@
   the same state (the draws are made in the same order).
 - The environment's own paths: ``EpisodeInitializationError`` retries,
   a diverged step absorbed as the episode's end, a camera observable
-  refusing to render.
+  rendering through ``physics.render``.
 """
 
 import itertools
@@ -212,10 +212,26 @@ def test_diverged_step_ends_the_episode():
 
 
 def test_camera_observable_does_not_render():
+    """Named for what it checked before the port rendered: the observable
+    now renders its camera through ``physics.render``."""
+    from dm_control_torch.physics.physics import Physics
+
+    physics = Physics.from_xml_string(
+        '<mujoco><worldbody><geom type="plane" size="2 2 .1"/>'
+        '<geom type="sphere" pos="0 0 .5" size=".2" rgba="1 0 0 1"/>'
+        '<camera name="front" pos="0 -2 .5" xyaxes="1 0 0 0 0 1"/>'
+        '</worldbody></mujoco>', device="cpu")
+    physics.forward()
     cam = tobservable.MujocoCamera("front", height=8, width=12)
     assert cam.array_spec.shape == (8, 12, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cam(object())
+    img = cam(physics)
+    assert img.shape == (8, 12, 3) and img.dtype == np.uint8
+    np.testing.assert_array_equal(img, physics.render(8, 12, "front"))
+    depth = tobservable.MujocoCamera("front", height=9, width=13,
+                                     depth=True)(physics)
+    assert depth.shape == (9, 13, 1) and depth.dtype == np.float32
+    # the centre ray meets the sphere's front, 2 - 0.2 m away
+    assert depth[4, 6, 0] == pytest.approx(1.8, abs=1e-5)
 
 
 # -- the observation scheduler -------------------------------------------------

@@ -259,6 +259,24 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                torch.empty(0, n, device=cuda))
 
 
+def test_model_without_dofs_forwards_on_the_card(cuda):
+    """A model of fixed geoms alone (nv = 0, a scene to render) forwards
+    and renders on the card: a system of no unknowns is not launched."""
+    from dm_control_torch.physics.physics import Physics
+
+    p = Physics.from_xml_string(
+        '<mujoco><worldbody><geom type="sphere" size=".2" pos="0 0 1"/>'
+        '<camera name="c" pos="0 -3 1" xyaxes="1 0 0 0 0 1"/></worldbody>'
+        '</mujoco>', device=cuda)
+    before = linalg.chol_solve.launches
+    p.forward()
+    assert linalg.chol_solve.launches == before
+    assert linalg.chol_solve(torch.empty(2, 0, 0, device=cuda),
+                             torch.empty(2, 0, device=cuda)).shape == (2, 0)
+    seg = p.render(9, 13, "c", segmentation=True)
+    assert seg[4, 6, 0] == 0 and seg[0, 0, 0] == -1
+
+
 @pytest.mark.parametrize("prefix", PREFIXES)
 def test_float64_step_on_the_card_matches_the_jax_golden(cuda, prefix):
     g = golden()

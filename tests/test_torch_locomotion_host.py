@@ -540,9 +540,12 @@ def test_refusals_and_default_device():
         with pytest.raises(NotImplementedError, match="BoxHead"):
             tsoccer.load_batch(walker_type=walker_type, device="cpu",
                                dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tsoccer.Task(tsoccer.task.standard_players(1), tsoccer.Pitch(),
-                     tracking_cameras=(object(),))
+    # tracking cameras are taken (they render since rendering was ported)
+    cam = tsoccer.MultiplayerTrackingCamera(2.0, 1.0, 0.5, width=8,
+                                            height=6)
+    task = tsoccer.Task(tsoccer.task.standard_players(1), tsoccer.Pitch(),
+                        tracking_cameras=(cam,))
+    assert task._tracking_cameras == (cam,) and cam.camera is None
     with pytest.raises(ValueError, match="team_size"):
         tsoccer.load(team_size=12, device="cpu")
     env = tsoccer.load(team_size=1, device="cpu", dtype=torch.float32)

@@ -155,8 +155,16 @@ def test_step_reset_and_divergence():
         p.step()
     with pytest.raises(ValueError, match="worldbody"):
         Physics.from_xml_string("<mujoco/>", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        p.render()
+    # rendering (the ray caster on the model's device): the default free
+    # camera's frame, plane depth and segmentation
+    img = p.render(24, 32)
+    assert img.shape == (24, 32, 3) and img.dtype == np.uint8
+    assert img.std() > 1.0
+    depth = p.render(24, 32, depth=True)
+    assert depth.shape == (24, 32) and depth.dtype == np.float32
+    seg = p.render(24, 32, segmentation=True)
+    assert seg.shape == (24, 32, 2) and seg.dtype == np.int32
+    assert np.all((depth > 0) == (seg[..., 0] >= 0))
 
 
 @pytest.mark.parametrize("asset", ["humanoid", "reacher_easy"])

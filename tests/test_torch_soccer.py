@@ -273,9 +273,10 @@ def test_pitch_and_boxhead_match_jax():
 def test_refusals():
     """What the port does not build raises: the batched path refuses ANT
     and HUMANOID players, as the JAX package's ``load_batch`` builds only
-    BoxHead matches (``load`` builds them), tracking cameras name ROADMAP
-    A6, and the batched path refuses ``MultiturnTask``, whose goals
-    re-kick off on the host."""
+    BoxHead matches (``load`` builds them), and the batched path refuses
+    ``MultiturnTask``, whose goals re-kick off on the host.  A tracking
+    camera is taken by the task (and refuses a smoothing speed outside
+    [0, 1])."""
     for kwargs in ({"walker_type": tsoccer.WalkerType.ANT},
                    {"walker_type": "humanoid"}):
         with pytest.raises(NotImplementedError, match="BoxHead"):
@@ -283,8 +284,11 @@ def test_refusals():
         task = tsoccer.load(device="cpu", **kwargs).task
         assert len(task.players) == 4
     players = tsoccer.task.standard_players(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tsoccer.Task(players, tsoccer.Pitch(), tracking_cameras=(object(),))
+    cam = tsoccer.MultiplayerTrackingCamera(2.0, 1.0, 0.5)
+    with pytest.raises(ValueError, match="speed"):
+        tsoccer.MultiplayerTrackingCamera(2.0, 1.0, 1.5)
+    task = tsoccer.Task(players, tsoccer.Pitch(), tracking_cameras=(cam,))
+    assert task._tracking_cameras == (cam,)
     players = tsoccer.task.standard_players(1)
     with pytest.raises(TypeError, match="BatchableTask"):
         tbatch.compile_task(tsoccer.MultiturnTask(players, tsoccer.Pitch()),

@@ -123,7 +123,14 @@ It writes, for every ported domain (or only the ones named),
   pitch drawn from the humanoids' areas, with the regulation ball; every
   soccer recording's arguments and seed are the port's
   ``rl.golden.SOCCER_EPISODES``): ``JAX_PLATFORMS=cpu python
-  tools/export_torch_assets.py loco_walker_goldens``.
+  tools/export_torch_assets.py loco_walker_goldens``;
+- on request, ``tests/data/torch_render_<name>.npz`` for each recorded
+  scene of the port's ``rendering.golden.SCENES`` (``render_goldens``, or
+  ``render_golden:<name>`` for one): the scene run on the CPU in float32
+  by the port (``golden.record``: its reset and control steps), the
+  model fields and state a frame reads, and the JAX package's frames of
+  that state (rgb, plane depth, the segmentation's geom ids), rendered
+  by ``tools/jax_render.py`` (XLA without fused multiply-add), compressed.
 """
 
 from __future__ import annotations
@@ -447,6 +454,57 @@ def loco_env_golden_path(name):
 def write_loco_env_golden(name):
     np.savez(loco_env_golden_path(name), **make_loco_env_golden(name))
     print("wrote", os.path.relpath(loco_env_golden_path(name), ROOT),
+          flush=True)
+
+
+def render_golden_path(name):
+    return os.path.join(ROOT, "tests", "data", f"torch_render_{name}.npz")
+
+
+def jax_render_tool():
+    """``tools/jax_render.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tools", "jax_render.py")
+    spec = importlib.util.spec_from_file_location("jax_render", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_render_frames(name, physics, recording):
+    """The JAX package's frames of scene ``name``'s recorded state (the
+    recording's ``state_*`` and ``pose``) on the model of ``physics``."""
+    from dm_control_torch.rendering import golden
+
+    scene = golden.SCENES[name]
+    camera = scene.camera
+    if isinstance(camera, str):
+        camera = physics.model.names.camera[camera]
+    tool = jax_render_tool()
+    job = tool.scene_job(
+        physics, scene.height, scene.width,
+        camera_id=-1 if camera is None else camera,
+        pose=recording.get("pose"),
+        state={f: recording[f"state_{f}"] for f in golden.STATE_FIELDS})
+    frames, = tool.render([job])
+    return dict(rgb=frames["rgb"], depth=frames["depth"],
+                seg=frames["seg"].astype(np.int16))
+
+
+def make_render_golden(name):
+    """Scene ``name`` recorded by the port on the CPU and framed by the JAX
+    package's renderer (module docstring)."""
+    from dm_control_torch.rendering import golden
+
+    physics, out = golden.record(name)
+    out.update(jax_render_frames(name, physics, out))
+    return out
+
+
+def write_render_golden(name):
+    np.savez_compressed(render_golden_path(name), **make_render_golden(name))
+    print("wrote", os.path.relpath(render_golden_path(name), ROOT),
           flush=True)
 
 
@@ -789,6 +847,15 @@ def main(argv=None):
                          "loco_example_goldens": LOCO_EXAMPLE_GOLDENS,
                          "loco_walker_goldens": LOCO_WALKER_GOLDENS}[domain]:
                 write_loco_env_golden(name)
+            continue
+        if domain == "render_goldens":
+            from dm_control_torch.rendering.golden import SCENES
+
+            for name in SCENES:
+                write_render_golden(name)
+            continue
+        if domain.startswith("render_golden:"):
+            write_render_golden(domain[len("render_golden:"):])
             continue
         if domain.startswith("loco_env_golden:"):
             write_loco_env_golden(domain[len("loco_env_golden:"):])
