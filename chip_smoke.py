@@ -21,8 +21,8 @@ noslip post-pass at B = ``DOG_BATCH``) and checks that every dense solve
 on it went through the kernel, then compares a short rollout with and
 without the kernel, and last trains PPO on the card (``rl/ppo.py``:
 ``init_train_state`` and ``train_step`` on cartpole:swingup at B = 2048,
-T = 16 and humanoid:run at B = 512, T = 8, the JAX package's bench
-batch sizes at half its rollout length; one float64 train step of
+T = 8 and humanoid:run at B = 512, T = 4, the JAX package's bench
+batch sizes at a quarter of its rollout length; one float64 train step of
 pendulum:swingup with and without the kernel), and last drives the single environment (``suite.load(domain,
 task)`` -> ``Environment.reset`` and ``step``): six recorded float64
 episodes of the JAX package's ``suite.load`` against the port's on the
@@ -82,7 +82,7 @@ kernel (the kernel's step profiled: the card's busy time and the global
 kernel's share of it), and BoxHead ten a side (nv 166) in float64 on the
 card; and last rendering (``dm_control_torch/rendering``: the ray caster
 on the card): ``pixels.Wrapper`` over humanoid_CMU:run in float32 (a
-reset and 10 control steps observed in pixels, the kernel's launches by
+reset and 5 control steps observed in pixels, the kernel's launches by
 branch), quadruped:escape's height field box, stack_3_bricks_vision's
 front_close camera at 84 x 84 with a ``MujocoCamera`` observable and an
 inline mesh's k-DOP, soccer two a side with a ``MultiplayerTrackingCamera``
@@ -91,8 +91,17 @@ cartpole:swingup with a click-select and a perturbation on the card: each
 with its frames/s, kernels and bytes to the host a frame and peak memory,
 its frames held to the port's CPU frames of the same state, and the four
 recorded states of ``rendering.golden`` held to the JAX package's frames
-of them.  Each phase prints one line (phases 11 to 16 one per model or
-item); any failure exits with a non-zero code.  The last line is a
+of them; and last mocap clip files and the tracking trainer: three
+walk_tiny clips written to a CMU 2020 h5 and a protobuf bank and read
+back (where ``h5py`` and ``protobuf`` import), ``examples.cmu_2020_
+tracking.cmu_humanoid_tracking`` on those clips in float32 with its rate,
+launches by branch and idle share, and in float64 with and without the
+kernel, one epoch of ``scripts.ppo_tracking`` (the trainer's policy and
+update on the card, its seconds split between the environments, the
+policy and the update), and ``scripts.vec_env.TorchVecEnv`` over
+pendulum:swingup at B = 1024 through an autoreset.  Each phase prints one
+line (phases 11 to 17 one per model or item); any failure exits with a
+non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
 """
@@ -202,15 +211,15 @@ ENV_GOLDENS = (("cartpole", "swingup"), ("cheetah", "run"),
                ("humanoid", "run"), ("hopper", "hop"),
                ("manipulator", "bring_ball"), ("swimmer", "swimmer6"))
 ENV_SEED = 11
-SINGLE_STEPS = 10  # phase 8's float32 humanoid:run control steps (20 before
-#: phase 16)
+SINGLE_STEPS = 5  # phase 8's float32 humanoid:run control steps (20 before
+#: phase 16, 10 before phase 17)
 #: phase 7's training paths in float32, (domain, task, batch,
 #: steps_per_batch), at the batch sizes of the JAX package's ppo_train
 #: and ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4
-#: minibatches (T halved since phase 16 came, for the script's time
-#: limit: the rungs run T = 32 and 16)
-TRAIN_PATHS = (("cartpole", "swingup", 2048, 16),
-               ("humanoid", "run", 512, 8))
+#: minibatches (T halved since phase 16 came and again since phase 17,
+#: for the script's time limit: the rungs run T = 32 and 16)
+TRAIN_PATHS = (("cartpole", "swingup", 2048, 8),
+               ("humanoid", "run", 512, 4))
 #: timed train steps per path, after one warm-up (a rollout of the host
 #: paths takes 15-25 s of the script's time limit)
 TRAIN_TIMED = 1
@@ -224,8 +233,8 @@ MANIP_PATHS = (("reach_site", "reach_site_features"),
                ("lift_brick", "lift_brick_features"),
                ("lift_large_box", "lift_large_box_features"))
 MANIP_BATCH = MAIN_BATCH
-#: (task, batch, steps; 8 steps before phase 16 came)
-MANIP_TRAIN = ("reach_site_features", 256, 4)
+#: (task, batch, steps; 8 steps before phase 16 came, 4 before phase 17)
+MANIP_TRAIN = ("reach_site_features", 256, 2)
 #: phase 11: a model no reference file holds, stepped at the headline
 #: batch: (domain, task, task arguments, batch)
 COMPILE_PATH = ("cartpole", "three_poles", {"num_poles": 5}, 8192)
@@ -255,9 +264,9 @@ HOST_TREES = (("reach_site", "reach_site_features"),
               ("stack_2_free", "stack_2_bricks_moveable_base_features"),
               ("stack_3_free", "stack_2_of_3_bricks_random_order_features"),
               ("stack_5_free", "reassemble_5_bricks_random_order_features"))
-#: the float32 rate path: (name, control steps after the reset; 5 since
-#: phase 16 came, 10 before)
-HOST_RATE = ("stack_3_bricks_features", 5)
+#: the float32 rate path: (name, control steps after the reset; 3 since
+#: phase 17 came, 5 since phase 16, 10 before)
+HOST_RATE = ("stack_3_bricks_features", 3)
 #: the float64 selfcheck, kernel against ``reference_solves()``: (name,
 #: seed, control steps after the reset); nv = 39 runs the block kernel in
 #: float64.  The seed's episode is one where a
@@ -285,8 +294,9 @@ LOCO_HOST_SEED = 11
 LOCO_TREES = ("soccer_1v1", "soccer_2v2", "tracking_ball",
               "tracking_cmu2020")
 #: the float32 rate path, ``soccer.load()`` (2 a side on a randomized
-#: pitch): control steps after the reset (10 before phase 16)
-LOCO_RATE_STEPS = 5
+#: pitch): control steps after the reset (10 before phase 16, 5 before
+#: phase 17)
+LOCO_RATE_STEPS = 3
 #: the float64 selfcheck, kernel against ``reference_solves()``: (asset,
 #: seed, control steps after the reset); nv = 62 runs the block kernel in
 #: float64.  Seed 2's episode is one where a change
@@ -349,10 +359,27 @@ LARGE_MATCH = {"team_size": 10}
 #: (e)'s frames (the viewer on cartpole:swingup), the frames each item
 #: times after a warm-up, and the bytes a frame may copy to the host
 #: besides its image
-RENDER_STEPS = 10
+RENDER_STEPS = 5  # 10 before phase 17
 RENDER_SOCCER_STEPS = 3
 VIEWER_FRAMES = 4
 RENDER_TIMED_FRAMES = 3
+#: phase 17 (a): the clip files' walk_tiny ids (of the CMU 2020 h5's name)
+#: and their synthetic clips' frames
+MOCAP_IDS = ("CMU_016_22", "CMU_047_01", "CMU_069_01")
+MOCAP_FRAMES = 60
+#: phase 17 (b): float32 control steps of cmu_humanoid_tracking; (c): the
+#: float64 selfcheck's control steps and gate (of max(1, the scale))
+MOCAP_STEPS = 5
+MOCAP_SELFCHECK_STEPS = 2
+MOCAP_SELFCHECK_TOL = 1e-10
+#: phase 17 (d): one ppo_tracking epoch (8 env steps an environment; 16
+#: until the first whole run put phase 17 at 66.4 s of its 60)
+PPO_TRACKING_ARGS = ("--n_envs=2", "--steps_per_epoch=16", "--max_epochs=1",
+                     "--seed=0")
+#: phase 17 (e): TorchVecEnv over pendulum:swingup, episodes of 3 control
+#: steps, stepped 4 times (the fourth starts the next episodes)
+VEC_ENV_BATCH = 1024
+VEC_ENV_EPISODE = 3
 RENDER_D2H_SLACK = 4096
 #: (c)'s mesh: an octahedron (a k-DOP of 26 planes) before a fixed camera
 MESH_XML = """
@@ -2775,6 +2802,324 @@ def phase_render(linalg, card):
     return items
 
 
+def write_clip_files(directory):
+    """Phase 17 (a): ``MOCAP_IDS`` as synthetic clips of the CMU 2020
+    humanoid (56 joints) written to ``cmu_2020_dfe3e9e0.h5`` in the
+    reference's layout (where ``h5py`` imports) and to a protobuf bank
+    (where ``protobuf`` does), each read back by the port's loader and
+    held equal to the written arrays.  Returns which files were written,
+    and the clips."""
+    from dm_control_torch.locomotion.mocap import loader
+
+    clips = {cid: loader.synthetic_walking_trajectory(
+        nq=63, nv=62, num_steps=MOCAP_FRAMES, seed=k, identifier=cid)
+        for k, cid in enumerate(MOCAP_IDS)}
+    written = {}
+    try:
+        import h5py
+    except ImportError:
+        print("phase 17 (a): h5py does not import here; no h5 clip file",
+              flush=True)
+    else:
+        path = os.path.join(directory, "cmu_2020_dfe3e9e0.h5")
+        with h5py.File(path, "w") as f:
+            for cid, clip in clips.items():
+                group = f.create_group(cid)
+                group.attrs["dt"] = clip.dt
+                w = group.create_group("walkers/walker_0")
+                qpos, qvel = clip["qpos"], clip["qvel"]
+                for key, value in (("position", qpos[:, :3]),
+                                   ("quaternion", qpos[:, 3:7]),
+                                   ("joints", qpos[:, 7:]),
+                                   ("velocity", qvel[:, :3]),
+                                   ("angular_velocity", qvel[:, 3:6]),
+                                   ("joints_velocity", qvel[:, 6:])):
+                    w.create_dataset(key, data=value.T)
+        written["h5"] = loader.HDF5TrajectoryLoader(path)
+    try:
+        import google.protobuf  # noqa: F401
+    except ImportError:
+        print("phase 17 (a): protobuf does not import here; no clip bank",
+              flush=True)
+    else:
+        path = os.path.join(directory, "clips.pb")
+        loader.save_trajectory_bank(path, clips)
+        written["proto"] = loader.ProtoTrajectoryLoader(path)
+    for kind, ldr in written.items():
+        check(sorted(ldr.keys()) == sorted(MOCAP_IDS),
+              f"phase 17 (a): the {kind} file's clips {ldr.keys()}")
+        for cid, clip in clips.items():
+            back = ldr.get_trajectory(cid)
+            check(back.dt == clip.dt and all(
+                np.array_equal(back[k], clip[k]) for k in ("qpos", "qvel")),
+                f"phase 17 (a): {kind} clip {cid} read back otherwise")
+    return written, clips
+
+
+def phase_mocap_rate(linalg, written, clips):
+    """Phase 17 (b): ``cmu_humanoid_tracking()`` on the card in float32
+    (its clips from (a)'s h5 where one was written), a reset and
+    ``MOCAP_STEPS`` control steps with random actions, the kernel's
+    launch counts set to 0 just before the reset and read after the last
+    step, the observation updater's host time and the named reads of the
+    physics (each a copy from the card) counted over the steps; then one
+    more control step under ``torch.profiler``."""
+    from dm_control_torch.locomotion.examples import cmu_2020_tracking
+
+    env = cmu_2020_tracking.cmu_humanoid_tracking(random_state=0,
+                                                  dtype=torch.float32)
+    check(env.physics.model.device.type == "cuda",
+          "cmu_humanoid_tracking left the card")
+    ids = list(env.task._trajectories)
+    want = (sorted(MOCAP_IDS) if "h5" in written
+            else [f"synthetic_walk_{k}" for k in range(3)])
+    check(sorted(ids) == want, f"cmu_humanoid_tracking's clips {ids}")
+    if "h5" in written:
+        check(all(np.array_equal(env.task._trajectories[c]["qpos"],
+                                 clips[c]["qpos"]) for c in ids),
+              "cmu_humanoid_tracking: its clips are not the file's")
+    spec = env.action_spec()
+    low = np.maximum(spec.minimum, -1.0)
+    high = np.minimum(spec.maximum, 1.0)
+    rng = np.random.RandomState(1)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts = env.reset()
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    reset_launches = linalg.chol_solve.launches
+    times = []
+    with host_counters() as counts:
+        for _ in range(MOCAP_STEPS):
+            t0 = time.perf_counter()
+            ts = env.step(rng.uniform(low, high))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(ts.reward) and all(
+                np.isfinite(v).all() for v in ts.observation.values()),
+                "cmu_humanoid_tracking: non-finite reward or observation")
+    launches = linalg.chol_solve.launches
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, "cmu_humanoid_tracking", env.physics.model,
+                 launches, branch_launches)
+    substeps = env._n_sub_steps
+    per_step = (launches - reset_launches) / MOCAP_STEPS
+    check(per_step >= 3 * substeps,
+          f"cmu_humanoid_tracking: chol_solve launched {per_step} times a "
+          f"control step of {substeps} substeps (< 3 a substep)")
+    kernels, busy_ms, wall_ms = _idle_share(
+        lambda: env.step(rng.uniform(low, high)), "cmu_humanoid_tracking")
+    warm = times[1:]
+    return dict(task="cmu_humanoid_tracking", nv=env.physics.model.nv,
+                clips=len(ids), launches=launches,
+                branch_launches=branch_launches,
+                reset_launches=reset_launches, per_step=per_step,
+                substeps=substeps, reset_s=reset_s,
+                first_ms=1e3 * times[0],
+                steps_per_s=len(warm) / sum(warm),
+                step_ms=1e3 * float(np.median(warm)),
+                updater_ms=1e3 * counts["updater_s"] / MOCAP_STEPS,
+                reads=counts["reads"] / MOCAP_STEPS,
+                kernels_per_step=kernels, busy_ms=busy_ms,
+                profiled_ms=wall_ms, idle_share=1 - busy_ms / wall_ms)
+
+
+def phase_mocap_selfcheck(linalg):
+    """Phase 17 (c): ``cmu_humanoid_tracking()`` in float64 on the card, a
+    reset and ``MOCAP_SELFCHECK_STEPS`` control steps through the kernel,
+    and again under ``reference_solves()`` with the same seed and
+    actions: the largest observation difference over max(1, its largest
+    entry) and the largest reward difference, both <=
+    ``MOCAP_SELFCHECK_TOL``."""
+    from dm_control_torch.locomotion.examples import cmu_2020_tracking
+
+    runs = []
+    for plain in (False, True):
+        env = cmu_2020_tracking.cmu_humanoid_tracking(random_state=4,
+                                                      dtype=torch.float64)
+        spec = env.action_spec()
+        rng = np.random.RandomState(2)
+        linalg.reset_launch_counts()
+        with linalg.reference_solves() if plain else contextlib.nullcontext():
+            out = [env.reset()]
+            for _ in range(MOCAP_SELFCHECK_STEPS):
+                out.append(env.step(rng.uniform(np.maximum(spec.minimum, -1),
+                                                np.minimum(spec.maximum, 1))))
+        runs.append((out, linalg.chol_solve.launches,
+                     dict(linalg.chol_solve.branch_launches)))
+    (k_out, n_k, b_k), (p_out, n_p, _) = runs
+    check(n_k >= 3 * MOCAP_SELFCHECK_STEPS * env._n_sub_steps and n_p == 0,
+          f"mocap selfcheck: {n_k} kernel launches through the kernel, "
+          f"{n_p} under reference_solves()")
+    check_branch(linalg, "mocap selfcheck", env.physics.model, n_k, b_k)
+    scaled = {}
+    for k in k_out[0].observation:
+        scale = max(1.0, max(float(np.abs(ts.observation[k]).max())
+                             for ts in k_out))
+        scaled[k] = max(float(np.abs(a.observation[k]
+                                     - b.observation[k]).max())
+                        for a, b in zip(k_out, p_out)) / scale
+    worst = max(scaled, key=scaled.get)
+    drew = max(abs(a.reward - b.reward) for a, b in zip(k_out[1:], p_out[1:]))
+    check(scaled[worst] <= MOCAP_SELFCHECK_TOL
+          and drew <= MOCAP_SELFCHECK_TOL,
+          f"mocap selfcheck: kernel vs plain max |dobs| {scaled[worst]:.3e} "
+          f"of max(1, scale) ({worst}), |dreward| {drew:.3e} "
+          f"(<= {MOCAP_SELFCHECK_TOL:g})")
+    check(all(int(ts.step_type) == 1 for ts in k_out[1:]),
+          "mocap selfcheck: the episode ended early")
+    return dict(nv=env.physics.model.nv, dobs=scaled[worst], worst=worst,
+                drew=drew, launches=n_k, branch_launches=b_k)
+
+
+def phase_ppo_tracking(linalg):
+    """Phase 17 (d): one epoch of ``scripts.ppo_tracking`` on the card
+    (``PPO_TRACKING_ARGS``: a ``DummyVecEnv`` of two float32 tracking
+    environments, 16 env steps, the policy and its update on the card),
+    the kernel's launch counts set to 0 just before ``train()``."""
+    from dm_control_torch.scripts import ppo_tracking
+
+    trainer = ppo_tracking.make_trainer(
+        ppo_tracking.parse_args(list(PPO_TRACKING_ARGS)))
+    model = trainer.env.envs[0].physics.model
+    check(model.device.type == "cuda" and trainer.device.type == "cuda"
+          and next(trainer.policy.parameters()).is_cuda,
+          "ppo_tracking left the card")
+    before = [p.detach().clone() for p in trainer.policy.parameters()]
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    (stats,) = trainer.train()
+    launches = linalg.chol_solve.launches
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, "ppo_tracking", model, launches, branch_launches)
+    check(all(np.isfinite(stats[k]) for k in ("loss", "pg_loss", "v_loss",
+                                              "entropy", "approx_kl")),
+          f"ppo_tracking: non-finite losses {stats}")
+    check(any(not torch.equal(a, b) for a, b in
+              zip(before, trainer.policy.parameters())),
+          "ppo_tracking: the update moved no parameter")
+    substeps = trainer.env.envs[0]._n_sub_steps
+    check(launches >= 3 * substeps * stats["env_steps"],
+          f"ppo_tracking: {launches} chol_solve launches over "
+          f"{stats['env_steps']} env steps of {substeps} substeps")
+    return dict(stats, task="ppo_tracking", nv=model.nv, launches=launches,
+                branch_launches=branch_launches,
+                per_env_step=launches / stats["env_steps"])
+
+
+def phase_vec_env(linalg):
+    """Phase 17 (e): ``TorchVecEnv`` over pendulum:swingup at
+    ``VEC_ENV_BATCH`` in float32, episodes of ``VEC_ENV_EPISODE`` control
+    steps: every environment's episode ends at its third step and starts
+    anew at the next; observations (B, 3) float32 on the host."""
+    from dm_control_torch import suite
+    from dm_control_torch.scripts.vec_env import TorchVecEnv
+
+    env = suite.load_batch("pendulum", "swingup", dtype=torch.float32)
+    dt = env.n_sub_steps * float(env.model.opt.timestep)
+    venv = TorchVecEnv(env.model, env.task, VEC_ENV_BATCH, seed=0,
+                       time_limit=VEC_ENV_EPISODE * dt, control_timestep=dt)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    obs = venv.reset()
+    check(obs.shape == (VEC_ENV_BATCH, 3) and obs.dtype == np.float32,
+          f"TorchVecEnv: observations {obs.shape} {obs.dtype}")
+    dones, times = [], []
+    rng = np.random.RandomState(3)
+    for _ in range(VEC_ENV_EPISODE + 1):
+        t1 = time.perf_counter()
+        obs, rew, done, _ = venv.step(rng.uniform(-1, 1, (VEC_ENV_BATCH, 1)))
+        times.append(time.perf_counter() - t1)
+        check(np.isfinite(obs).all() and np.isfinite(rew).all(),
+              "TorchVecEnv: non-finite observation or reward")
+        dones.append(int(done.sum()))
+    wall = time.perf_counter() - t0
+    want = [0] * (VEC_ENV_EPISODE - 1) + [VEC_ENV_BATCH, 0]
+    check(dones == want and int(venv._state.step_count.max()) == 0,
+          f"TorchVecEnv: dones a step {dones} (want {want})")
+    launches = linalg.chol_solve.launches
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, "TorchVecEnv pendulum:swingup", env.model,
+                 launches, branch_launches)
+    check(launches > 0, "TorchVecEnv: no chol_solve launch")
+    return dict(task="pendulum:swingup", launches=launches,
+                branch_launches=branch_launches, wall_s=wall,
+                env_steps_per_s=VEC_ENV_BATCH * len(times[1:])
+                / sum(times[1:]))
+
+
+def phase_mocap(linalg, card):
+    """Phase 17: the clip files, the CMU 2020 tracking environment and the
+    tracking trainer on the card."""
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        saved = os.environ.get("CMU_MOCAP_DIR")
+        os.environ["CMU_MOCAP_DIR"] = directory
+        try:
+            written, clips = write_clip_files(directory)
+            print(f"phase 17 (a) clip files: {len(MOCAP_IDS)} walk_tiny "
+                  f"clips of {MOCAP_FRAMES} frames written to and read back "
+                  f"from {', '.join(sorted(written)) or 'no file'} equal "
+                  f"| {card}", flush=True)
+            rate = phase_mocap_rate(linalg, written, clips)
+            print(f"phase 17 (b) cmu_humanoid_tracking float32 (nv="
+                  f"{rate['nv']}, {rate['clips']} clips) on the card, reset "
+                  f"{rate['reset_s']:.2f} s ({rate['reset_launches']} "
+                  f"chol_solve launches), {MOCAP_STEPS} control steps: "
+                  f"{rate['steps_per_s']:.3f} control steps/s after the "
+                  f"first ({rate['first_ms']:.1f} ms; median "
+                  f"{rate['step_ms']:.1f} ms), chol_solve launches "
+                  f"{rate['per_step']:.1f} a control step (>= 3 x "
+                  f"{rate['substeps']} substeps; by branch "
+                  f"{rate['branch_launches']}), updater "
+                  f"{rate['updater_ms']:.2f} ms of host time and "
+                  f"{rate['reads']:.1f} named reads of the physics a control "
+                  f"step; one profiled control step: "
+                  f"{rate['kernels_per_step']} device kernels, busy "
+                  f"{rate['busy_ms']:.3f} ms of {rate['profiled_ms']:.1f} "
+                  f"ms, idle share {rate['idle_share']:.4f} | {card}",
+                  flush=True)
+            selfcheck = phase_mocap_selfcheck(linalg)
+            print(f"phase 17 (c) cmu_humanoid_tracking float64 (nv="
+                  f"{selfcheck['nv']}: the "
+                  f"{linalg.kernel_branch(selfcheck['nv'], torch.float64)} "
+                  f"kernel), reset and {MOCAP_SELFCHECK_STEPS} control steps "
+                  f"through the kernel ({selfcheck['launches']} launches) vs "
+                  f"reference_solves(): max |dobs| {selfcheck['dobs']:.3e} "
+                  f"of max(1, its scale) ({selfcheck['worst']}), |dreward| "
+                  f"{selfcheck['drew']:.3e} <= {MOCAP_SELFCHECK_TOL:g} | "
+                  f"{card}", flush=True)
+        finally:
+            if saved is None:
+                del os.environ["CMU_MOCAP_DIR"]
+            else:
+                os.environ["CMU_MOCAP_DIR"] = saved
+    train = phase_ppo_tracking(linalg)
+    print(f"phase 17 (d) ppo_tracking float32 on the card: one epoch of "
+          f"{train['env_steps']} env steps over 2 environments in "
+          f"{train['time']:.2f} s ({train['env_steps'] / train['time']:.2f} "
+          f"env steps/s): environments {train['env_s']:.2f} s "
+          f"({train['env_s'] / train['time']:.3f}), policy actions and their "
+          f"copies {train['policy_s']:.3f} s "
+          f"({train['policy_s'] / train['time']:.4f}), update "
+          f"{train['update_s']:.3f} s ({train['update_s'] / train['time']:.4f};"
+          f" {train['grad_steps']} gradient steps); loss "
+          f"{train['loss']:.4e} approx_kl {train['approx_kl']:.4e}, chol_solve "
+          f"launches {train['launches']} ({train['per_env_step']:.1f} an env "
+          f"step; by branch {train['branch_launches']}) | {card}", flush=True)
+    vec = phase_vec_env(linalg)
+    print(f"phase 17 (e) TorchVecEnv pendulum:swingup B={VEC_ENV_BATCH} "
+          f"float32: episodes of {VEC_ENV_EPISODE} control steps end "
+          f"together and start anew at the next step, "
+          f"{vec['env_steps_per_s']:.1f} env-steps/s after the first, "
+          f"chol_solve launches {vec['launches']} (by branch "
+          f"{vec['branch_launches']}); phase 17 in "
+          f"{time.perf_counter() - t17:.1f} s | {card}", flush=True)
+    return rate, selfcheck, train, vec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2956,6 +3301,9 @@ def main() -> int:
     renders = phase_render(linalg, card)
     print(f"phases 1-16 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    mocap_rate, mocap_check, mocap_train, vec = phase_mocap(linalg, card)
+    print(f"phases 1-17 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "branch", "max_abs_err", "ms",
@@ -2978,7 +3326,11 @@ def main() -> int:
         "soccer walkers selfcheck:humanoid 2v2 float64": walker_check,
         f"soccer walkers:{large['task']} float64": large,
         **{f"render ({k}) {r['task']}": r for k, r in renders.items()
-           if "launches" in r}}
+           if "launches" in r},
+        "mocap:cmu_humanoid_tracking": mocap_rate,
+        "mocap selfcheck:cmu_humanoid_tracking float64": mocap_check,
+        "scripts ppo_tracking epoch": mocap_train,
+        "scripts TorchVecEnv pendulum:swingup": vec}
     counts = {name: (r["launches"], r["branch_launches"])
               for name, r in paths.items()}
     for kind, (launches, blocks) in (("locomotion host golden", loco_goldens),

@@ -14,6 +14,10 @@ and the pitch are composer entities that build their MJCF trees, which
 the port compiles; ``walkers.rescale`` and ``walkers.scaled_actuators``
 edit a walker's tree, and ``arenas.PaddedRoom`` lays out a room for the
 mazes; ``soccer.MultiplayerTrackingCamera`` follows a match and renders
-it.  The mocap file loaders and ``examples/cmu_2020_tracking.py`` are not
-ported yet (ROADMAP A5.4, A5.5 (c)).
+it.  Clips come from HDF5 or protobuf clip files
+(``mocap.loader``) or are made (``synthetic_walking_trajectory``);
+``tasks.reference_pose.datasets`` names the CMU subsets;
+``examples.cmu_2020_tracking.cmu_humanoid_tracking`` is the CMU 2020
+humanoid tracking walk_tiny, and ``walkers.initializers.mocap`` starts a
+walker at a clip's frame.
 """

@@ -5,3 +5,4 @@ from dm_control_torch.locomotion.tasks.reference_pose import rewards  # noqa: F4
 from dm_control_torch.locomotion.tasks.reference_pose.tracking import (  # noqa: F401
     MultiClipMocapTracking, ReferencePosesTask,
 )
+from dm_control_torch.locomotion.tasks.reference_pose import datasets  # noqa: F401

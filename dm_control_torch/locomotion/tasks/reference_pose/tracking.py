@@ -16,8 +16,10 @@ observables) call them at B = 1 on the physics' Data.  On the batched
 path (``composer.BatchableTask``) which clip and start frame an
 environment tracks is per-environment data (the ``_clip`` and ``_start``
 entries of its model diff), and the frame it tracks follows from its
-time, so the batch needs no host state.  Loading clips from HDF5 or
-protobuf files waits for clip files in the repository (ROADMAP A5.4).
+time, so the batch needs no host state.  The clips are a dict of
+``Trajectory``s or the path of an HDF5 clip file
+(``mocap.loader.HDF5TrajectoryLoader``): the dataset's clips, or every
+clip of the file.
 """
 
 from __future__ import annotations
@@ -97,16 +99,20 @@ class ReferencePosesTask(composer.Task, BatchableTask):
                  always_init_at_clip_start: bool = False,
                  enabled_reference_observables: Optional[
                      Sequence[str]] = None):
-        if not isinstance(ref_path_or_trajectories, dict):
-            raise NotImplementedError(
-                "ReferencePosesTask: loading clips from a file waits for "
-                "clip files in the repository (ROADMAP A5.4); pass a dict "
-                "of Trajectory")
         self._arena = arena
         self._walker = walker
         arena.add_free_entity(walker)
         walker.observables.enable_proprioception()
-        self._trajectories = dict(ref_path_or_trajectories)
+        if isinstance(ref_path_or_trajectories, dict):
+            self._trajectories = dict(ref_path_or_trajectories)
+        else:
+            from dm_control_torch.locomotion.mocap.loader import (
+                HDF5TrajectoryLoader,
+            )
+
+            loader = HDF5TrajectoryLoader(ref_path_or_trajectories)
+            ids = dataset.ids if dataset else loader.keys()
+            self._trajectories = {i: loader.get_trajectory(i) for i in ids}
         self._dataset = dataset or ClipCollection(
             ids=tuple(self._trajectories))
         self._ref_steps = tuple(ref_steps)

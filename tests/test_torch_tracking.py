@@ -447,12 +447,24 @@ def test_model_sizes(asset, nv, candidates, cap):
     assert _env(asset).model.opt.contact_cap == 0
 
 
-def test_refusals():
-    """Clips from a file wait for ROADMAP A5.4; the default device is the
-    card."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
-        tracking.MultiClipMocapTracking(RollingBallWithHead(), Floor(),
-                                        "clips.h5")
+def test_refusals(tmp_path):
+    """Clips load from an HDF5 file (the loader's flat layout: a group a
+    clip); the default device is the card."""
+    import h5py
+
+    clips = _task("tracking_ball")._trajectories
+    path = str(tmp_path / "clips.h5")
+    with h5py.File(path, "w") as f:
+        for cid, clip in clips.items():
+            for key in ("qpos", "qvel"):
+                f.create_dataset(f"{cid}/{key}", data=clip[key])
+    task = tracking.MultiClipMocapTracking(RollingBallWithHead(), Floor(),
+                                           path)
+    assert list(task._trajectories) == list(clips)
+    for cid, clip in clips.items():
+        for key in ("qpos", "qvel"):
+            np.testing.assert_array_equal(task._trajectories[cid][key],
+                                          clip[key])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             tbatch.compile_task(_task("tracking_ball"), dtype=torch.float32)
