@@ -99,8 +99,22 @@ launches by branch and idle share, and in float64 with and without the
 kernel, one epoch of ``scripts.ppo_tracking`` (the trainer's policy and
 update on the card, its seconds split between the environments, the
 policy and the update), and ``scripts.vec_env.TorchVecEnv`` over
-pendulum:swingup at B = 1024 through an autoreset.  Each phase prints one
-line (phases 11 to 17 one per model or item); any failure exits with a
+pendulum:swingup at B = 1024 through an autoreset; and last the
+behaviour-cloning pipeline of ``scripts/``: the CEM solver at the JAX
+package's defaults on cartpole:swingup in float32 (60 actions at 4
+iterations a segment, one profiled iteration), one
+CEM iteration of 5 control steps on humanoid:walk in float32 and one
+iteration's candidate
+returns in float64 with and without the kernel, ``create_dataset``
+replaying the actions and seeded random ones on the card (the CEM's
+return above the random actions', the HDF5 file where ``h5py``
+imports), the GPT at ``train.py``'s defaults trained one epoch on it and
+20 timed steps through the native loader (built by g++), a checkpoint
+round trip and one traced step, ``load_model`` and
+``evaluate`` on the first 40 actions with ``validate_reference_actions``,
+and
+``ppo_box2d``'s suite smoke.  Each phase prints one
+line (phases 11 to 18 one per model or item); any failure exits with a
 non-zero code.  The last line is a
 JSON object naming the device.  Needs one CUDA device; exits with code 1
 and prints no result without one.
@@ -109,6 +123,7 @@ and prints no result without one.
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -190,7 +205,8 @@ TIMED_SHAPES = ((MAIN_BATCH, 27), (8192, 2), (4096, 9), (MAIN_BATCH, 22),
 #: float64, the block kernel in float32; and 4 systems of it in float64),
 #: an 11v11 HUMANOID match's 1,370 (the global kernel in both types), an
 #: ANT 11v11 match's 314 and a HUMANOID 3v3 match's 378 in float32 (the
-#: global kernel)
+#: global kernel), and phase 18's CEM populations of 128: cartpole's and
+#: humanoid's in float32, humanoid's float64 selfcheck
 TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 21, torch.float64), (1, 21, torch.float32),
                 (1, 39, torch.float64), (1, 39, torch.float32),
@@ -202,7 +218,9 @@ TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (1, 166, torch.float64), (1, 254, torch.float64),
                 (1, 254, torch.float32), (1, 1370, torch.float64),
                 (1, 314, torch.float32), (1, 378, torch.float32),
-                (1, 1370, torch.float32), (4, 254, torch.float64))
+                (1, 1370, torch.float32), (4, 254, torch.float64),
+                (128, 2, torch.float32), (128, 27, torch.float32),
+                (128, 27, torch.float64))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
@@ -211,15 +229,15 @@ ENV_GOLDENS = (("cartpole", "swingup"), ("cheetah", "run"),
                ("humanoid", "run"), ("hopper", "hop"),
                ("manipulator", "bring_ball"), ("swimmer", "swimmer6"))
 ENV_SEED = 11
-SINGLE_STEPS = 5  # phase 8's float32 humanoid:run control steps (20 before
-#: phase 16, 10 before phase 17)
+SINGLE_STEPS = 3  # phase 8's float32 humanoid:run control steps (20 before
+#: phase 16, 10 before phase 17, 5 before phase 18)
 #: phase 7's training paths in float32, (domain, task, batch,
 #: steps_per_batch), at the batch sizes of the JAX package's ppo_train
 #: and ppo_train_humanoid rungs (bench.py:162-211): 2 epochs of 4
-#: minibatches (T halved since phase 16 came and again since phase 17,
-#: for the script's time limit: the rungs run T = 32 and 16)
-TRAIN_PATHS = (("cartpole", "swingup", 2048, 8),
-               ("humanoid", "run", 512, 4))
+#: minibatches (T halved since phase 16 came and again since phases 17
+#: and 18, for the script's time limit: the rungs run T = 32 and 16)
+TRAIN_PATHS = (("cartpole", "swingup", 2048, 4),
+               ("humanoid", "run", 512, 2))
 #: timed train steps per path, after one warm-up (a rollout of the host
 #: paths takes 15-25 s of the script's time limit)
 TRAIN_TIMED = 1
@@ -233,8 +251,9 @@ MANIP_PATHS = (("reach_site", "reach_site_features"),
                ("lift_brick", "lift_brick_features"),
                ("lift_large_box", "lift_large_box_features"))
 MANIP_BATCH = MAIN_BATCH
-#: (task, batch, steps; 8 steps before phase 16 came, 4 before phase 17)
-MANIP_TRAIN = ("reach_site_features", 256, 2)
+#: (task, batch, steps; 8 steps before phase 16 came, 4 before phase 17, 2
+#: before phase 18)
+MANIP_TRAIN = ("reach_site_features", 256, 1)
 #: phase 11: a model no reference file holds, stepped at the headline
 #: batch: (domain, task, task arguments, batch)
 COMPILE_PATH = ("cartpole", "three_poles", {"num_poles": 5}, 8192)
@@ -264,9 +283,9 @@ HOST_TREES = (("reach_site", "reach_site_features"),
               ("stack_2_free", "stack_2_bricks_moveable_base_features"),
               ("stack_3_free", "stack_2_of_3_bricks_random_order_features"),
               ("stack_5_free", "reassemble_5_bricks_random_order_features"))
-#: the float32 rate path: (name, control steps after the reset; 3 since
-#: phase 17 came, 5 since phase 16, 10 before)
-HOST_RATE = ("stack_3_bricks_features", 3)
+#: the float32 rate path: (name, control steps after the reset; 2 since
+#: phase 18 came, 3 since phase 17, 5 since phase 16, 10 before)
+HOST_RATE = ("stack_3_bricks_features", 2)
 #: the float64 selfcheck, kernel against ``reference_solves()``: (name,
 #: seed, control steps after the reset); nv = 39 runs the block kernel in
 #: float64.  The seed's episode is one where a
@@ -295,8 +314,8 @@ LOCO_TREES = ("soccer_1v1", "soccer_2v2", "tracking_ball",
               "tracking_cmu2020")
 #: the float32 rate path, ``soccer.load()`` (2 a side on a randomized
 #: pitch): control steps after the reset (10 before phase 16, 5 before
-#: phase 17)
-LOCO_RATE_STEPS = 3
+#: phase 17, 3 before phase 18)
+LOCO_RATE_STEPS = 2
 #: the float64 selfcheck, kernel against ``reference_solves()``: (asset,
 #: seed, control steps after the reset); nv = 62 runs the block kernel in
 #: float64.  Seed 2's episode is one where a change
@@ -359,7 +378,7 @@ LARGE_MATCH = {"team_size": 10}
 #: (e)'s frames (the viewer on cartpole:swingup), the frames each item
 #: times after a warm-up, and the bytes a frame may copy to the host
 #: besides its image
-RENDER_STEPS = 5  # 10 before phase 17
+RENDER_STEPS = 3  # 10 before phase 17, 5 before phase 18
 RENDER_SOCCER_STEPS = 3
 VIEWER_FRAMES = 4
 RENDER_TIMED_FRAMES = 3
@@ -368,19 +387,50 @@ RENDER_TIMED_FRAMES = 3
 MOCAP_IDS = ("CMU_016_22", "CMU_047_01", "CMU_069_01")
 MOCAP_FRAMES = 60
 #: phase 17 (b): float32 control steps of cmu_humanoid_tracking; (c): the
-#: float64 selfcheck's control steps and gate (of max(1, the scale))
-MOCAP_STEPS = 5
+#: float64 selfcheck's control steps and gate (of max(1, the scale)); 5
+#: float32 steps before phase 18
+MOCAP_STEPS = 3
 MOCAP_SELFCHECK_STEPS = 2
 MOCAP_SELFCHECK_TOL = 1e-10
-#: phase 17 (d): one ppo_tracking epoch (8 env steps an environment; 16
-#: until the first whole run put phase 17 at 66.4 s of its 60)
-PPO_TRACKING_ARGS = ("--n_envs=2", "--steps_per_epoch=16", "--max_epochs=1",
+#: phase 17 (d): one ppo_tracking epoch (4 env steps an environment; 16
+#: until the first whole run put phase 17 at 66.4 s of its 60, 8 until
+#: phase 18 came)
+PPO_TRACKING_ARGS = ("--n_envs=2", "--steps_per_epoch=8", "--max_epochs=1",
                      "--seed=0")
 #: phase 17 (e): TorchVecEnv over pendulum:swingup, episodes of 3 control
 #: steps, stepped 4 times (the fourth starts the next episodes)
 VEC_ENV_BATCH = 1024
 VEC_ENV_EPISODE = 3
 RENDER_D2H_SLACK = 4096
+#: phase 18 (a): the CEM solver at the JAX package's defaults (population
+#: 128, segments of 20, 10% elites) on cartpole:swingup in float32, 60
+#: control steps (3 segments), 4 iterations a segment (the default 8 took
+#: 74.8 s on the card: a batched control step of cartpole is ~6,700
+#: kernel launches); its actions, replayed by (c), must beat seeded
+#: uniform random actions by more than the JAX package's test margin
+CEM_STEPS = 60
+CEM_ITERATIONS = 4
+CEM_MARGIN = 0.5
+#: (b): one CEM iteration on humanoid:walk at the defaults in float32 over
+#: segments of 5 control steps (20 took 15.6 s on the card), and one
+#: iteration's candidate returns over 5 control steps in float64 through
+#: the kernel and under ``reference_solves()``
+CEM_HUMANOID_STEPS = 5
+CEM_SELFCHECK_STEPS = 5
+CEM_SELFCHECK_TOL = 1e-10
+#: (d): the GPT at ``scripts/train.py``'s defaults, a batch of 64 blocks;
+#: 20 timed steps over a synthetic dataset of cartpole's widths (20
+#: episodes of 100 steps: 1,940 blocks of 4) through the native loader
+BC_BATCH = 64
+BC_TIMED_STEPS = 20
+BC_SYNTHETIC_EPISODES = (20, 100)
+BC_WORKERS = 2
+#: (e): ``comprehensive_eval``'s default context, over (a)'s first 40
+#: actions (8 steps of the policy's own actions after the context)
+BC_CONTEXT_STEPS = 32
+BC_EVAL_STEPS = 40
+#: (f): ``ppo_box2d``'s suite smoke
+PPO_BOX2D_ARGS = ("--updates=3", "--batch=256")
 #: (c)'s mesh: an octahedron (a k-DOP of 26 planes) before a fixed camera
 MESH_XML = """
 <mujoco>
@@ -3120,6 +3170,435 @@ def phase_mocap(linalg, card):
     return rate, selfcheck, train, vec
 
 
+def cartpole_env(dtype=torch.float32):
+    """Phase 18's environment: ``suite.load("cartpole", "swingup")`` on
+    the card, seed 0."""
+    from dm_control_torch import suite
+
+    return suite.load("cartpole", "swingup", task_kwargs={"random": 0},
+                      dtype=dtype)
+
+
+def counted(linalg, what, model):
+    """The kernel's launches and launches by branch since the last
+    ``reset_launch_counts``, held to the branch that (nv, type) names."""
+    launches = linalg.chol_solve.launches
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, what, model, launches, branch_launches)
+    check(launches > 0, f"{what}: no chol_solve launch")
+    return launches, branch_launches
+
+
+def phase_cem_rate(linalg):
+    """Phase 18 (a): ``CEMSolver.for_environment`` on cartpole:swingup in
+    float32 (the JAX package's defaults but ``CEM_ITERATIONS``), ``solve``
+    of ``CEM_STEPS`` actions, the kernel's launch counts set to 0 just
+    before; then one profiled CEM iteration's candidate returns."""
+    from dm_control_torch.scripts.solver import CEMSolver
+
+    env = cartpole_env()
+    env.reset()
+    solver = CEMSolver.for_environment(env, n_iterations=CEM_ITERATIONS)
+    model = solver.model
+    check(model.device.type == "cuda", "CEM: the model left the card")
+    segments = -(-CEM_STEPS // solver.segment_length)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    actions = solver.solve(env.physics.data, CEM_STEPS, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, branch_launches = counted(linalg, "CEM cartpole:swingup", model)
+    check(actions.shape == (CEM_STEPS, model.nu)
+          and np.isfinite(actions).all(), f"CEM actions {actions.shape}")
+    steps = segments * solver.segment_length * solver.n_sub_steps
+    check(launches >= steps * (solver.n_iterations + 1),
+          f"CEM: {launches} chol_solve launches over {segments} segments")
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    cands = torch.clamp(0.3 * torch.randn(
+        (solver.population, solver.segment_length, model.nu), generator=gen,
+        device=model.device, dtype=model.dtype), solver._lo, solver._hi)
+    kernels, busy_ms, wall_ms = _idle_share(
+        lambda: solver.batch_returns(env.physics.data, cands),
+        "one CEM iteration on cartpole:swingup")
+    candidate_steps = segments * solver.n_iterations * solver.population \
+        * solver.segment_length
+    return dict(actions=actions, launches=launches,
+                branch_launches=branch_launches, wall_s=wall,
+                segment_s=wall / segments,
+                candidate_steps_per_s=candidate_steps / wall,
+                kernels=kernels, busy_ms=busy_ms, profiled_ms=wall_ms,
+                idle_share=1 - busy_ms / wall_ms, nv=model.nv)
+
+
+def phase_cem_humanoid(linalg):
+    """Phase 18 (b): one CEM iteration (``solve_segment``) on humanoid:walk
+    at the defaults in float32, timed, the launches counted; then in
+    float64 one iteration's candidate returns over ``CEM_SELFCHECK_STEPS``
+    control steps through the kernel and under ``reference_solves()``:
+    the largest difference over max(1, the returns' scale) <=
+    ``CEM_SELFCHECK_TOL``."""
+    from dm_control_torch import suite
+    from dm_control_torch.scripts.solver import CEMSolver
+
+    env = suite.load("humanoid", "walk", task_kwargs={"random": 0},
+                     dtype=torch.float32)
+    env.reset()
+    solver = CEMSolver.for_environment(
+        env, n_iterations=1, segment_length=CEM_HUMANOID_STEPS)
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, ret = solver.solve_segment(
+        env.physics.data,
+        torch.Generator(device=solver.model.device).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, branch_launches = counted(linalg, "CEM humanoid:walk",
+                                        solver.model)
+    check(np.isfinite(ret), f"CEM humanoid:walk: return {ret}")
+    env64 = suite.load("humanoid", "walk", task_kwargs={"random": 0},
+                       dtype=torch.float64)
+    env64.reset()
+    check64 = CEMSolver.for_environment(
+        env64, segment_length=CEM_SELFCHECK_STEPS)
+    gen = torch.Generator(device=check64.model.device).manual_seed(2)
+    cands = torch.clamp(check64.init_std * torch.randn(
+        (check64.population, CEM_SELFCHECK_STEPS, check64.model.nu),
+        generator=gen, device=check64.model.device, dtype=torch.float64),
+        check64._lo, check64._hi)
+    linalg.reset_launch_counts()
+    kernel = check64.batch_returns(env64.physics.data, cands)
+    n_k, b_k = counted(linalg, "CEM selfcheck humanoid:walk float64",
+                       check64.model)
+    linalg.reset_launch_counts()
+    with linalg.reference_solves():
+        plain = check64.batch_returns(env64.physics.data, cands)
+    check(linalg.chol_solve.launches == 0,
+          "CEM selfcheck: launches under reference_solves()")
+    diff = (kernel - plain).abs()
+    scale = max(1.0, float(plain.abs().max()))
+    worst = int(diff.argmax())
+    rel = float(diff.max()) / scale
+    check(bool(torch.isfinite(kernel).all()) and rel <= CEM_SELFCHECK_TOL,
+          f"CEM selfcheck: kernel vs plain candidate returns differ by "
+          f"{rel:.3e} of max(1, scale) at candidate {worst} "
+          f"(<= {CEM_SELFCHECK_TOL:g})")
+    return dict(nv=solver.model.nv, wall_s=wall, ret=ret, launches=launches,
+                branch_launches=branch_launches, substeps=solver.n_sub_steps,
+                candidate_steps_per_s=solver.population
+                * solver.segment_length / wall,
+                check=dict(launches=n_k, branch_launches=b_k, rel=rel,
+                           worst=worst, scale=scale))
+
+
+def phase_bc_dataset(linalg, directory, actions):
+    """Phase 18 (c): (a)'s actions and seeded uniform random ones written
+    as ``opt_acts_*.npy`` and replayed by ``create_dataset`` on the card,
+    each in a fresh environment: (a)'s return must beat the random
+    actions' by ``CEM_MARGIN``.  Where ``h5py`` imports, the HDF5 file is
+    written and read back through ``TrajectoryDataset`` and held equal to
+    the rows, else the dataset is built from the rows (``from_arrays``).
+    Returns the dataset (blocks of 4), each file's steps and return, and
+    whether a file was written."""
+    from dm_control_torch.scripts import create_dataset, solver
+    from dm_control_torch.scripts.dataset import TrajectoryDataset
+
+    files = [os.path.join(directory, f"opt_acts_{k}.npy") for k in (0, 1)]
+    solver.save_actions(files[0], actions)
+    solver.save_actions(files[1], np.random.RandomState(0).uniform(
+        -1, 1, actions.shape))
+    check(create_dataset.gather_action_files([directory]) == files,
+          "create_dataset: the action files")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        written = False
+    else:
+        written = True
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    make_env = lambda path: cartpole_env()  # noqa: E731
+    if written:
+        path = os.path.join(directory, "trajectory_dataset.hdf5")
+        obs, acts, dones, rewards = create_dataset.create_dataset(
+            make_env, files, path)
+    else:
+        print("phase 18 (c): h5py does not import here; the dataset is "
+              "built from the replayed rows", flush=True)
+        obs, acts, dones, rewards = create_dataset.replay_files(make_env,
+                                                               files)
+    launches, branch_launches = counted(
+        linalg, "create_dataset cartpole:swingup",
+        cartpole_env().physics.model)
+    flat = np.concatenate([obs[k].reshape(len(acts), -1)
+                           for k in sorted(obs)], axis=1)
+    if written:
+        ds = TrajectoryDataset(path, 4)
+        check(np.array_equal(ds.observations, flat)
+              and np.array_equal(ds.actions, acts)
+              and np.array_equal(ds.dones, dones),
+              "TrajectoryDataset: the HDF5 file's rows differ from the "
+              "replay's")
+    else:
+        ds = TrajectoryDataset.from_arrays(flat, acts, dones, 4)
+    ends = np.flatnonzero(dones) + 1
+    per_file = [(int(b - a), float(rewards[a:b].sum()))
+                for a, b in zip(np.r_[0, ends[:-1]], ends)]
+    check(len(per_file) == 2 and all(n == len(actions) for n, _ in per_file),
+          f"create_dataset: episodes {per_file}")
+    check(np.isfinite(flat).all() and np.isfinite(rewards).all(),
+          "create_dataset: non-finite rows")
+    (_, cem), (_, rand) = per_file
+    check(cem > rand + CEM_MARGIN,
+          f"CEM: replayed return {cem:.4f} does not beat random actions' "
+          f"{rand:.4f} by {CEM_MARGIN}")
+    return dict(dataset=ds, per_file=per_file, rewards=rewards,
+                written=written, launches=launches,
+                branch_launches=branch_launches)
+
+
+def train_step_ms(trainer, batches, what):
+    """Each step's CUDA-event milliseconds (the batch's copy to the card
+    and the update) and loss over ``batches``."""
+    times, losses = [], []
+    for obs, act in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = trainer._train_step(*trainer._prep(obs, act), 1.0)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    check(np.isfinite(losses).all(), f"{what}: non-finite loss {losses}")
+    return times, losses
+
+
+def phase_bc_train(directory, dataset):
+    """Phase 18 (d) and (g): the GPT at ``train.py``'s defaults on the
+    card, one epoch over (c)'s dataset; then ``BC_TIMED_STEPS`` timed steps
+    over a seeded synthetic dataset of cartpole's widths through the
+    native loader (``num_workers``: built by g++ at first use); a
+    checkpoint saved and loaded equal bit for bit; one step traced by
+    ``profiling.trace`` with a CUDA kernel in the trace."""
+    from dm_control_torch import native
+    from dm_control_torch.scripts import train
+    from dm_control_torch.scripts.dataset import TrajectoryDataset
+    from dm_control_torch.scripts.model import GPT, GPTConfig
+    from dm_control_torch.scripts.trainer import Trainer, TrainerConfig
+    from dm_control_torch.utils import profiling
+
+    args = train.parse_args([])
+    config = GPTConfig(dataset.observation_size, dataset.action_size,
+                       args.block_size, n_layer=args.gpt_layers,
+                       n_head=args.gpt_heads, n_embd=args.gpt_embd)
+    config_path = os.path.join(directory, "config.json")
+    ckpt = os.path.join(directory, "model.pt")
+    config.to_json(config_path)
+    trainer = Trainer(GPT(config), dataset, None, TrainerConfig(
+        max_epochs=1, batch_size=BC_BATCH, learning_rate=args.learning_rate,
+        grad_norm_clip=args.grad_norm_clip, ckpt_path=ckpt,
+        num_workers=BC_WORKERS))
+    check(next(trainer.model.parameters()).is_cuda, "Trainer left the card")
+    ((epoch_loss, _),) = trainer.train()
+    check(np.isfinite(epoch_loss), f"BC epoch: loss {epoch_loss}")
+    rng = np.random.RandomState(0)
+    n_eps, length = BC_SYNTHETIC_EPISODES
+    obs = rng.randn(n_eps * length, dataset.observation_size).astype(
+        np.float32)
+    act = np.tanh(obs @ rng.randn(dataset.observation_size,
+                                  dataset.action_size)).astype(np.float32)
+    dones = np.zeros(n_eps * length, bool)
+    dones[length - 1::length] = True
+    synthetic = TrajectoryDataset.from_arrays(obs, act, dones,
+                                              config.block_size)
+    check(len(synthetic) >= BC_TIMED_STEPS * BC_BATCH,
+          f"synthetic dataset of {len(synthetic)} blocks")
+    batches = trainer._epoch_batches(synthetic, np.random.RandomState(1))
+    first = [next(batches)]  # the loader built and started
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    times, losses = train_step_ms(
+        trainer, first + [next(batches) for _ in range(BC_TIMED_STEPS - 1)],
+        "BC timed steps")
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batches.close()
+    trainer.save_checkpoint()
+    saved = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    restored = GPT(config).to(trainer.device)
+    restored.load_state_dict(torch.load(ckpt, map_location=trainer.device,
+                                        weights_only=True))
+    check(all(torch.equal(v, saved[k])
+              for k, v in restored.state_dict().items()),
+          "checkpoint: parameters differ after a save and load")
+    logdir = os.path.join(directory, "trace")
+    obs_b, act_b = synthetic.batches(np.random.RandomState(2),
+                                     BC_BATCH).__next__()
+    with profiling.trace(logdir):
+        with profiling.annotate("bc_train_step"):
+            trainer._train_step(*trainer._prep(obs_b, act_b), 1.0)
+        torch.cuda.synchronize()
+    traces = glob.glob(os.path.join(logdir, "*.json"))
+    check(len(traces) == 1, f"profiling.trace wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    cuda_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(cuda_kernels > 0, "profiling.trace: no CUDA kernel in the trace")
+    median = float(np.median(times))
+    return dict(epoch_loss=epoch_loss, params=sum(
+        p.numel() for p in trainer.model.parameters()),
+        step_ms=median, steps_wall_s=wall,
+        tokens_per_s=BC_BATCH * config.block_size / (median / 1e3),
+        peak_gb=peak_gb, first_loss=losses[0], last_loss=losses[-1],
+        build_s=native.build_seconds.get("trajloader.cc"),
+        blocks=len(synthetic), trace_kernels=cuda_kernels,
+        config_path=config_path, ckpt=ckpt)
+
+
+def phase_bc_eval(linalg, train, actions, recorded):
+    """Phase 18 (e): ``load_model`` on (d)'s config and checkpoint, then
+    ``evaluate`` with ``actions`` ((a)'s first ``BC_EVAL_STEPS``) as the
+    reference and ``BC_CONTEXT_STEPS`` of context
+    (``comprehensive_eval``'s default), the launch counts set to 0 just
+    before; ``actions`` replayed by ``validate_reference_actions``
+    reproduce ``recorded`` ((c)'s recorded return of them) within the JAX
+    package's 1e-3."""
+    from dm_control_torch.scripts import evaluate
+
+    model, config = evaluate.load_model(train["config_path"], train["ckpt"])
+    check(next(model.parameters()).is_cuda, "load_model left the card")
+    env = cartpole_env()
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = evaluate.evaluate(env, model, config, reference_actions=actions,
+                            context_steps=BC_CONTEXT_STEPS)
+    wall = time.perf_counter() - t0
+    launches, branch_launches = counted(linalg, "evaluate cartpole:swingup",
+                                        env.physics.model)
+    check(np.isfinite([out["policy_return"], out["action_mse"],
+                       out["reference_return"]]).all(), f"evaluate: {out}")
+    ok, total = evaluate.validate_reference_actions(cartpole_env(), actions,
+                                                    recorded)
+    check(ok, f"validate_reference_actions: replay {total:.6f} against the "
+              f"recorded {recorded:.6f}")
+    return dict(out, replayed=total, launches=launches,
+                branch_launches=branch_launches, wall_s=wall)
+
+
+def phase_ppo_box2d(linalg):
+    """Phase 18 (f): ``ppo_box2d``'s suite smoke on the card (gym does not
+    import there), its mean rewards finite."""
+    import types
+
+    from dm_control_torch.scripts import ppo_box2d
+
+    check(not ppo_box2d._gym_available(),
+          "ppo_box2d: gym imports here; the suite smoke would not run")
+    torch.cuda.synchronize()
+    linalg.reset_launch_counts()
+    t0 = time.perf_counter()
+    rewards = ppo_box2d.main(list(PPO_BOX2D_ARGS))
+    wall = time.perf_counter() - t0
+    launches, branch_launches = counted(
+        linalg, "ppo_box2d cartpole:swingup",
+        types.SimpleNamespace(nv=2, dtype=torch.float32))
+    check(len(rewards) == 3 and np.isfinite(rewards).all(),
+          f"ppo_box2d: mean rewards {rewards}")
+    return dict(rewards=rewards, wall_s=wall, launches=launches,
+                branch_launches=branch_launches)
+
+
+def phase_bc(linalg, card):
+    """Phase 18: the behaviour-cloning pipeline on the card."""
+    t18 = time.perf_counter()
+    marks = [t18]
+
+    def lap():
+        """Seconds since the last item ended, for its line."""
+        marks.append(time.perf_counter())
+        return f"{marks[-1] - marks[-2]:.1f} s"
+
+    cem = phase_cem_rate(linalg)
+    print(f"phase 18 (a) CEM cartpole:swingup float32 (population 128, "
+          f"segments of 20, {CEM_ITERATIONS} iterations): {CEM_STEPS} "
+          f"actions in {cem['wall_s']:.2f} s ({cem['segment_s']:.2f} s a "
+          f"segment, "
+          f"{cem['candidate_steps_per_s']:.1f} candidate control steps/s), "
+          f"chol_solve launches {cem['launches']} (by branch "
+          f"{cem['branch_launches']}); one profiled CEM iteration: "
+          f"{cem['kernels']} device kernels, busy {cem['busy_ms']:.3f} ms "
+          f"of {cem['profiled_ms']:.1f} ms, idle share "
+          f"{cem['idle_share']:.4f}; {lap()} | {card}", flush=True)
+    hum = phase_cem_humanoid(linalg)
+    c = hum["check"]
+    print(f"phase 18 (b) CEM humanoid:walk float32 (nv={hum['nv']}, "
+          f"{hum['substeps']} substeps): one iteration of 128 candidates x "
+          f"{CEM_HUMANOID_STEPS} control steps in {hum['wall_s']:.2f} s "
+          f"({hum['candidate_steps_per_s']:.1f} candidate control steps/s), "
+          f"chol_solve launches {hum['launches']} (by branch "
+          f"{hum['branch_launches']}); float64 selfcheck, one iteration's "
+          f"candidate returns over {CEM_SELFCHECK_STEPS} control steps "
+          f"through the kernel ({c['launches']} launches, by branch "
+          f"{c['branch_launches']}) vs reference_solves(): max |dreturn| "
+          f"{c['rel']:.3e} of max(1, {c['scale']:.3e}) (candidate "
+          f"{c['worst']}) <= {CEM_SELFCHECK_TOL:g}; {lap()} | {card}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as directory:
+        data = phase_bc_dataset(linalg, directory, cem["actions"])
+        source = ("HDF5 written and read back equal" if data["written"]
+                  else "no h5py: from_arrays")
+        print(f"phase 18 (c) create_dataset cartpole:swingup float32: "
+              + ", ".join(f"opt_acts_{k}.npy {n} steps return {r:.4f}"
+                          for k, (n, r) in enumerate(data["per_file"]))
+              + f" ((a)'s beat the random actions' by > {CEM_MARGIN}); "
+              f"{source}, "
+              f"{len(data['dataset'])} blocks of 4, chol_solve launches "
+              f"{data['launches']} (by branch {data['branch_launches']}); "
+              f"{lap()} | {card}", flush=True)
+        train = phase_bc_train(directory, data["dataset"])
+        build = ("already built" if train["build_s"] is None
+                 else f"built by g++ in {train['build_s']:.2f} s")
+        print(f"phase 18 (d) BC GPT (8 layers, 8 heads, n_embd 512, "
+              f"{train['params']} parameters) float32 batch {BC_BATCH} x 4 "
+              f"on the card: one epoch over (c)'s dataset, loss "
+              f"{train['epoch_loss']:.4f}; {BC_TIMED_STEPS} steps over "
+              f"{train['blocks']} synthetic blocks through the native "
+              f"loader ({BC_WORKERS} threads, {build}): median "
+              f"{train['step_ms']:.3f} ms a step by CUDA events "
+              f"({train['tokens_per_s']:.0f} tokens/s; "
+              f"{train['steps_wall_s']:.3f} s of wall), peak "
+              f"{train['peak_gb']:.3f} GB, loss {train['first_loss']:.4f} -> "
+              f"{train['last_loss']:.4f}; checkpoint round trip equal; "
+              f"(g) profiling.trace of one step: {train['trace_kernels']} "
+              f"CUDA kernels in the trace; {lap()} | {card}", flush=True)
+        recorded = float(data["rewards"][:BC_EVAL_STEPS].sum())
+        ev = phase_bc_eval(linalg, train, cem["actions"][:BC_EVAL_STEPS],
+                           recorded)
+        print(f"phase 18 (e) evaluate cartpole:swingup (load_model, "
+              f"evaluate with (a)'s first {BC_EVAL_STEPS} actions as the "
+              f"reference, context {BC_CONTEXT_STEPS}): policy return "
+              f"{ev['policy_return']:.4f} "
+              f"against the reference's {ev['reference_return']:.4f}, "
+              f"action_mse {ev['action_mse']:.4e} in {ev['wall_s']:.2f} s, "
+              f"chol_solve launches {ev['launches']} (by branch "
+              f"{ev['branch_launches']}); validate_reference_actions "
+              f"{ev['replayed']:.6f} against (c)'s {recorded:.6f} (<= "
+              f"1e-3); {lap()} | {card}",
+              flush=True)
+    box = phase_ppo_box2d(linalg)
+    print(f"phase 18 (f) ppo_box2d suite smoke cartpole:swingup B=256 "
+          f"float32: 3 updates in {box['wall_s']:.2f} s, mean reward "
+          + " -> ".join(f"{r:.5f}" for r in box["rewards"])
+          + f", chol_solve launches {box['launches']} (by branch "
+          f"{box['branch_launches']}); {lap()}; phase 18 in "
+          f"{time.perf_counter() - t18:.1f} s | {card}", flush=True)
+    return cem, hum, data, ev, box
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3304,6 +3783,9 @@ def main() -> int:
     mocap_rate, mocap_check, mocap_train, vec = phase_mocap(linalg, card)
     print(f"phases 1-17 in {time.perf_counter() - started:.1f} s | {card}",
           flush=True)
+    bc_cem, bc_humanoid, bc_data, bc_eval, bc_box = phase_bc(linalg, card)
+    print(f"phases 1-18 in {time.perf_counter() - started:.1f} s | {card}",
+          flush=True)
 
     k = shapes[0]  # humanoid's shape heads the line; the others follow
     shape_keys = ("B", "n", "dtype", "branch", "max_abs_err", "ms",
@@ -3330,7 +3812,13 @@ def main() -> int:
         "mocap:cmu_humanoid_tracking": mocap_rate,
         "mocap selfcheck:cmu_humanoid_tracking float64": mocap_check,
         "scripts ppo_tracking epoch": mocap_train,
-        "scripts TorchVecEnv pendulum:swingup": vec}
+        "scripts TorchVecEnv pendulum:swingup": vec,
+        "bc CEM cartpole:swingup": bc_cem,
+        "bc CEM humanoid:walk": bc_humanoid,
+        "bc CEM selfcheck humanoid:walk float64": bc_humanoid["check"],
+        "bc create_dataset cartpole:swingup": bc_data,
+        "bc evaluate cartpole:swingup": bc_eval,
+        "bc ppo_box2d cartpole:swingup": bc_box}
     counts = {name: (r["launches"], r["branch_launches"])
               for name, r in paths.items()}
     for kind, (launches, blocks) in (("locomotion host golden", loco_goldens),

@@ -138,7 +138,11 @@ def stages_both(asset, state, diff=None, wind=None):
     the constraint rows, and one ``engine.step``; and the row kinds of both
     (``"kind"``).  ``state`` holds (n, ...) arrays qpos, qvel, ctrl and
     optionally act and qacc_warmstart; ``diff`` per-environment model
-    overrides; ``wind`` replaces ``opt.wind`` on both sides."""
+    overrides; ``wind`` replaces ``opt.wind`` on both sides.  The JAX
+    model is the checked-in asset (``jax_model_from_asset``: the JAX
+    compiler's output, held to a fresh export by each asset's
+    ``test_checked_in_asset_equals_a_fresh_export``), not a fresh MJCF
+    compile, which takes 6-17 s a model on a CPU."""
     import jax
     import jax.numpy as jnp
 
@@ -152,7 +156,7 @@ def stages_both(asset, state, diff=None, wind=None):
     from dm_control_torch.physics.model import make_data
     from dm_control_torch.suite import base as tbase
 
-    jm = jax_model(asset)
+    jm = jax_model_from_asset(asset)
     tm = tbase.load_model(asset, "cpu", torch.float64)
     if wind is not None:
         jm = jm.replace(opt=jm.opt.replace(wind=jnp.asarray(wind)))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from _torch_helpers import PREFIXES, assert_step_matches_golden, \
-    export_tool, golden, golden_state, jax_model
+    export_tool, golden, golden_state, jax_model_from_asset
 from dm_control_torch import suite as tsuite
 from dm_control_torch.ops import linalg as tlinalg
 from dm_control_torch.physics import engine as tengine
@@ -39,7 +39,7 @@ def test_engine_step_matches_jax(gold, tenv):
     from dm_control_tpu.physics import engine as jengine
     from dm_control_tpu.physics.model import make_data as jmake_data
 
-    jm = jax_model("humanoid")
+    jm = jax_model_from_asset("humanoid")
     # one environment in the air, one on the floor with contacts active
     qpos, qvel, warm, ctrl = (
         np.stack([gold[f"reset_{f}"][0], gold[f"contact_{f}"][0]])

@@ -17,7 +17,7 @@ import torch
 
 from _torch_helpers import PREFIXES, assert_stages_close, \
     assert_step_matches_golden, export_tool, golden, golden_rows, \
-    golden_state, jax_model, stages_both
+    golden_state, jax_model_from_asset, stages_both
 from dm_control_torch import suite as tsuite
 from dm_control_torch.physics import actuation as tact
 from dm_control_torch.physics import constraints as tcons
@@ -140,7 +140,7 @@ def test_activation_dynamics_match_jax():
     from dm_control_tpu.physics import actuation as jact
     from dm_control_tpu.physics.model import make_data as jmake_data
 
-    jm = jax_model("quadruped_walk")
+    jm = jax_model_from_asset("quadruped_walk")
     tm = _env("walk").model
     dyn = (1, 2, 3, 0) * 3
     actadr = tuple(int(np.cumsum([t != 0 for t in dyn])[u]) - 1
@@ -181,7 +181,7 @@ def test_rangefinder_matches_jax():
     from dm_control_tpu.physics import sensors as jsens
     from dm_control_tpu.physics.model import make_data as jmake_data
 
-    jm = jax_model("quadruped_escape")
+    jm = jax_model_from_asset("quadruped_escape")
     env, m, d = _forwarded("quadruped_escape")
     sensors = [s for s in range(m.nsensor)
                if m.sensor_type[s] == int(SensorType.RANGEFINDER)]
