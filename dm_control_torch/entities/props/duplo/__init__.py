@@ -19,8 +19,9 @@ How the snap works (all primitive geometry — no meshes):
   contacts are in permanent interference; friction on those loaded
   contacts resists separation.
 - The stud radius therefore modulates the separation force, which is
-  how the reference autotunes "snap" strength (the JAX package's
-  ``duplo/autotune.py``; not ported).
+  how the reference autotunes "snap" strength (``duplo/autotune.py``,
+  which bisects over the radius with ``duplo/utils.py``'s
+  ``measure_separation_force``).
 
 Collision bitmask scheme (reference duplo2x4.xml defaults): bricks see
 each other's shells via base (contype 3 / conaffinity 2); studs

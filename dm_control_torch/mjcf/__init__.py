@@ -9,9 +9,12 @@ The port's copy of ``dm_control_tpu/mjcf/``:
 - ``compiler``: element tree → ``physics.Model`` on a device, the analogue
   of mj_loadXML + mj_compile, with ``engine.set_const`` for the constants
   that need the physics;
-- ``physics``: ``bind`` attribute views on a ``Physics``.
-
-Not ported: ``debugging``, ``export_with_assets`` and ``skin``.
+- ``physics``: ``bind`` attribute views on a ``Physics``;
+- ``debugging``: creation and attribute-write stacks of the elements, and
+  annotated dumps (debug mode);
+- ``export_with_assets``: the XML and its asset files to a directory or a
+  zip file;
+- ``skin``: ``.skn`` skin files, parsed and serialized.
 """
 
 import torch
@@ -22,6 +25,9 @@ from dm_control_torch.mjcf.parser import (  # noqa: F401
 )
 from dm_control_torch.mjcf.compiler import compile_model  # noqa: F401
 from dm_control_torch.mjcf.copier import copy_element  # noqa: F401
+from dm_control_torch.mjcf.export_with_assets import (  # noqa: F401
+    export_with_assets, export_with_assets_as_zip,
+)
 from dm_control_torch.mjcf.physics import Binding, bind  # noqa: F401
 from dm_control_torch.mjcf.schema import (  # noqa: F401
     MJCFSchemaError, validate,

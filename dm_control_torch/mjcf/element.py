@@ -1,7 +1,9 @@
 """A lightweight MJCF element tree (DOM).
 
-The port's copy of ``dm_control_tpu/mjcf/element.py``, without its hooks
-into ``mjcf/debugging.py`` (not ported).
+The port's copy of ``dm_control_tpu/mjcf/element.py``, with its hooks
+into ``mjcf/debugging.py``: with debug mode on, an element records the
+stack of its creation and of every attribute write (one flag test an
+element and a write with it off).
 
 The reference's PyMJCF builds a schema-validated DOM with attachment and
 binding (dm_control/mjcf/element.py).  This module provides the core DOM
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Iterator, List, Optional
 
 from dm_control_torch.mjcf import attribute as _attribute
+from dm_control_torch.mjcf import debugging
 
 
 class _Attrib(dict):
@@ -39,6 +42,8 @@ class _Attrib(dict):
             else None
         if value is not None and tag is not None:
             _attribute.check_value(tag, key, value, self._owner.path)
+            if debugging.debug_mode_enabled():
+                debugging.record_attribute_write(self._owner, key)
         super().__setitem__(key, value)
 
     def update(self, *args, **kw):  # keep validation on bulk writes
@@ -59,6 +64,8 @@ class Element:
         self.parent = parent
         self.attrib: Dict[str, object] = _Attrib(self, attrib)
         self.children: List[Element] = []
+        if debugging.debug_mode_enabled():
+            debugging.record_origin(self)
 
     # -- construction -------------------------------------------------------
 

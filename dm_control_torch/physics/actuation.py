@@ -1,63 +1,93 @@
 """Actuator transmission, activation dynamics and force generation,
-batched.  Counterpart of ``dm_control_tpu/physics/actuation.py`` for
-actuators with a transmission on a scalar joint or on a tendon, with no
+batched.  Counterpart of ``dm_control_tpu/physics/actuation.py``: the
+transmissions on a joint of any type, on a tendon and on a site, with no
 activation dynamics or an integrator or a first-order filter."""
 
 from __future__ import annotations
 
 import torch
 
+from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import (
     BiasType, Data, DisableBit, DynType, GainType, JointType, Model, TrnType,
 )
 
 
 def _transmission_plan(m: Model):
-    """Static split of the actuators into those on a hinge/slide joint
-    (ids, qpos and dof addresses) and those on a tendon (ids, tendons)."""
-    joint, tendon = [], []
+    """Static split of the actuators: on a hinge/slide joint (ids, qpos
+    and dof addresses), on a tendon (ids, tendons), on a ball or a free
+    joint (ids, dof addresses), on a site (ids, sites).  The moment rows
+    of the joint actuators never change: on a hinge/slide joint gear[0]
+    at its dof, on a ball joint gear[0:3] at its three dofs, on a free
+    joint gear[0:6] at its six (the JAX package's world wrench)."""
+    joint, tendon, ball, free, site = [], [], [], [], []
     for u in range(m.nu):
         trn = m.actuator_trntype[u]
         tid = m.actuator_trnid[u][0]
-        if trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)) and \
-                m.jnt_type[tid] in (int(JointType.SLIDE),
-                                    int(JointType.HINGE)):
-            joint.append(u)
+        if trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)):
+            {int(JointType.SLIDE): joint, int(JointType.HINGE): joint,
+             int(JointType.BALL): ball,
+             int(JointType.FREE): free}[m.jnt_type[tid]].append(u)
         elif trn == int(TrnType.TENDON):
             tendon.append(u)
+        elif trn == int(TrnType.SITE):
+            site.append(u)
         else:
             raise NotImplementedError(
-                f"actuator {u}: only transmissions on hinge/slide joints "
-                f"and on tendons are ported (ROADMAP A5: composer, "
-                f"locomotion and manipulation)")
+                f"actuator {u}: transmission {TrnType(trn).name} is not "
+                f"ported (the JAX package has none)")
     jids = [m.actuator_trnid[u][0] for u in joint]
     dadr = [m.jnt_dofadr[j] for j in jids]
-    # the joint actuators' rows of the moment never change
     moment = torch.zeros(m.nu, m.nv, dtype=m.dtype, device=m.device)
     moment[m.idx(joint), m.idx(dadr)] = m.actuator_gear[m.idx(joint), 0]
+    for group, width in ((ball, 3), (free, 6)):
+        for u in group:
+            a = m.jnt_dofadr[m.actuator_trnid[u][0]]
+            moment[u, a:a + width] = m.actuator_gear[u, :width]
     return dict(joint=joint, qadr=[m.jnt_qposadr[j] for j in jids],
                 tendon=tendon, moment=moment,
-                tendon_id=[m.actuator_trnid[u][0] for u in tendon])
+                tendon_id=[m.actuator_trnid[u][0] for u in tendon],
+                site=site, site_id=[m.actuator_trnid[u][0] for u in site],
+                fixed=not (tendon or site))
 
 
 def transmission(m: Model, d: Data) -> Data:
-    """mj_transmission: actuator lengths and moment arms."""
+    """mj_transmission: actuator lengths and moment arms.  A ball, free or
+    site transmission has length 0; a site's moment is its gear, a wrench
+    in the site's frame, through the site's Jacobian."""
     if m.nu == 0:
         return d
     plan = m.cached("trn", lambda: _transmission_plan(m))
     B = d.qpos.shape[0]
     gear0 = m.actuator_gear[:, 0]
     moment = plan["moment"].expand(B, m.nu, m.nv)
-    if not plan["tendon"]:
+    ju = m.idx(plan["joint"])
+    if len(ju) == m.nu:
         return d.replace(
             actuator_length=gear0 * d.qpos[:, m.idx(plan["qadr"])],
             actuator_moment=moment)
-    ju, tu, tid = (m.idx(plan[k]) for k in ("joint", "tendon", "tendon_id"))
     lengths = d.qpos.new_zeros(B, m.nu)
     lengths[:, ju] = gear0[ju] * d.qpos[:, m.idx(plan["qadr"])]
-    lengths[:, tu] = gear0[tu] * d.ten_length[:, tid]
+    if plan["fixed"]:
+        return d.replace(actuator_length=lengths, actuator_moment=moment)
     moment = moment.clone()
-    moment[:, tu] = gear0[tu, None] * d.ten_moment[:, tid]
+    if plan["tendon"]:
+        tu, tid = m.idx(plan["tendon"]), m.idx(plan["tendon_id"])
+        lengths[:, tu] = gear0[tu] * d.ten_length[:, tid]
+        moment[:, tu] = gear0[tu, None] * d.ten_moment[:, tid]
+    if plan["site"]:
+        from dm_control_torch.physics import kinematics as kin
+
+        su, sid = m.idx(plan["site"]), m.idx(plan["site_id"])
+        jacp, jacr = kin.jac_points(
+            m, d, d.site_xpos[:, sid],
+            [m.site_bodyid[s] for s in plan["site_id"]])
+        frame = d.site_xmat[:, sid]
+        gear = m.actuator_gear[su]
+        force = mx.mat_vec(frame, gear[:, :3])
+        torque = mx.mat_vec(frame, gear[:, 3:6])
+        moment[:, su] = (torch.einsum("bkiv,bki->bkv", jacp, force)
+                         + torch.einsum("bkiv,bki->bkv", jacr, torque))
     return d.replace(actuator_length=lengths, actuator_moment=moment)
 
 

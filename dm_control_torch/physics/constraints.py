@@ -1,17 +1,18 @@
 """Soft-constraint row assembly (mj_makeConstraint), batched.
 
-Counterpart of ``dm_control_tpu/physics/constraints.py`` for equality rows
-of type JOINT and TENDON, dof friction loss, limits on hinge/slide joints
-and on tendons, and contact rows with condim 1, pyramidal condim 3, 4 and
-6, or elliptic cones.  The rows come in the JAX package's order: equality,
-then friction loss, then limits (joints, then tendons), then contacts by
-condim.  The row structure is static per model; rows MuJoCo would not
-instantiate (dist >= margin) are carried with D = 0.  A model with
-constraints disabled, or with nothing to tie or limit and contacts off,
-gets zero rows.  With ``opt.contact_cap`` set, a float32 state keeps only
-the deepest contacts of each condim group (``_contact_rows_compact``).
-CONNECT and WELD equalities and ball-joint limits raise
-``NotImplementedError``.
+Counterpart of ``dm_control_tpu/physics/constraints.py``: equality rows
+(CONNECT 3 an equality, WELD 6, JOINT and TENDON 1), dof friction loss,
+limits on hinge/slide and ball joints and on tendons, and contact rows
+with condim 1, pyramidal condim 3, 4 and 6, or elliptic cones.  The rows
+come in the JAX package's order: equality (in the model's order), then
+friction loss, then limits (hinge/slide joints, then ball joints, then
+tendons), then contacts by condim.  The row structure is static per
+model; rows MuJoCo would not instantiate (dist >= margin) are carried
+with D = 0.  A model with constraints disabled, or with nothing to tie or
+limit and contacts off, gets zero rows.  With ``opt.contact_cap`` set, a
+float32 state keeps only the deepest contacts of each condim group
+(``_contact_rows_compact``).  DISTANCE equalities raise
+``NotImplementedError``, as in the JAX package.
 
 MuJoCo's soft-constraint model: each row has impedance d(pos) from solimp,
 reference acceleration aref from solref, and regularization
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from dm_control_torch.physics import kinematics as kin
+from dm_control_torch.physics import mathx as mx
 from dm_control_torch.physics.model import (
     Data, DisableBit, EqType, JointType, Model, static_field,
 )
@@ -173,21 +175,13 @@ class _Blocks:
 
 def _check_ported(m: Model):
     dis = m.opt.disableflags
-    if dis & DisableBit.CONSTRAINT:
-        return
-    if not dis & DisableBit.EQUALITY:
-        for e in range(m.neq):
-            if m.eq_type[e] not in (int(EqType.JOINT), int(EqType.TENDON)):
-                raise NotImplementedError(
-                    f"equality {e}: {EqType(m.eq_type[e]).name} equality "
-                    f"constraints are not ported yet (ROADMAP A5: composer, "
-                    f"locomotion and manipulation)")
-    if not dis & DisableBit.LIMIT:
-        for j in range(m.njnt):
-            if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL):
-                raise NotImplementedError("ball-joint limits are not ported "
-                                          "yet (ROADMAP A5: composer, "
-                                          "locomotion and manipulation)")
+    if dis & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
+        return True
+    for e in range(m.neq):
+        if m.eq_type[e] == int(EqType.DISTANCE):
+            raise NotImplementedError(
+                f"equality {e}: DISTANCE equality constraints are not "
+                f"implemented (nor in the JAX package)")
     return True
 
 
@@ -229,18 +223,41 @@ def _compacts(m: Model, d: Data) -> bool:
 
 
 def _equality_plan(m: Model, etype: EqType):
-    """Static structure of the equalities of one scalar type (JOINT or
-    TENDON), or None without any: their ids, the first and second object
-    (the second clamped to 0 where there is none, with ``has2`` 0)."""
+    """Static structure of the equalities of one type, or None without
+    any: their ids, the first and second object (for JOINT and TENDON the
+    second clamped to 0 where there is none, with ``has2`` 0)."""
     ids = [e for e in range(m.neq) if m.eq_type[e] == int(etype)]
     if not ids:
         return None
     obj2 = [m.eq_obj2id[e] for e in ids]
     return dict(
-        ids=m.idx(ids), obj1=[m.eq_obj1id[e] for e in ids],
+        ids=m.idx(ids), eqs=ids, obj1=[m.eq_obj1id[e] for e in ids],
         obj2=[max(o, 0) for o in obj2],
         has2=torch.tensor([float(o >= 0) for o in obj2], dtype=m.dtype,
                           device=m.device))
+
+
+#: rows of one equality of each type, in the JAX package's order within it
+_EQ_ROWS = {EqType.JOINT: 1, EqType.TENDON: 1, EqType.CONNECT: 3,
+            EqType.WELD: 6}
+
+
+def _equality_layout(m: Model):
+    """The plans by type, and the static permutation that puts the rows
+    of the types (built type by type, in ``_EQ_ROWS``' order) back into
+    the model's order of equalities, or None where they are in it; and
+    each row's equality id."""
+    plans, eqs = {}, []
+    for etype, nrow in _EQ_ROWS.items():
+        plan = _equality_plan(m, etype)
+        if plan is not None:
+            plans[etype] = plan
+            eqs += [e for e in plan["eqs"] for _ in range(nrow)]
+    order = np.argsort(np.asarray(eqs), kind="stable")
+    rows = m.idx(np.asarray(eqs)[order])
+    if np.array_equal(order, np.arange(len(eqs))):
+        return plans, None, rows
+    return plans, m.idx(order), rows
 
 
 def _poly_rows(m: Model, plan, x1, x2, J1, J2, w1, w2):
@@ -257,14 +274,62 @@ def _poly_rows(m: Model, plan, x1, x2, J1, J2, w1, w2):
     return J, x1 - val, (w1 + has2 * w2).expand_as(x1)
 
 
+def _body_points(m: Model, d: Data, plan, anchor1, anchor2):
+    """The two bodies' anchor points in the world (B, E, 3) each, and the
+    difference of their Jacobians, translational and rotational
+    (B, E, 3, nv) each."""
+    b1, b2 = plan["obj1"], plan["obj2"]
+    i1, i2 = m.idx(b1), m.idx(b2)
+    p1 = d.xpos[:, i1] + mx.mat_vec(d.xmat[:, i1], anchor1)
+    p2 = d.xpos[:, i2] + mx.mat_vec(d.xmat[:, i2], anchor2)
+    jac1p, jac1r = kin.jac_points(m, d, p1, b1)
+    jac2p, jac2r = kin.jac_points(m, d, p2, b2)
+    return p1, p2, jac1p - jac2p, jac1r - jac2r
+
+
+def _connect_rows(m: Model, d: Data, plan):
+    """Three rows a CONNECT: the two bodies' anchors coincide."""
+    data = m.eq_data[plan["ids"]]
+    p1, p2, jacp, _ = _body_points(m, d, plan, data[:, :3], data[:, 3:6])
+    biw = m.body_invweight0
+    diag = biw[m.idx(plan["obj1"]), 0] + biw[m.idx(plan["obj2"]), 0]
+    B, E = p1.shape[:2]
+    return (jacp.reshape(B, E * 3, -1), (p1 - p2).reshape(B, E * 3),
+            torch.repeat_interleave(diag, 3).expand(B, E * 3))
+
+
+def _weld_rows(m: Model, d: Data, plan):
+    """Six rows a WELD: three of position (both bodies' points at the
+    anchor, in each body's own frame, as the JAX package takes them),
+    then three of orientation against ``relpose``, scaled by
+    ``torquescale``."""
+    data = m.eq_data[plan["ids"]]
+    anchor, ts = data[:, :3], data[:, 10:11]
+    p1, p2, jacp, jacr = _body_points(m, d, plan, anchor, anchor)
+    i1, i2 = m.idx(plan["obj1"]), m.idx(plan["obj2"])
+    q2 = mx.quat_mul(d.xquat[:, i2], data[:, 6:10])
+    rot = mx.quat_sub(d.xquat[:, i1], q2) * ts
+    biw = m.body_invweight0
+    J = torch.cat([jacp, jacr * ts.unsqueeze(-1)], dim=-2)
+    pos = torch.cat([p1 - p2, rot], dim=-1)
+    B, E = pos.shape[:2]
+    diag = torch.stack([biw[i1, 0] + biw[i2, 0], biw[i1, 1] + biw[i2, 1]],
+                       dim=-1)
+    return (J.reshape(B, E * 6, -1), pos.reshape(B, E * 6),
+            torch.repeat_interleave(diag, 3, dim=-1).reshape(-1).expand(
+                B, E * 6))
+
+
 def _equality_rows(m: Model, d: Data, blocks: _Blocks):
-    """One row per JOINT and per TENDON equality, in the model's order."""
+    """The equalities' rows, in the model's order: 3 a CONNECT, 6 a WELD,
+    1 a JOINT or TENDON."""
     if not m.neq:
         return
     B = d.qpos.shape[0]
-    parts, ids = [], []
-    plan = m.cached("equality_joint",
-                    lambda: _equality_plan(m, EqType.JOINT))
+    plans, order, rows = m.cached("equality_layout",
+                                  lambda: _equality_layout(m))
+    parts = []
+    plan = plans.get(EqType.JOINT)
     if plan is not None:
         q = d.qpos - m.qpos0
         j1, j2 = plan["obj1"], plan["obj2"]
@@ -278,9 +343,7 @@ def _equality_rows(m: Model, d: Data, blocks: _Blocks):
             m, plan, q[:, a1], q[:, a2], eye[d1].expand(B, -1, -1),
             eye[d2].expand(B, -1, -1), m.dof_invweight0[d1],
             m.dof_invweight0[d2]))
-        ids.append(plan["ids"])
-    plan = m.cached("equality_tendon",
-                    lambda: _equality_plan(m, EqType.TENDON))
+    plan = plans.get(EqType.TENDON)
     if plan is not None:
         ln = d.ten_length - m.tendon_length0
         t1, t2 = m.idx(plan["obj1"]), m.idx(plan["obj2"])
@@ -288,12 +351,14 @@ def _equality_rows(m: Model, d: Data, blocks: _Blocks):
             m, plan, ln[:, t1], ln[:, t2], d.ten_moment[:, t1],
             d.ten_moment[:, t2], m.tendon_invweight0[t1],
             m.tendon_invweight0[t2]))
-        ids.append(plan["ids"])
+    if EqType.CONNECT in plans:
+        parts.append(_connect_rows(m, d, plans[EqType.CONNECT]))
+    if EqType.WELD in plans:
+        parts.append(_weld_rows(m, d, plans[EqType.WELD]))
     J, pos, diag = (torch.cat(x, dim=1) for x in zip(*parts))
-    if len(parts) > 1:  # both types: back into the model's order
-        order = torch.argsort(torch.cat(ids))
+    if order is not None:  # back into the model's order
         J, pos, diag = J[:, order], pos[:, order], diag[:, order]
-    blocks.add(J, pos, m.eq_solref, m.eq_solimp, diag,
+    blocks.add(J, pos, m.eq_solref[rows], m.eq_solimp[rows], diag,
                torch.einsum("bkv,bv->bk", J, d.qvel),
                active=torch.ones_like(pos, dtype=torch.bool))
 
@@ -346,9 +411,10 @@ def _limit_plan(m: Model):
 
 
 def _limit_rows(m: Model, d: Data, blocks: _Blocks):
-    """Two rows per limited hinge/slide joint, then two per limited
-    tendon: lower (+1), upper (-1)."""
+    """Two rows per limited hinge/slide joint, lower (+1) and upper (-1),
+    then one per limited ball joint, then two per limited tendon."""
     _joint_limit_rows(m, d, blocks)
+    _ball_limit_rows(m, d, blocks)
     limited = [t for t in range(m.ntendon) if m.tendon_limited[t]]
     if not limited:
         return
@@ -383,6 +449,43 @@ def _joint_limit_rows(m: Model, d: Data, blocks: _Blocks):
     J = plan["J"].expand(B, *plan["J"].shape)
     blocks.add(J, pos, plan["solref"], plan["solimp"], plan["diag"], vel,
                active=pos < 0)
+
+
+def _ball_limit_plan(m: Model):
+    balls = [j for j in range(m.njnt)
+             if m.jnt_limited[j] and m.jnt_type[j] == int(JointType.BALL)]
+    if not balls:
+        return None
+    jidx = m.idx(balls)
+    dadr = [m.jnt_dofadr[j] for j in balls]
+    return dict(
+        qadr=m.idx([[m.jnt_qposadr[j] + k for k in range(4)]
+                    for j in balls]),
+        dofs=m.idx([[a + k for k in range(3)] for a in dadr]),
+        jidx=jidx, maxang=torch.maximum(m.jnt_range[jidx, 0],
+                                        m.jnt_range[jidx, 1]),
+        diag=m.dof_invweight0[m.idx(dadr)])
+
+
+def _ball_limit_rows(m: Model, d: Data, blocks: _Blocks):
+    """One row per limited ball joint: its rotation angle stays within
+    the larger of its range's ends, along minus the rotation's axis."""
+    plan = m.cached("ball_limit_plan", lambda: _ball_limit_plan(m))
+    if plan is None:
+        return
+    B = d.qpos.shape[0]
+    rotvec = mx.quat_to_axis_angle(
+        d.qpos[:, plan["qadr"]].reshape(B, -1, 4))
+    angle = mx.norm(rotvec)
+    axis = rotvec / torch.clamp(angle, min=_MINVAL).unsqueeze(-1)
+    pos = plan["maxang"] - angle - m.jnt_margin[plan["jidx"]]
+    L = pos.shape[1]
+    J = d.qpos.new_zeros(B, L, m.nv)
+    J[:, torch.arange(L, device=m.device).repeat_interleave(3),
+      plan["dofs"]] = -axis.reshape(B, -1)
+    blocks.add(J, pos, m.jnt_solref[plan["jidx"]],
+               m.jnt_solimp[plan["jidx"]], plan["diag"],
+               torch.einsum("bkv,bv->bk", J, d.qvel), active=pos < 0)
 
 
 def _contact_rows(m: Model, d: Data, blocks: _Blocks):

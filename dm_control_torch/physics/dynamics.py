@@ -32,36 +32,58 @@ def rne(m: Model, d: Data) -> Data:
 
 
 def _passive_plan(m: Model):
+    """(springs, fluid): the static spring structure, the sprung scalar
+    joints and the free and ball joints' sprung quaternions (their qpos
+    and dof addresses and joint ids; a free joint's position part joins
+    the scalar rows), and whether the medium acts at all (decided once,
+    on the host, from the model's constants)."""
     stiff = m.jnt_stiffness.cpu().numpy()
-    scalar = [j for j in range(m.njnt)
-              if m.jnt_type[j] in (int(JointType.HINGE),
-                                   int(JointType.SLIDE)) and stiff[j] != 0]
-    if any(stiff[j] != 0 for j in range(m.njnt)
-           if m.jnt_type[j] in (int(JointType.FREE), int(JointType.BALL))):
-        raise NotImplementedError(
-            "springs on free/ball joints are not ported yet "
-            "(ROADMAP A5: composer, locomotion and manipulation)")
-    # whether the medium acts at all is decided once, on the host, from
-    # the model's constants
+    lin_q, lin_d, lin_j, quat_q, quat_d, quat_j = [], [], [], [], [], []
+    for j in range(m.njnt):
+        if stiff[j] == 0:
+            continue
+        jtype, qadr, dadr = m.jnt_type[j], m.jnt_qposadr[j], m.jnt_dofadr[j]
+        if jtype in (int(JointType.HINGE), int(JointType.SLIDE)):
+            lin_q.append(qadr)
+            lin_d.append(dadr)
+            lin_j.append(j)
+            continue
+        if jtype == int(JointType.FREE):
+            lin_q += range(qadr, qadr + 3)
+            lin_d += range(dadr, dadr + 3)
+            lin_j += [j] * 3
+            qadr, dadr = qadr + 3, dadr + 3
+        quat_q.append([qadr + k for k in range(4)])
+        quat_d.append([dadr + k for k in range(3)])
+        quat_j.append(j)
     fluid = bool(float(m.opt.density) != 0.0 or float(m.opt.viscosity) != 0.0
                  or np.any(m.opt.wind.cpu().numpy() != 0.0))
-    return scalar, fluid
+    return dict(lin_q=m.idx(lin_q), lin_d=m.idx(lin_d), lin_j=m.idx(lin_j),
+                quat_q=m.idx(quat_q), quat_d=m.idx(quat_d),
+                quat_j=m.idx(quat_j)), fluid
 
 
 def passive(m: Model, d: Data) -> Data:
-    """mj_passive: scalar-joint springs, joint dampers, tendon springs
-    (active outside ``tendon_lengthspring``'s deadband) and dampers, and
-    the forces of the surrounding medium."""
+    """mj_passive: joint springs (a quaternion's as the rotation from its
+    spring reference, ``quat_sub``), joint dampers, tendon springs (active
+    outside ``tendon_lengthspring``'s deadband) and dampers, and the
+    forces of the surrounding medium."""
     qfrc = torch.zeros_like(d.qvel)
     if m.opt.disableflags & DisableBit.PASSIVE:
         return d.replace(qfrc_passive=qfrc)
-    scalar, fluid = m.cached("passive", lambda: _passive_plan(m))
-    if scalar:
-        qadr = m.idx([m.jnt_qposadr[j] for j in scalar])
-        dadr = m.idx([m.jnt_dofadr[j] for j in scalar])
-        k = m.jnt_stiffness[m.idx(scalar)]
-        frc = -k * (d.qpos[:, qadr] - m.qpos_spring[qadr])
-        qfrc = qfrc.index_add(1, dadr, frc)
+    plan, fluid = m.cached("passive", lambda: _passive_plan(m))
+    if len(plan["lin_q"]):
+        qadr = plan["lin_q"]
+        frc = -m.jnt_stiffness[plan["lin_j"]] * (d.qpos[:, qadr]
+                                                  - m.qpos_spring[qadr])
+        qfrc = qfrc.index_add(1, plan["lin_d"], frc)
+    if len(plan["quat_j"]):
+        B, qadr = d.qpos.shape[0], plan["quat_q"]
+        dif = mx.quat_sub(d.qpos[:, qadr.reshape(-1)].reshape(B, -1, 4),
+                          m.qpos_spring[qadr])
+        frc = -m.jnt_stiffness[plan["quat_j"]].unsqueeze(-1) * dif
+        qfrc = qfrc.index_add(1, plan["quat_d"].reshape(-1),
+                              frc.reshape(B, -1))
     qfrc = qfrc - m.dof_damping * d.qvel
     if m.ntendon:
         low, high = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]

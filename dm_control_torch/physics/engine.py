@@ -78,36 +78,46 @@ def forward(m: Model, d: Data) -> Data:
 
 
 def _integrate_plan(m: Model):
-    scalar_q, scalar_d, free, other = [], [], [], []
+    """Static split of the joints: the qpos and dof addresses of the
+    scalar joints, and of the free and the ball joints (a free joint's
+    position part rides with the scalar ones)."""
+    scalar_q, scalar_d, free, ball = [], [], [], []
     for jid in range(m.njnt):
         jtype = m.jnt_type[jid]
+        qadr, dadr = m.jnt_qposadr[jid], m.jnt_dofadr[jid]
         if jtype in (int(JointType.HINGE), int(JointType.SLIDE)):
-            scalar_q.append(m.jnt_qposadr[jid])
-            scalar_d.append(m.jnt_dofadr[jid])
+            scalar_q.append(qadr)
+            scalar_d.append(dadr)
         elif jtype == int(JointType.FREE):
-            free.append((m.jnt_qposadr[jid], m.jnt_dofadr[jid]))
+            scalar_q += range(qadr, qadr + 3)
+            scalar_d += range(dadr, dadr + 3)
+            free.append((qadr + 3, dadr + 3))
         else:
-            other.append(jid)
-    if other:
-        raise NotImplementedError("ball joints are not ported yet "
-                                  "(ROADMAP A5: composer, locomotion and "
-                                  "manipulation)")
-    return scalar_q, scalar_d, free
+            ball.append((qadr, dadr))
+    quat = free + ball
+
+    def cols(start, width):
+        return m.idx([[a + k for k in range(width)] for a in start])
+
+    return dict(scalar_q=m.idx(scalar_q), scalar_d=m.idx(scalar_d),
+                quat_q=cols([q for q, _ in quat], 4),
+                quat_d=cols([v for _, v in quat], 3))
 
 
 def integrate_pos(m: Model, qpos, qvel, dt):
-    """mj_integratePos: qpos + qvel dt, quaternions on the manifold."""
-    scalar_q, scalar_d, free = m.cached("integrate",
-                                        lambda: _integrate_plan(m))
+    """mj_integratePos: qpos + qvel dt, the quaternions of free and ball
+    joints on the manifold (all of them as one batched group)."""
+    plan = m.cached("integrate", lambda: _integrate_plan(m))
     out = qpos.clone()
-    if scalar_q:
-        qi = m.idx(scalar_q)
-        out[:, qi] = qpos[:, qi] + dt * qvel[:, m.idx(scalar_d)]
-    for qadr, dadr in free:
-        out[:, qadr:qadr + 3] = qpos[:, qadr:qadr + 3] \
-            + dt * qvel[:, dadr:dadr + 3]
-        out[:, qadr + 3:qadr + 7] = mx.quat_integrate(
-            qpos[:, qadr + 3:qadr + 7], qvel[:, dadr + 3:dadr + 6], dt)
+    qi = plan["scalar_q"]
+    if len(qi):
+        out[:, qi] = qpos[:, qi] + dt * qvel[:, plan["scalar_d"]]
+    qq = plan["quat_q"]
+    if len(qq):
+        B = qpos.shape[0]
+        out[:, qq] = mx.quat_integrate(
+            qpos[:, qq].reshape(B, -1, 4),
+            qvel[:, plan["quat_d"]].reshape(B, -1, 3), dt).reshape(B, -1)
     return out
 
 

@@ -116,6 +116,26 @@ def quat_integrate(q, omega, dt):
     return normalize(quat_mul(q, dq))
 
 
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_to_axis_angle(q):
+    """The rotation vector (axis times angle, the angle wrapped into
+    [-pi, pi]) of a unit quaternion (mju_quat2Vel with dt = 1)."""
+    sin_half = norm(q[..., 1:])
+    axis = q[..., 1:] / torch.clamp(sin_half, min=1e-15).unsqueeze(-1)
+    angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+    angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
+    return axis * angle.unsqueeze(-1)
+
+
+def quat_sub(qa, qb):
+    """The angular velocity, in qb's frame, that turns qb into qa in unit
+    time (mju_subQuat)."""
+    return quat_to_axis_angle(quat_mul(quat_conj(qb), qa))
+
+
 def motion_cross(v, m):
     """Spatial motion cross product v x m (mju_crossMotion)."""
     vang, vlin = v[..., :3], v[..., 3:]

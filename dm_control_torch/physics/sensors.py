@@ -1,13 +1,15 @@
 """Sensor evaluation (mj_sensorPos/Vel/Acc), batched.
 
-Counterpart of ``dm_control_tpu/physics/sensors.py`` for the sensor types
-the ported models declare: joint position and velocity, touch,
-accelerometer, velocimeter, gyro, force, torque, rangefinder, frame
-position, orientation, axes and linear and angular velocity, subtree
-centre of mass, subtree linear velocity and angular momentum.
-Sensors of one type are evaluated together and written into
-``sensordata`` at their static addresses.  A model with any other sensor
-type raises ``NotImplementedError``.
+Counterpart of ``dm_control_tpu/physics/sensors.py``, for every sensor
+type the JAX package computes: joint position and velocity (of a
+hinge/slide joint), ball-joint quaternion and angular velocity, tendon and
+actuator position and velocity, touch, accelerometer, velocimeter, gyro,
+magnetometer, force, torque, rangefinder, frame position, orientation,
+axes, linear and angular velocity and acceleration, subtree centre of
+mass, subtree linear velocity and angular momentum.  Sensors of one type
+are evaluated together and written into ``sensordata`` at their static
+addresses.  Any other type raises ``NotImplementedError``: the JAX package
+leaves its ``sensordata`` at 0 (ACTUATORFRC among them).
 """
 
 from __future__ import annotations
@@ -26,15 +28,21 @@ _FRAME_AXIS = {_S.FRAMEXAXIS: 0, _S.FRAMEYAXIS: 1, _S.FRAMEZAXIS: 2}
 #: the velocity of a frame's point: the angular or the linear half of its
 #: [ang, lin] 6D motion, in world axes
 _FRAME_VEL = {_S.FRAMEANGVEL: slice(0, 3), _S.FRAMELINVEL: slice(3, 6)}
+#: the same of its acceleration
+_FRAME_ACC = {_S.FRAMEANGACC, _S.FRAMELINACC}
 #: types whose object is any framed object or a body, not only a site
 _ANY_OBJECT = {_S.FRAMEPOS, _S.FRAMEQUAT, _S.SUBTREECOM, _S.SUBTREELINVEL,
-               _S.SUBTREEANGMOM, *_FRAME_AXIS, *_FRAME_VEL}
-#: types whose object is a joint
+               _S.SUBTREEANGMOM, *_FRAME_AXIS, *_FRAME_VEL, *_FRAME_ACC}
+#: types whose object is a hinge/slide joint, or a ball joint
 _OF_JOINT = {_S.JOINTPOS, _S.JOINTVEL}
-_PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO, _S.FORCE,
-           _S.TORQUE, _S.RANGEFINDER, *_ANY_OBJECT, *_OF_JOINT}
-#: the ROADMAP item that ports the missing types
-_ROADMAP = "A5: composer, locomotion and manipulation"
+_OF_BALL = {_S.BALLQUAT, _S.BALLANGVEL}
+#: types whose object is a tendon or an actuator
+_OF_OTHER = {_S.TENDONPOS, _S.TENDONVEL, _S.ACTUATORPOS, _S.ACTUATORVEL}
+_PORTED = {_S.TOUCH, _S.ACCELEROMETER, _S.VELOCIMETER, _S.GYRO,
+           _S.MAGNETOMETER, _S.FORCE, _S.TORQUE, _S.RANGEFINDER,
+           *_ANY_OBJECT, *_OF_JOINT, *_OF_BALL, *_OF_OTHER}
+#: the acceleration-stage types
+_ACC = {_S.TOUCH, _S.ACCELEROMETER, _S.FORCE, _S.TORQUE, *_FRAME_ACC}
 
 
 def _by_type(m: Model):
@@ -44,15 +52,18 @@ def _by_type(m: Model):
         stype = _S(m.sensor_type[s])
         if stype not in _PORTED:
             raise NotImplementedError(
-                f"sensor type {stype.name} is not ported yet (ROADMAP "
-                f"{_ROADMAP})")
-        if stype in _OF_JOINT:
+                f"sensor {s}: type {stype.name} has no computation in the "
+                f"JAX package, whose sensordata stays 0 for it; the port "
+                f"refuses it instead of reporting 0")
+        if stype in _OF_JOINT | _OF_BALL:
             jtype = m.jnt_type[m.sensor_objid[s]]
-            if jtype not in (int(JointType.HINGE), int(JointType.SLIDE)):
+            allowed = ((int(JointType.HINGE), int(JointType.SLIDE))
+                       if stype in _OF_JOINT else (int(JointType.BALL),))
+            if jtype not in allowed:
                 raise NotImplementedError(
                     f"sensor {s}: {stype.name} of a {JointType(jtype).name} "
                     f"joint")
-        elif stype not in _ANY_OBJECT and \
+        elif stype not in _ANY_OBJECT | _OF_OTHER and \
                 m.sensor_objtype[s] != int(ObjType.SITE):
             raise NotImplementedError(
                 f"sensor {s}: only site-attached {stype.name} is ported")
@@ -117,16 +128,29 @@ def sensor_pos(m: Model, d: Data) -> Data:
     if m.nsensor == 0:
         return d
     groups = _groups(m)
-    if not any(t in groups for t in (_S.JOINTPOS, _S.FRAMEPOS, _S.FRAMEQUAT,
-                                     _S.SUBTREECOM, _S.RANGEFINDER,
-                                     *_FRAME_AXIS)):
+    if not any(t in groups for t in (
+            _S.JOINTPOS, _S.BALLQUAT, _S.TENDONPOS, _S.ACTUATORPOS,
+            _S.MAGNETOMETER, _S.FRAMEPOS, _S.FRAMEQUAT, _S.SUBTREECOM,
+            _S.RANGEFINDER, *_FRAME_AXIS)):
         return d
     out = d.sensordata.clone()
     for stype, sensors in groups.items():
+        objs = [m.sensor_objid[s] for s in sensors]
         if stype == _S.JOINTPOS:
             _put(m, out, sensors, d.qpos[:, m.idx(
-                [m.jnt_qposadr[m.sensor_objid[s]] for s in sensors])
-            ].unsqueeze(-1))
+                [m.jnt_qposadr[j] for j in objs])].unsqueeze(-1))
+        elif stype == _S.BALLQUAT:
+            _put(m, out, sensors, mx.normalize(d.qpos[:, m.idx(
+                [[m.jnt_qposadr[j] + k for k in range(4)] for j in objs])
+            ].reshape(d.qpos.shape[0], -1, 4)))
+        elif stype == _S.TENDONPOS:
+            _put(m, out, sensors, d.ten_length[:, m.idx(objs)].unsqueeze(-1))
+        elif stype == _S.ACTUATORPOS:
+            _put(m, out, sensors,
+                 d.actuator_length[:, m.idx(objs)].unsqueeze(-1))
+        elif stype == _S.MAGNETOMETER:
+            _put(m, out, sensors, mx.mat_t_vec(
+                d.site_xmat[:, m.idx(objs)], m.opt.magnetic))
         elif stype == _S.FRAMEPOS:
             _put(m, out, sensors, _of_objects(
                 m, sensors, d.site_xpos, d.xpos, d.geom_xpos))
@@ -193,10 +217,20 @@ def sensor_vel(m: Model, d: Data) -> Data:
     out = d.sensordata.clone()
     subtree = None
     for stype, sensors in _groups(m).items():
+        objs = [m.sensor_objid[s] for s in sensors]
         if stype == _S.JOINTVEL:
             _put(m, out, sensors, d.qvel[:, m.idx(
-                [m.jnt_dofadr[m.sensor_objid[s]] for s in sensors])
-            ].unsqueeze(-1))
+                [m.jnt_dofadr[j] for j in objs])].unsqueeze(-1))
+        elif stype == _S.BALLANGVEL:
+            _put(m, out, sensors, d.qvel[:, m.idx(
+                [[m.jnt_dofadr[j] + k for k in range(3)] for j in objs])
+            ].reshape(d.qvel.shape[0], -1, 3))
+        elif stype == _S.TENDONVEL:
+            _put(m, out, sensors,
+                 d.ten_velocity[:, m.idx(objs)].unsqueeze(-1))
+        elif stype == _S.ACTUATORVEL:
+            _put(m, out, sensors,
+                 d.actuator_velocity[:, m.idx(objs)].unsqueeze(-1))
         elif stype in (_S.GYRO, _S.VELOCIMETER):
             bodies, mat, offset = _site_frame(m, d, sensors)
             vel = mx.transform_motion(d.cvel[:, m.idx(bodies)], offset)
@@ -224,8 +258,7 @@ def sensor_vel(m: Model, d: Data) -> Data:
 def sensor_acc(m: Model, d: Data) -> Data:
     """Acceleration/force sensors; needs the post-constraint qacc."""
     groups = _groups(m) if m.nsensor else {}
-    if not any(t in groups for t in (_S.TOUCH, _S.ACCELEROMETER, _S.FORCE,
-                                     _S.TORQUE)):
+    if not any(t in groups for t in _ACC):
         return d
     cacc, cfrc_int = _rne_postconstraint(m, d)
     out = d.sensordata.clone()
@@ -239,6 +272,21 @@ def sensor_acc(m: Model, d: Data) -> Data:
             vel6 = mx.transform_motion(d.cvel[:, b], offset)
             lin = acc6[..., 3:] + mx.cross(vel6[..., :3], vel6[..., 3:])
             _put(m, out, sensors, mx.mat_t_vec(mat, lin))
+        elif stype in _FRAME_ACC:
+            # the acceleration of the object's point about its root
+            # subtree's CoM, in world axes; the linear one with the
+            # centripetal term and gravity added back, as in the JAX
+            # package
+            bodies, roots = _object_bodies(m, sensors)
+            pos = _of_objects(m, sensors, d.site_xpos, d.xpos, d.geom_xpos)
+            offset = pos - d.subtree_com[:, roots]
+            acc6 = mx.transform_motion(cacc[:, bodies], offset)
+            if stype == _S.FRAMEANGACC:
+                _put(m, out, sensors, acc6[..., :3])
+            else:
+                vel6 = mx.transform_motion(d.cvel[:, bodies], offset)
+                lin = acc6[..., 3:] + mx.cross(vel6[..., :3], vel6[..., 3:])
+                _put(m, out, sensors, lin + m.opt.gravity)
         elif stype in (_S.FORCE, _S.TORQUE):
             bodies, mat, offset = _site_frame(m, d, sensors)
             fr = mx.transform_force(cfrc_int[:, m.idx(bodies)], offset)

@@ -231,3 +231,72 @@ def episode_gate(errs, gold, name):
         ok &= (rest <= ABS_GATE and warm_ok and e["step_type"] == 0
                and e.get("discount", 0.0) == 0)
     return figures, ok
+
+
+#: the engine-features model (``tests/data/torch_features.xml``, a model
+#: of the features no suite model declares: ball joints and their limits,
+#: CONNECT and WELD equalities, ball, free and site transmissions, the
+#: sensor types only such a model reads) and its recording
+#: (``tests/data/torch_features_golden_f64.npz``): for each prefix the
+#: start states (``STATE_FIELDS`` and ``actions``, the controls) and what
+#: one ``engine.step`` of them gave (``step_<field>`` for
+#: ``FEATURES_STEP_FIELDS``), with the integrator the prefix names
+FEATURES_XML = ("tests", "data", "torch_features.xml")
+FEATURES_GOLDEN = ("tests", "data", "torch_features_golden_f64.npz")
+FEATURES_PREFIXES = ("euler_reset", "euler_contact", "rk4_reset",
+                     "rk4_contact")
+FEATURES_STEP_FIELDS = ("qpos", "qvel", "qacc_warmstart", "time",
+                        "sensordata")
+#: the stages the recording holds at its Euler prefixes' start states,
+#: ``<prefix>_stage_<name>``: these ``Data`` fields after the position
+#: and velocity stages and their sensors, the constraint rows
+#: (``efc_<J, D, R, aref, pos>``), the contacts' ``contact_<dist, pos,
+#: frame>`` and these fields after ``forward`` (``forward_<field>``)
+FEATURES_STAGES = (
+    "xpos", "xquat", "xmat", "xipos", "geom_xpos", "geom_xmat", "site_xpos",
+    "site_xmat", "jnt_xanchor", "jnt_xaxis", "subtree_com", "cinert",
+    "cdof", "cdof_dot", "cvel", "qM", "ten_length", "ten_moment",
+    "ten_velocity", "actuator_length", "actuator_moment",
+    "actuator_velocity", "qfrc_bias", "qfrc_passive", "sensordata")
+FEATURES_FORWARD = ("qfrc_actuator", "qacc_smooth", "qacc",
+                    "qfrc_constraint", "sensordata")
+def features_model(root: str, prefix: str, device, dtype):
+    """The features model from the checkout at ``root``, compiled on
+    ``device`` in ``dtype``, with the integrator ``prefix`` names
+    (``euler_...`` or ``rk4_...``)."""
+    import os
+
+    from dm_control_torch import mjcf
+    from dm_control_torch.physics.model import IntegratorType
+
+    with open(os.path.join(root, *FEATURES_XML)) as f:
+        m = mjcf.compile_model(mjcf.from_xml_string(f.read()),
+                               device=device, dtype=dtype)
+    integrator = IntegratorType[prefix.split("_")[0].upper()]
+    return m.replace(opt=m.opt.replace(integrator=int(integrator)))
+
+
+def features_data(m, state):
+    """A ``Data`` of ``m`` at the start states ``state`` (a recording's
+    arrays by field, ``actions`` the controls), on the model's device."""
+    from dm_control_torch.physics.model import make_data
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x), dtype=m.dtype, device=m.device)
+
+    d = make_data(m, np.shape(state["qpos"])[0])
+    return d.replace(**{f: put(state[f]) for f in STATE_FIELDS},
+                     ctrl=put(state["actions"]))
+
+
+def features_step_errors(m, gold, prefix: str, step=None):
+    """max |step - recording| by key (``step_<field>``) of one
+    ``engine.step`` (or ``step(m, d)``) of the recording's ``prefix``
+    start states; ``gate_figures`` reads the result."""
+    from dm_control_torch.physics import engine
+
+    state = {k: gold[f"{prefix}_{k}"] for k in STATE_FIELDS + ("actions",)}
+    d = (step or engine.step)(m, features_data(m, state))
+    return {f"step_{f}": _max_abs(getattr(d, f).cpu().numpy(),
+                                  gold[f"{prefix}_step_{f}"])
+            for f in FEATURES_STEP_FIELDS}

@@ -239,7 +239,8 @@ def _loss(module, config, batch: Transition, adv, ret):
 
 def make_train_step(env, config: PPOConfig, optimizer=None,
                     obs_dtype: torch.dtype = torch.float32,
-                    draws: Callable[[torch.Generator], Any] = GeneratorDraws):
+                    draws: Callable[[torch.Generator], Any] = GeneratorDraws,
+                    mesh=None):
     """Builds ``train_step(state: TrainState) -> (TrainState, metrics)``
     and returns it with the optimizer factory, a callable of the
     parameters, that ``init_train_state`` takes: by default Adam with
@@ -248,20 +249,47 @@ def make_train_step(env, config: PPOConfig, optimizer=None,
 
     ``train_step`` updates ``state.module`` and ``state.optimizer`` in
     place and returns a state with the new env state and observation.
-    ``env`` needs only ``step(env_state, action) -> (env_state, ts)``."""
+    ``env`` needs only ``step(env_state, action) -> (env_state, ts)``.
+
+    With ``mesh`` (``dm_control_torch.parallel``) the state holds this
+    rank's rows of the env batch (``init_train_state(..., mesh=)``), and
+    each rank steps only those (``parallel.shard_env_map``: no collective
+    inside the env step).  The learner stays global, as the JAX
+    package's: the rollout is gathered from every rank and each rank
+    makes the same update.  Every random draw of the learner (action
+    noise for the whole batch, the minibatch order) comes from the
+    learner's generator, the same on every rank, which keeps its own rows
+    of the noise: W ranks of B / W environments compute what one process
+    of B computes."""
     optimizer = optimizer or functools.partial(
         torch.optim.Adam, lr=config.pi_lr, betas=(0.9, 0.999), eps=1e-8)
     T = config.steps_per_batch
+    if mesh is not None:
+        from dm_control_torch import parallel
+
+        env_step = parallel.shard_env_map(mesh, env.step)
+        world = mesh.world_size
+
+        def gather(x, dim=0):
+            return parallel.all_gather_rows(mesh, x, dim)
+    else:
+        env_step, world = env.step, 1
+
+        def gather(x, dim=0):
+            return x
 
     def rollout(module, env_state, obs, rand):
         steps = []
         with torch.no_grad():
             for _ in range(T):
-                noise = rand.normal((obs.shape[0], module.log_std.shape[0]),
+                noise = rand.normal((obs.shape[0] * world,
+                                     module.log_std.shape[0]),
                                     module.log_std.dtype)
+                if mesh is not None:
+                    noise = noise[mesh.rows(noise.shape[0])]
                 action, logp = module.sample_action(obs, noise)
                 val = module.value(obs)
-                env_state, ts = env.step(
+                env_state, ts = env_step(
                     env_state, action.to(env_state.data.qpos.dtype))
                 steps.append(Transition(
                     obs=obs, action=action, logp=logp, value=val,
@@ -279,7 +307,9 @@ def make_train_step(env, config: PPOConfig, optimizer=None,
         env_state, last_obs, traj = rollout(module, state.env_state,
                                             state.last_obs, rand)
         with torch.no_grad():
-            adv, ret = compute_gae(traj, module.value(last_obs),
+            # the whole batch's rollout on every rank: (T, B, ...)
+            traj = Transition(*(gather(x, 1) for x in traj))
+            adv, ret = compute_gae(traj, gather(module.value(last_obs)),
                                    config.gamma, config.lam)
             # (T, B, ...) -> (T*B, ...)
             flat = Transition(*(x.reshape((-1,) + x.shape[2:])
@@ -333,18 +363,33 @@ def make_train_step(env, config: PPOConfig, optimizer=None,
 
 
 def init_train_state(env, generator: torch.Generator, batch_size: int,
-                     optimizer, obs_dtype: torch.dtype = torch.float32
-                     ) -> TrainState:
+                     optimizer, obs_dtype: torch.dtype = torch.float32,
+                     mesh=None) -> TrainState:
     """Resets ``batch_size`` environments (their episodes, and later
     autoresets, draw from ``generator``) and builds the 64-64 module in
     ``obs_dtype`` on the env's device, and its optimizer.  The learner's
     generator is seeded from one draw of ``generator``.  (The JAX package
-    keeps float32 parameters whatever ``obs_dtype`` is.)"""
+    keeps float32 parameters whatever ``obs_dtype`` is.)
+
+    With ``mesh`` every rank, given the same ``generator``, draws the
+    same ``batch_size`` episodes and keeps its rows of them
+    (``parallel.shard_batch``); a rank's later autoresets draw from a
+    generator of its own, seeded from one more draw and its rank (so
+    they are not those of one process of ``batch_size``)."""
     device = env.model.device
     seed = int(torch.randint(2 ** 62, (), generator=generator,
                              device=generator.device))
     learner = torch.Generator(device=device).manual_seed(seed)
     env_state, ts = env.reset(batch_size, generator)
+    if mesh is not None:
+        from dm_control_torch import parallel
+
+        env_seed = int(torch.randint(2 ** 62, (), generator=generator,
+                                     device=generator.device))
+        env_state, ts = parallel.shard_batch(mesh, (env_state, ts),
+                                             batch=batch_size)
+        env_state = env_state.replace(rng=torch.Generator(
+            device=device).manual_seed(env_seed + mesh.rank))
     obs = flatten_obs(ts.observation).to(obs_dtype)
     module = init_actor_critic(learner, obs.shape[-1], env.model.nu,
                                dtype=obs_dtype)

@@ -71,14 +71,22 @@ class Trainer:
     """The epoch loop over ``TrajectoryDataset`` splits (reference
     trainer.py:42-140).  Dropout is drawn from the trainer's generator
     (seeded ``config.seed`` on ``device``), where the JAX trainer draws
-    from the constant key ``PRNGKey(0)`` at every step (ROADMAP C)."""
+    from the constant key ``PRNGKey(0)`` at every step (ROADMAP C).
+
+    With ``mesh`` (``dm_control_torch.parallel``, its device the
+    trainer's), data parallelism as the JAX trainer's ``data`` axis: the
+    parameters are replicated (rank 0's broadcast at ``init``), every rank
+    draws the same global batch and takes its rows of it, and the
+    gradients are averaged over the ranks before the global-norm clip, so
+    each rank makes the same update; the losses reported are the ranks'
+    mean."""
 
     def __init__(self, model, train_dataset, test_dataset, config,
                  mesh=None, *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data parallelism across devices comes "
-                "with the port of dm_control_tpu/parallel (ROADMAP A7)")
+        self.mesh = mesh
+        if mesh is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"the trainer's device {device} is not the "
+                             f"mesh's {mesh.device}")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
@@ -95,6 +103,12 @@ class Trainer:
         module's, from the trainer's generator, and builds the
         optimiser.  Returns the model."""
         init_model(self.model, self.generator)
+        if self.mesh is not None and self.mesh.distributed:
+            # every rank draws the same; rank 0's are the ones kept
+            import torch.distributed as dist
+
+            for p in self.model.parameters():
+                dist.broadcast(p.data, 0)
         self.build_optimizer()
         return self.model
 
@@ -121,7 +135,17 @@ class Trainer:
         act = torch.as_tensor(act).to(self.device, dtype)
         if isinstance(self.model, FFNet) and obs.dim() == 3:
             obs, act = obs[:, 0], act[:, 0]
+        if self.mesh is not None:  # this rank's rows of the batch
+            rows = self.mesh.rows(obs.shape[0])
+            obs, act = obs[rows], act[rows]
         return obs, act
+
+    def _mean_over_ranks(self, tensors):
+        if self.mesh is not None:
+            from dm_control_torch.parallel import all_reduce_mean
+
+            all_reduce_mean(self.mesh, tensors)
+        return tensors
 
     def _train_step(self, obs, act, lr_scale):
         """One update on a batch; returns the loss before it."""
@@ -130,18 +154,21 @@ class Trainer:
                              generator=self.generator)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
+        self._mean_over_ranks([p.grad for p in self.model.parameters()
+                               if p.grad is not None])
         clip_by_global_norm_(
             [p for p in self.model.parameters() if p.grad is not None],
             self.config.grad_norm_clip)
         for group in self.optimizer.param_groups:
             group["lr"] = self.config.learning_rate * lr_scale
         self.optimizer.step()
-        return loss.detach()
+        return self._mean_over_ranks([loss.detach()])[0]
 
     @torch.no_grad()
     def _eval_step(self, obs, act):
         self.model.eval()
-        return self.model(obs, act, deterministic=True)[1]
+        return self._mean_over_ranks(
+            [self.model(obs, act, deterministic=True)[1]])[0]
 
     def _epoch_batches(self, dataset, rng):
         """One epoch of batches: with ``num_workers`` > 0 from the native
@@ -173,7 +200,8 @@ class Trainer:
             obs, act = self._prep(obs, act)
             if split == "train":
                 if config.lr_decay:
-                    self.tokens += int(np.prod(act.shape[:-1]))
+                    self.tokens += int(np.prod(act.shape[:-1])) * (
+                        self.mesh.world_size if self.mesh else 1)
                     lr_scale = lr_multiplier(self.tokens, config)
                 else:
                     lr_scale = 1.0

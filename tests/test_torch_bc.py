@@ -404,8 +404,8 @@ def test_decayed_parameters_match_jax_mask(name, golden):
 
 
 def test_checkpoint_round_trip_and_mesh(tmp_path):
-    """A checkpoint restores every parameter bit for bit; a mesh is
-    refused (ROADMAP A7)."""
+    """A checkpoint restores every parameter bit for bit; a trainer with a
+    mesh of this process alone trains as one without."""
     ds = tdataset.TrajectoryDataset.from_arrays(*_synthetic(), 4)
     path = str(tmp_path / "model.pt")
     model = tmodel.GPT(tmodel.GPTConfig(4, 2, 4, n_layer=1, n_head=2,
@@ -420,9 +420,19 @@ def test_checkpoint_round_trip_and_mesh(tmp_path):
     trainer.load_checkpoint()
     for k, v in model.state_dict().items():
         assert torch.equal(v, saved[k]), k
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrainer.Trainer(model, ds, None, ttrainer.TrainerConfig(),
-                         mesh=object(), device="cpu")
+    # a mesh of this process alone: the same losses and parameters
+    from dm_control_torch import parallel
+
+    runs = []
+    for mesh in (None, parallel.make_mesh(device="cpu")):
+        net = tmodel.GPT(tmodel.GPTConfig(4, 2, 4, n_layer=1, n_head=2,
+                                          n_embd=8))
+        history = ttrainer.Trainer(net, ds, None, ttrainer.TrainerConfig(
+            max_epochs=1, batch_size=8), mesh=mesh, device="cpu").train()
+        runs.append((history, net.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
 
 
 # -- evaluation and replay ----------------------------------------------------

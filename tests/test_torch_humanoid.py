@@ -139,19 +139,31 @@ def test_divergence_terminates_only_its_env(gold, tenv):
 
 
 def test_other_domains_are_not_ported():
-    """Every suite domain is ported; what only the composer's models bring
-    still raises, naming its ROADMAP item: here a ball joint."""
+    """Every suite domain is ported, and what only the composer's models
+    bring is too: a ball joint in the humanoid's place of its first hinge
+    (the next three joints, whose qpos it takes, made unbounded slides,
+    which the randomizer leaves alone) gets a drawn quaternion from the
+    randomizer (a bounded one within its range's upper end), where it used
+    to raise."""
     from dm_control_torch.rl.control import RandomContext
     from dm_control_torch.suite.utils import randomizers
 
     m = tsuite.load_batch("humanoid", "run", device="cpu",
                           dtype=torch.float32).model
-    ball = m.replace(jnt_type=(m.jnt_type[0], int(JointType.BALL))
-                     + m.jnt_type[2:])
+    slide = (int(JointType.SLIDE),) * 3
+    ball = m.replace(
+        jnt_type=(m.jnt_type[0], int(JointType.BALL)) + slide
+        + m.jnt_type[5:],
+        jnt_limited=tuple(m.jnt_limited[:2]) + (False,) * 3
+        + tuple(m.jnt_limited[5:]))
     rc = RandomContext(torch.Generator().manual_seed(0), 2, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        randomizers.randomize_limited_and_rotational_joints(
-            ball, m.qpos0.expand(2, m.nq), rc)
+    qpos = randomizers.randomize_limited_and_rotational_joints(
+        ball, m.qpos0.expand(2, m.nq), rc)
+    a = m.jnt_qposadr[1]
+    quat = qpos[:, a:a + 4]
+    torch.testing.assert_close(quat.norm(dim=-1), torch.ones(2))
+    angle = 2 * torch.acos(quat[:, 0].clamp(-1, 1))
+    assert bool((angle <= m.jnt_range[1, 1] + 1e-6).all())
 
 
 def test_cpu_run_launches_no_kernel(gold, tenv):

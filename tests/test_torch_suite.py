@@ -301,16 +301,15 @@ def test_load_batch_errors():
     from dm_control_torch.physics import sensors as tsens
     from dm_control_torch.physics.model import SensorType
 
-    # every domain loads; a sensor type only the composer's models declare
-    # raises, naming its ROADMAP item
+    # every domain loads; a sensor type the JAX package does not compute
+    # raises, and says so
     m = tsuite.load_batch("humanoid_CMU", "stand", device="cpu",
                           dtype=torch.float32).model
-    magnetometer = m.replace(sensor_type=(int(SensorType.MAGNETOMETER),)
-                             + m.sensor_type[1:])
+    actuatorfrc = m.replace(sensor_type=(int(SensorType.ACTUATORFRC),)
+                            + m.sensor_type[1:])
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP A5: composer, locomotion and "
-                             "manipulation"):
-        tsens.sensor_pos(magnetometer, make_data(magnetometer, 1))
+                       match="no computation in the JAX package"):
+        tsens.sensor_pos(actuatorfrc, make_data(actuatorfrc, 1))
     with pytest.raises(ValueError, match="Level 'fly'"):
         tsuite.load_batch("walker", "fly", device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="does not exist"):

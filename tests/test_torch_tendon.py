@@ -147,10 +147,14 @@ def test_other_tendon_features_still_raise():
     wrapped = m.replace(wrap_type=(3, 4))  # a site, then a sphere to wrap
     with pytest.raises(NotImplementedError, match="wrapping"):
         tkin.tendon(wrapped, make_data(wrapped, 1))
+    # a TENDONPOS sensor, which used to raise, reads the tendon's length
     sensing = m.replace(nsensor=1, sensor_type=(10,), sensor_objtype=(0,),
-                        sensor_objid=(0,), sensor_adr=(0,), sensor_dim=(1,))
-    with pytest.raises(NotImplementedError, match="TENDONPOS"):
-        tsens.sensor_pos(sensing, make_data(sensing, 1))
-    tied = m.replace(neq=1, eq_type=(0,))  # EqType.CONNECT
-    with pytest.raises(NotImplementedError, match="CONNECT equality"):
+                        sensor_objid=(0,), sensor_adr=(0,), sensor_dim=(1,),
+                        nsensordata=1)
+    d = tkin.tendon(sensing, tkin.com_pos(sensing, tkin.kinematics(
+        sensing, make_data(sensing, 1))))
+    torch.testing.assert_close(tsens.sensor_pos(sensing, d).sensordata[:, 0],
+                               d.ten_length[:, 0], rtol=0, atol=0)
+    tied = m.replace(neq=1, eq_type=(4,))  # EqType.DISTANCE
+    with pytest.raises(NotImplementedError, match="DISTANCE equality"):
         tcons.make_constraint(tied, make_data(tied, 1))

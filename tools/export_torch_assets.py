@@ -11,7 +11,8 @@ imports ``dm_control_tpu`` and JAX.
     JAX_PLATFORMS=cpu python tools/export_torch_assets.py [domain ...]
 
 (``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
-alone; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
+alone, ``golden:features`` the engine-features recording,
+``duplo_golden`` the Duplo separation recording; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
 single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
 six; ``manipulation`` the four manipulation models and their goldens;
 ``manip_env_golden:NAME`` one host episode of ``MANIP_ENV_GOLDENS``, and
@@ -135,6 +136,7 @@ It writes, for every ported domain (or only the ones named),
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -813,6 +815,170 @@ def golden_step(domain, states, prefix):
     return out
 
 
+#: environments a start-state kind of the features recording
+FEATURES_BATCH = 4
+#: the features recording's torso height in each kind of start state: in
+#: the air, and with the box's lower corners and the chain in the floor
+FEATURES_HEIGHT = {"reset": 0.3, "contact": 0.045}
+
+
+def features_states(m, prefix, batch, seed=3):
+    """Start states of the features model (numpy, float64): qpos0 with
+    every scalar joint moved by N(0, 0.05^2), every quaternion turned by
+    a rotation of N(0, 0.1^2) per axis, the torso at ``FEATURES_HEIGHT``
+    of the prefix's kind, N(0, 0.3^2) velocities and U(-1, 1) controls;
+    ``qacc_warmstart`` and ``time`` 0."""
+    from dm_control_torch.physics.model import JointType
+
+    rng = np.random.RandomState(seed)
+    qpos = np.tile(m.qpos0.cpu().numpy().astype(np.float64), (batch, 1))
+    for j in range(m.njnt):
+        a, jtype = m.jnt_qposadr[j], m.jnt_type[j]
+        if jtype in (int(JointType.HINGE), int(JointType.SLIDE)):
+            qpos[:, a] += 0.05 * rng.randn(batch)
+            continue
+        if jtype == int(JointType.FREE):
+            qpos[:, a:a + 3] += 0.05 * rng.randn(batch, 3)
+            a += 3
+        rot = 0.1 * rng.randn(batch, 3)
+        half = 0.5 * np.linalg.norm(rot, axis=1, keepdims=True)
+        dq = np.concatenate([np.cos(half), np.sinc(half / np.pi) * 0.5 * rot],
+                            axis=1)
+        q = qpos[:, a:a + 4]
+        w1, v1, w2, v2 = q[:, :1], q[:, 1:], dq[:, :1], dq[:, 1:]
+        prod = np.concatenate([w1 * w2 - np.sum(v1 * v2, 1, keepdims=True),
+                               w1 * v2 + w2 * v1 + np.cross(v1, v2)], 1)
+        qpos[:, a:a + 4] = prod / np.linalg.norm(prod, axis=1, keepdims=True)
+        if jtype == int(JointType.FREE):
+            qpos[:, a - 1] = FEATURES_HEIGHT[prefix.split("_")[-1]]
+    return dict(qpos=qpos, qvel=0.3 * rng.randn(batch, m.nv),
+                qacc_warmstart=np.zeros((batch, m.nv)),
+                time=np.zeros(batch),
+                actions=rng.uniform(-1.0, 1.0, (batch, m.nu)))
+
+
+def features_golden_path():
+    from dm_control_torch.rl import golden
+
+    return os.path.join(ROOT, *golden.FEATURES_GOLDEN)
+
+
+def make_features_golden():
+    """The features recording (``rl/golden.py``, ``FEATURES_PREFIXES``):
+    the port's float64 compile of ``tests/data/torch_features.xml``, held
+    field by field in a JAX ``Model`` (``tests/_torch_helpers.py::
+    jax_model_from_port``), stepped once by the JAX engine from each
+    prefix's start states."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from dm_control_tpu.physics import engine as jengine
+    from dm_control_tpu.physics.model import make_data as jmake_data
+    from dm_control_torch.rl import golden
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_helpers import jax_model_from_port
+
+    out = {}
+    for prefix in golden.FEATURES_PREFIXES:
+        m = golden.features_model(ROOT, prefix, "cpu", torch.float64)
+        jm = jax_model_from_port(m)
+        state = features_states(m, prefix, FEATURES_BATCH)
+
+        def one(qpos, qvel, warm, time, ctrl):
+            d = jmake_data(jm).replace(qpos=qpos, qvel=qvel,
+                                       qacc_warmstart=warm, time=time,
+                                       ctrl=ctrl)
+            d = jengine.step(jm, d)
+            return {f: getattr(d, f) for f in golden.FEATURES_STEP_FIELDS}
+
+        args = [jnp.asarray(state[k]) for k in (
+            "qpos", "qvel", "qacc_warmstart", "time", "actions")]
+        got = jax.jit(jax.vmap(one))(*args)
+        out.update({f"{prefix}_{k}": v for k, v in state.items()})
+        out.update({f"{prefix}_step_{k}": np.asarray(v)
+                    for k, v in got.items()})
+        if prefix.startswith("euler_"):
+            stages = jax.jit(jax.vmap(functools.partial(
+                features_stages, jm)))(*args)
+            out.update({f"{prefix}_stage_{k}": np.asarray(v)
+                        for k, v in stages.items()})
+    return out
+
+
+def features_stages(m, qpos, qvel, warm, time, ctrl):
+    """The pipeline's stages at one start state, by name
+    (``rl/golden.py::FEATURES_STAGES``), through the module functions of
+    the JAX package (``tests/test_torch_engine_features.py`` calls the
+    port's of the same names)."""
+    from dm_control_tpu.physics import constraints, engine, sensors
+    from dm_control_tpu.physics.model import make_data
+
+    d = make_data(m).replace(qpos=qpos, qvel=qvel, qacc_warmstart=warm,
+                             time=time, ctrl=ctrl)
+    return features_stage_fields(engine, sensors, constraints, m, d)
+
+
+def features_stage_fields(engine, sensors, constraints, m, d):
+    """``features_stages``' fields from either package's modules."""
+    from dm_control_torch.rl import golden
+
+    pv = sensors.sensor_vel(m, engine.fwd_velocity(
+        m, sensors.sensor_pos(m, engine.fwd_position(m, d))))
+    efc = constraints.make_constraint(m, pv)
+    fw = engine.forward(m, d)
+    out = {f: getattr(pv, f) for f in golden.FEATURES_STAGES}
+    out.update({f"efc_{f}": getattr(efc, f)
+                for f in ("J", "D", "R", "aref", "pos")})
+    out.update({f"contact_{f}": getattr(pv.contact, f)
+                for f in ("dist", "pos", "frame")})
+    out.update({f"forward_{f}": getattr(fw, f)
+                for f in golden.FEATURES_FORWARD})
+    return out
+
+
+#: ``measure_separation_force``'s arguments of the Duplo recording: five
+#: steps a probe, a bracket around the force such a short probe needs
+DUPLO_ARGS = dict(min_force=512.0, max_force=1024.0, tolerance=8.0,
+                  time_limit=0.01)
+#: the force of the recorded probe whose heights are kept
+DUPLO_PROBE_FORCE = 900.0
+
+
+def duplo_golden_path():
+    return os.path.join(ROOT, "tests", "data",
+                        "torch_duplo_separation_f64.npz")
+
+
+def make_duplo_golden():
+    """The JAX package's ``measure_separation_force`` of two default
+    bricks at ``DUPLO_ARGS`` (``force``), and the top brick's height
+    before each step of one probe at ``DUPLO_PROBE_FORCE``
+    (``probe_heights``), read as the probe reads it."""
+    from dm_control_tpu.entities.props import duplo
+    from dm_control_tpu.entities.props.duplo import utils
+    from dm_control_tpu.physics.physics import Physics
+
+    force = utils.measure_separation_force(duplo.Duplo(), duplo.Duplo(),
+                                           **DUPLO_ARGS)
+    arena, frame = utils.stack_bricks(duplo.Duplo(), duplo.Duplo())
+    root = arena.mjcf_model
+    option = root.first("option") or root.add("option")
+    option.attrib["gravity"] = "0 0 0"
+    physics = Physics.from_mjcf_model(root)
+    binding = physics.bind(frame)
+    n_steps = int(round(DUPLO_ARGS["time_limit"]
+                        / float(physics.model.opt.timestep)))
+    physics.reset()
+    heights = [float(binding.xpos[2])]
+    binding.xfrc_applied = np.array([0, 0, DUPLO_PROBE_FORCE, 0, 0, 0.0])
+    for _ in range(n_steps):
+        physics.step()
+        heights.append(float(binding.xpos[2]))
+    return dict(force=np.float64(force), probe_heights=np.array(heights))
+
+
 def make_golden(domain="humanoid"):
     golden = golden_states(domain)
     for prefix in PREFIXES:
@@ -879,6 +1045,16 @@ def main(argv=None):
                 np.savez(golden_path(golden), **make_golden(golden))
                 print("wrote", os.path.relpath(golden_path(golden), ROOT),
                       flush=True)
+            continue
+        if domain == "duplo_golden":
+            np.savez(duplo_golden_path(), **make_duplo_golden())
+            print("wrote", os.path.relpath(duplo_golden_path(), ROOT),
+                  flush=True)
+            continue
+        if domain == "golden:features":
+            np.savez(features_golden_path(), **make_features_golden())
+            print("wrote", os.path.relpath(features_golden_path(), ROOT),
+                  flush=True)
             continue
         if domain.startswith("golden:"):
             golden = domain[len("golden:"):]
