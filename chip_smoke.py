@@ -2,7 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
+Builds the port's two CUDA sources at once (the batched Cholesky solve and
+the fused scalar-chain step of ``physics/fastpath.py``, which pendulum,
+cartpole, acrobot, reacher, walker and cheetah take: phase 4's goldens of
+those six go through it in float64, phase 5's main paths of them launch it
+once a control step and never chol_solve, and hold it against its plain
+version for one control step from the state after the warm-up step, in
+float32 at the path's batch and float64 at B = 256, and time it at
+cartpole's and cheetah's batch beside its bound, its plain version and
+``engine.step``).  It builds the batched Cholesky kernel, holds it
 against its plain PyTorch version (sizes on both sides of every boundary
 of the launcher's rule, its register, block and global branches, and
 every nv of the ported models up to 1,370, both types, a
@@ -141,6 +149,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -235,6 +244,19 @@ TIMED_SINGLE = ((1, 27, torch.float64), (1, 27, torch.float32),
                 (128, 27, torch.float64), (4, 22, torch.float64),
                 (1, 6, torch.float64))
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+#: phase 5's fused-step check: float64 environments (the first of the
+#: float32 path's state), and how much further from the float64 step than
+#: the plain float32 version the float32 kernel may be where float32 itself
+#: is off it by more than TOL (``phase_fast_check``)
+FAST_B64 = 256
+FAST_F32_FACTOR = 2.0
+#: the main paths whose fused step is timed (``time_fast``): the JAX
+#: package's bench rungs
+FAST_TIMED = (("cartpole", "swingup"), ("cheetah", "run"))
+#: the suite domains whose main path takes the fused fast path, as in the
+#: JAX package's BatchEnv
+FAST_DOMAINS = ("pendulum", "cartpole", "acrobot", "reacher", "walker",
+                "cheetah")
 #: phase 8: the single-environment episode goldens
 #: (tests/data/torch_env_<domain>_<task>_f64.npz: a reset and 5 control
 #: steps of the JAX package's suite.load with task_kwargs={"random": 11})
@@ -492,13 +514,16 @@ def check(cond, msg):
 
 def ptxas_kernels(report: str) -> list:
     """Each kernel's registers, stack and spills from nvcc's ``-Xptxas -v``
-    report, named by branch and type (``global<double>``)."""
+    report, named by branch (or ``fastpath_step``) and type
+    (``global<double>``)."""
     out, name = [], None
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             branch = next((b for b in ("reg", "block", "global")
-                           if f"chol_solve_{b}_kernel" in mangled), mangled)
+                           if f"chol_solve_{b}_kernel" in mangled),
+                          "fastpath_step" if "fastpath_step_kernel" in mangled
+                          else mangled)
             kind = "double" if "IdL" in mangled or "IdE" in mangled else \
                 "float"
             cols = "Li2E" in mangled and ", 2 columns" or ""
@@ -669,6 +694,74 @@ def check_branch(linalg, what, model, launches, branch_launches):
           f"{branch} kernel")
 
 
+def reset_counts(linalg):
+    """Sets every kernel's launch count to 0: chol_solve's (by branch) and
+    the fused fast path's."""
+    from dm_control_torch.physics import fastpath
+
+    linalg.reset_launch_counts()
+    fastpath.reset_launch_count()
+
+
+def fast_launches() -> int:
+    """The fused fast path's kernel launches since the count was set to 0."""
+    from dm_control_torch.physics import fastpath
+
+    return fastpath.fastpath_step_cuda.launches
+
+
+def takes_fast(env) -> bool:
+    """Whether a BatchEnv runs its steps through the fused fast path."""
+    return getattr(env, "_fast", None) is not None
+
+
+def check_fast(linalg, what, fast, control_steps, resets=0, settle=False):
+    """A path through the fused fast path: no chol_solve launch, and one
+    fast-path launch a control step (and one a reset with settle steps;
+    an autoreset's reset may add one more a step).  Returns the fast-path
+    launches."""
+    check(linalg.chol_solve.launches == 0,
+          f"{what}: chol_solve launched {linalg.chol_solve.launches} times "
+          f"on a fast-path path")
+    low = control_steps + (resets if settle else 0)
+    high = low + (control_steps if settle else 0)
+    check(low <= fast <= high,
+          f"{what}: the fast path launched {fast} times in {control_steps} "
+          f"control steps and {resets} resets (settle steps: {settle}); "
+          f"expected {low}..{high}")
+    return fast
+
+
+class PlainFast:
+    """A BatchEnv's fused step sent to its plain version on the card, to
+    hold a path through the kernel against the same path without it."""
+
+    def __init__(self, fast):
+        self.fast = fast
+        self.fk_observe_ok = fast.fk_observe_ok
+        self.fk_fields = fast.fk_fields
+
+    def __call__(self, qpos, qvel, warm, ctrl, n_steps=1):
+        return self.fast.plain(qpos, qvel, warm, ctrl, n_steps)
+
+
+@contextlib.contextmanager
+def plain_version(linalg, env):
+    """Within this block ``env`` runs without the kernels: its fused step
+    through the plain version where it takes the fast path, its dense
+    solves under ``reference_solves()`` otherwise."""
+    if not takes_fast(env):
+        with linalg.reference_solves():
+            yield
+        return
+    fast = env._fast
+    env._fast = PlainFast(fast)
+    try:
+        yield
+    finally:
+        env._fast = fast
+
+
 def check_close(x, ref, dtype, what):
     err = (x - ref).abs() - TOL[dtype] * ref.abs()
     check(bool(torch.isfinite(x).all()), f"non-finite x at {what}")
@@ -809,7 +902,7 @@ def time_shapes(linalg, shapes):
     return [out for out, _ in timed]
 
 
-def phase_golden(suite, name, domain, task, env=None):
+def phase_golden(suite, linalg, name, domain, task, env=None):
     """One float64 control step from the golden's start states (after a
     reset, and some steps later: on the floor, the string taut, the ball at
     rest, the feet loaded) with the golden's per-episode model overrides,
@@ -828,6 +921,7 @@ def phase_golden(suite, name, domain, task, env=None):
                                dtype=torch.float64, autoreset=False,
                                task_kwargs=TASK_KWARGS.get(domain))
     errs, rest, rel = {}, 0.0, 0.0
+    reset_counts(linalg)
     for p in golden.PREFIXES:
         one = golden.step_errors(env, gold, p)
         errs.update({f"{p}_{k}": v for k, v in one.items()})
@@ -841,7 +935,10 @@ def phase_golden(suite, name, domain, task, env=None):
     check(all(errs[f"{p}_{k}"] == 0 for p in golden.PREFIXES
               for k in ("discount", "step_type")),
           f"golden discount or step type mismatch in {name}")
-    return errs[worst], worst, rest, rel
+    if takes_fast(env):  # each recorded step through the fused kernel
+        check_fast(linalg, f"golden {name}", fast_launches(),
+                   len(golden.PREFIXES))
+    return errs[worst], worst, rest, rel, fast_launches()
 
 
 def min_solves_per_substep(env):
@@ -904,22 +1001,27 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     solver.noslip.slots = 0
     t0 = time.perf_counter()
     state, ts = env.reset(batch, gen)
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
     reset_launches = linalg.chol_solve.launches
+    fast = takes_fast(env)
+    reset_fast = fast_launches()
     seen = {} if inspect is None else {"reset": inspect(env, state)}
     step_times = []
     diverged = 0
     rewards = []
+    after_warmup = None
     for i in range(MAIN_STEPS):
         t0 = time.perf_counter()
         state, ts = env.step(state, actions())
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
+        if i == 0 and fast:
+            after_warmup = state
         # divergence, not a termination with discount 0 (a goal, a fall)
         diverged += int(engine.check_divergence(env.model,
                                                 state.data).sum())
@@ -929,6 +1031,7 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
               f"{domain}: non-finite observation at step {i}")
     launches = linalg.chol_solve.launches
     branch_launches = dict(linalg.chol_solve.branch_launches)
+    total_fast = fast_launches()
     check_branch(linalg, f"{domain}:{task}", env.model, launches,
                  branch_launches)
     noslip_slots = solver.noslip.slots
@@ -944,12 +1047,25 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
     check(ok, f"{what}: {holds}")
     share = diverged / (batch * MAIN_STEPS)
     substeps = MAIN_STEPS * env.n_sub_steps
-    check(reset_launches >= min_solves * env.task.settle_steps,
-          f"{what}: chol_solve launched {reset_launches} times in a reset "
-          f"of {env.task.settle_steps} settle steps")
-    check(launches - reset_launches >= max(1, min_solves * substeps),
-          f"{what}: chol_solve launched {launches - reset_launches} times "
-          f"in {substeps} substeps (expected >= {min_solves} per substep)")
+    if fast:
+        # one launch a control step (its substeps), one a reset that
+        # settles; chol_solve not at all
+        settle = bool(env.task.settle_steps)
+        check(reset_fast == int(settle),
+              f"{what}: the fast path launched {reset_fast} times in a reset "
+              f"of {env.task.settle_steps} settle steps")
+        check_fast(linalg, what, total_fast - reset_fast, MAIN_STEPS,
+                   settle=settle)
+    else:
+        check(total_fast == 0, f"{what}: the fast path launched "
+                               f"{total_fast} times on the general path")
+        check(reset_launches >= min_solves * env.task.settle_steps,
+              f"{what}: chol_solve launched {reset_launches} times in a "
+              f"reset of {env.task.settle_steps} settle steps")
+        check(launches - reset_launches >= max(1, min_solves * substeps),
+              f"{what}: chol_solve launched {launches - reset_launches} "
+              f"times in {substeps} substeps (expected >= {min_solves} per "
+              f"substep)")
     if env.model.opt.noslip_iterations:
         check(noslip_slots > 0, f"{what}: the noslip sweep visited no "
               f"contact")
@@ -972,7 +1088,10 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                         idle_share_unprofiled=1 - busy_ms / median_ms)
     return dict(domain=domain, task=task, batch=batch, launches=launches,
                 branch_launches=branch_launches,
-                reset_launches=reset_launches, substeps=substeps,
+                reset_launches=reset_launches, substeps=substeps, fast=fast,
+                fast_launches=total_fast, fast_reset_launches=reset_fast,
+                fast_per_step=(total_fast - reset_fast) / MAIN_STEPS,
+                after_warmup=after_warmup, env=env if fast else None,
                 min_solves=min_solves, env_steps_per_s=sps,
                 diverged_share=share, reset_s=reset_s,
                 drop_rounds=getattr(env.task, "last_drop_rounds", None),
@@ -984,6 +1103,181 @@ def phase_main(suite, linalg, solver, domain, task, batch, env=None,
                     noslip_slots / substeps
                     if env.model.opt.noslip_iterations else None),
                 seen=seen, **profiled)
+
+
+def fast_inputs(env, state, seed=2):
+    """A control step's inputs to the fused step from ``state``: the task's
+    ``before_step`` with seeded uniform actions, as ``BatchEnv.step`` does
+    (qpos, qvel, warm start, ctrl), and the Data they came from."""
+    from dm_control_torch.rl.control import apply_model_diff
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B = state.data.qpos.shape[0]
+    action = 2.0 * torch.rand(B, env.model.nu, generator=gen, device="cuda",
+                              dtype=env.model.dtype) - 1.0
+    d = env.task.before_step(apply_model_diff(env.model, state.model_diff),
+                             env._unstrip(state.data), action)
+    return [x.contiguous() for x in (d.qpos, d.qvel, d.qacc_warmstart,
+                                     d.ctrl)], d
+
+
+def _env_dev(got, ref, scale):
+    """Each environment's largest |got - ref| over the three state fields,
+    each field over max(1, ``scale``'s largest |entry| in that field)."""
+    return torch.stack([
+        ((g - r).abs().amax(-1) / max(1.0, float(c.abs().max()))).double()
+        for g, r, c in zip(got, ref, scale)]).amax(0)
+
+
+def phase_fast_check(suite, fastpath, domain, task, env, state):
+    """The fused-step kernel against its plain version, each called
+    directly, for one control step from ``state`` (after the warm-up step)
+    with the same inputs: in float32 at the path's B, and in float64 at B =
+    ``FAST_B64`` from the first environments of the same state.
+
+    float64: every field within ``TOL`` (1e-10) of max(1, its largest
+    |entry|).  float32: each environment within ``TOL`` (2e-4) of the same
+    scale, or, where the float32 step itself is further than that from the
+    float64 step of the same state (stiff contacts: the Newton loop stops
+    on float32 cost comparisons, which fix qacc to about the square root
+    of float32's epsilon), the kernel no further from the float64 step
+    than ``FAST_F32_FACTOR`` times the plain float32 version is."""
+    t0 = time.perf_counter()
+    args, _ = fast_inputs(env, state)
+    n = env.n_sub_steps
+    got = fastpath.fastpath_step_cuda(env._fast, *args, n)
+    torch.cuda.synchronize()
+    ref = env._fast.plain(*args, n)
+    env64 = suite.load_batch(domain, task, device="cuda",
+                             dtype=torch.float64,
+                             task_kwargs=TASK_KWARGS.get(domain))
+    args64 = [a.double() for a in args]
+    dev = _env_dev(got, ref, ref)
+    fine = dev <= TOL[torch.float32]
+    # the float64 step of the float32 state: of every environment where
+    # some is off TOL, else of the first FAST_B64 (the float64 check's)
+    rows = slice(None) if not bool(fine.all()) else slice(0, FAST_B64)
+    ref64 = env64._fast.plain(*[a[rows] for a in args64], n)
+    dev_plain = _env_dev([r[rows] for r in ref], ref64, ref64)
+    dev_kernel = _env_dev([g[rows] for g in got], ref64, ref64)
+    coarse = ~fine[rows] & (dev_plain > TOL[torch.float32])
+    held = fine[rows] | (coarse & (dev_kernel <= FAST_F32_FACTOR * dev_plain))
+    what = f"{domain}:{task} B={args[0].shape[0]} float32"
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: a non-finite value through the kernel")
+    ratio = float((dev_kernel / dev_plain.clamp(min=1e-300))[coarse].max()) \
+        if bool(coarse.any()) else 0.0
+    check(bool(fine.all()) or bool(held.all()),
+          f"{what}: kernel != plain in {int((~held).sum())} environments: "
+          f"largest deviation {float(dev.max()):.3e} of the scale")
+    a64 = [a[:FAST_B64].contiguous() for a in args64]
+    got64 = fastpath.fastpath_step_cuda(env64._fast, *a64, n)
+    torch.cuda.synchronize()
+    ref64_b = [r[:FAST_B64] for r in ref64]
+    err64 = float(_env_dev(got64, ref64_b, ref64_b).max())
+    check(err64 <= TOL[torch.float64],
+          f"{domain}:{task} B={FAST_B64} float64: kernel vs plain "
+          f"{err64:.3e} of the scale (<= 1e-10)")
+    return dict(err32=float(dev.max()), coarse=int(coarse.sum()),
+                coarse_ratio=ratio, plain32_vs_64=float(dev_plain.max()),
+                err64=err64, seconds=time.perf_counter() - t0,
+                max_abs_err=max(float((g - r).abs().max())
+                                for g, r in zip(got, ref)))
+
+
+def fast_ops(step, n_steps, newton_iterations):
+    """Floating-point operations of the fused step on this run's data,
+    counted from the device functions of ``csrc/fastpath_step.cu`` (each
+    add, multiply, divide, square root, sine and cosine one; pow as one):
+    ``n_steps`` steps of each environment (4 forwards a step under RK4)
+    and, summed over the batch, the Newton iterations they took
+    (``newton_iterations``, from the plain version on the same inputs).
+    The gradient and Hessian terms of rows with force are left out (they
+    depend on the data), so the count is a lower bound."""
+    nv, nb, nr = step.nv, step.nbody, step.nrows
+    hinge = sum(t == 3 for t in step.jnt_type)
+    slide = nv - hinge
+    rotate, quat_mul = 30, 28
+    fk = (nb - 1) * (rotate + 3) + sum(
+        quat_mul for b in range(1, nb) if not step.body_quat_unit[b]) \
+        + hinge * (3 * rotate + quat_mul + 17) + slide * (2 * rotate + 9)
+    # per body: quat_to_mat, xipos, com, cinert, crb, cfrc (two inert_mul,
+    # force_cross), the leaf-to-root sums; per dof: cdof, motion_cross,
+    # the velocity and acceleration updates, inert_mul and M's dots, bias,
+    # passive; per actuator: clamps, gear, the sum
+    smooth = nb * (27 + 18 + 9 + 100 + 10 + 126 + 19) + sum(
+        45 for b in range(nb) if not step.body_iquat_unit[b]) \
+        + nv * (15 + 30 + 24 + 45 + 11 + 4) \
+        + sum(11 * len([k for k in step.body_chain[step.dof_body[i]]
+                        if k <= i]) for i in range(nv)) + 6 * step.nu
+    chol = nv ** 3 // 3 + 2 * nv * nv + 2 * nv
+    rows = len(step.lims) * (30 + nv + 10)
+    for p in step.pairs:
+        pose = 2 * 18 + 45 * ((not p["g1_unit"]) + (not p["g2_unit"]))
+        per_con = 27 * nv + 30 + 3 * 5 * 3 + (
+            2 * nv + 12 if p["condim"] == 1 else 4 * (3 * nv + 6))
+        rows += pose + 120 + p["nrows"] * per_con
+    cost = 4 * nv * nv + nr * (2 * nv + 4)
+    newton_fixed = 2 * cost if nr else 0
+    per_iteration = (nr * 2 * nv + nv * nv + 2 * nv * nv + chol
+                     + nr * 2 * nv + 2 * nv * nv + 2 * nv
+                     + step.ls_iterations * (nr * 4 + 4 * nv + 4)
+                     + 3 * nv + cost + 10)
+    forwards = n_steps * (4 if step.integrator == 1 else 1)
+    per_env = forwards * (fk + smooth + chol + (rows if nr else 0)
+                          + newton_fixed) + n_steps * (
+        (chol + 2 * nv if step.has_damping and step.integrator == 0 else 0)
+        + 4 * nv)
+    return per_env * newton_iterations.numel() + per_iteration * int(
+        newton_iterations.sum())
+
+
+def time_fast(fastpath, engine, env, state):
+    """The fused-step kernel at one main path's shape, from ``state``: its
+    time a launch by CUDA events (the median) and on the device
+    (``torch.profiler``), beside its bound (the larger of the bytes it
+    must move over the card's memory rate and ``fast_ops`` over the peak
+    rate of its type), the plain version's time and, for context, the
+    general ``engine.step``'s for the same substeps.  No single PyTorch
+    call computes this function: there is no library time."""
+    args, d = fast_inputs(env, state)
+    n = env.n_sub_steps
+    fast = env._fast
+    B = args[0].shape[0]
+
+    def kernel():
+        return fastpath.fastpath_step_cuda(fast, *args, n)
+
+    def plain():
+        return fast.plain(*args, n)
+
+    def general():
+        dd = d
+        for _ in range(n):
+            dd = engine.step(env.model, dd)
+        return dd
+
+    fast.plain(*args, n)
+    iterations = fast.newton_iterations
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3)
+    engine_ms = time_ms(general, reps=3)
+    device = device_ms(kernel, f"the fused step at B={B}", calls=20)
+    dtype = args[0].dtype
+    width = torch.finfo(dtype).bits // 8
+    nbytes = width * B * (4 * fast.nv + fast.nu + 3 * fast.nv) \
+        + 4 * len(fast.plan_ints) + width * len(fast.plan_floats)
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops = fast_ops(fast, n, iterations)
+    flop_ms = 1e3 * ops / PEAK_FLOPS[dtype]
+    return dict(B=B, nv=fast.nv, rows=fast.nrows, substeps=n,
+                dtype=str(dtype).replace("torch.", ""), ms=ms,
+                device_ms=device, plain_ms=plain_ms, engine_step_ms=engine_ms,
+                bound_ms=max(byte_ms, flop_ms), byte_ms=byte_ms,
+                flop_ms=flop_ms, ops=ops, bytes=nbytes,
+                newton_iterations=float(iterations.double().mean()),
+                bound_by="bytes" if byte_ms >= flop_ms else "operations",
+                library_ms=None)
 
 
 def phase_selfcheck(suite, linalg, engine, make_data, batch=256, steps=5):
@@ -1044,7 +1338,7 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     state = ppo.init_train_state(
         env, torch.Generator(device="cuda").manual_seed(0), batch,
@@ -1056,6 +1350,7 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     warm_launches = linalg.chol_solve.launches
+    warm_fast = fast_launches()
     rollout_ms, update_ms, step_s = [], [], []
     for _ in range(TRAIN_TIMED):
         before = [p.detach().clone() for p in state.module.parameters()]
@@ -1072,11 +1367,20 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
     launches = linalg.chol_solve.launches
     branch_launches = dict(linalg.chol_solve.branch_launches)
     check_branch(linalg, what, env.model, launches, branch_launches)
-    per_step = (launches - warm_launches) / TRAIN_TIMED
     substeps = steps * env.n_sub_steps
-    check(per_step >= min_solves * substeps,
-          f"{what}: chol_solve launched {per_step} times a train step of "
-          f"{substeps} substeps (expected >= {min_solves} a substep)")
+    fast = fast_launches()
+    if takes_fast(env):
+        # each control step of the rollouts one launch (and each reset
+        # that settles one more); chol_solve none
+        check_fast(linalg, what, fast - warm_fast, steps * TRAIN_TIMED,
+                   settle=bool(env.task.settle_steps))
+        per_step = (fast - warm_fast) / TRAIN_TIMED
+    else:
+        per_step = (launches - warm_launches) / TRAIN_TIMED
+        check(per_step >= min_solves * substeps,
+              f"{what}: chol_solve launched {per_step} times a train step "
+              f"of {substeps} substeps (expected >= {min_solves} a "
+              f"substep)")
     values = {k: float(metrics[k]) for k in ("pi_loss", "v_loss",
                                              "approx_kl", "mean_reward")}
     check(all(np.isfinite(v) for v in values.values()),
@@ -1088,6 +1392,7 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
           f"{what}: env_steps {metrics['env_steps']}")
     return dict(domain=domain, task=task, batch=batch, steps=steps,
                 launches=launches, branch_launches=branch_launches,
+                fast=takes_fast(env), fast_launches=fast,
                 per_step=per_step, substeps=substeps,
                 min_solves=min_solves, init_s=init_s, warm_s=warm_s,
                 env_steps_per_s=batch * steps * TRAIN_TIMED / sum(step_s),
@@ -1097,9 +1402,10 @@ def phase_train(suite, linalg, ppo, domain, task, batch, steps, env=None):
 
 def phase_train_selfcheck(suite, linalg, ppo, batch=64, steps=8):
     """One float64 train step of pendulum:swingup twice from one saved
-    state (so with the same draws): through the kernel and under
-    ``reference_solves()``.  Returns the largest parameter and observation
-    differences and the kernel's launches in each run."""
+    state (so with the same draws): through the fused-step kernel and
+    through its plain version (``plain_version``).  Returns the largest
+    parameter and observation differences and the kernel's launches in the
+    first run."""
     env = suite.load_batch("pendulum", "swingup", dtype=torch.float64)
     cfg = ppo.PPOConfig(steps_per_batch=steps, update_epochs=2,
                         num_minibatches=4)
@@ -1119,16 +1425,17 @@ def phase_train_selfcheck(suite, linalg, ppo, batch=64, steps=8):
         saved.seek(0)
         state = ppo.restore_train_state(saved, fresh(1))
         rec.obs = []
-        n0 = linalg.chol_solve.launches
-        with linalg.reference_solves() if plain else contextlib.nullcontext():
+        n0 = fast_launches()
+        with plain_version(linalg, env) if plain else \
+                contextlib.nullcontext():
             state, _ = train_step(state)
         runs.append((torch.cat([p.detach().flatten()
                                 for p in state.module.parameters()]),
-                     torch.stack(rec.obs), linalg.chol_solve.launches - n0))
+                     torch.stack(rec.obs), fast_launches() - n0))
     (p_k, obs_k, n_k), (p_p, obs_p, n_p) = runs
-    check(n_k >= steps and n_p == 0,
-          f"train selfcheck: {n_k} kernel launches through the kernel, "
-          f"{n_p} under reference_solves()")
+    check(takes_fast(env) and n_k >= steps and n_p == 0,
+          f"train selfcheck: {n_k} fused-step launches through the kernel, "
+          f"{n_p} through the plain version")
     dp = float((p_k - p_p).abs().max())
     dobs = float((obs_k - obs_p).abs().max())
     check(dp <= 1e-8 and dobs <= 1e-9,
@@ -1189,7 +1496,7 @@ def phase_single(suite, linalg):
         return rng.uniform(spec.minimum, spec.maximum)
 
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     ts = env.reset()
     torch.cuda.synchronize()
@@ -1354,8 +1661,9 @@ def phase_manipulation(manipulation, suite, linalg, solver, ppo, card,
         env = manipulation.load_batch(task, dtype=torch.float64,
                                       autoreset=False)
         check(env.model.device.type == "cuda", "load_batch left the card")
-        gerr, gworst, rest, rel = phase_golden(
-            suite, f"manipulation_{asset}", "manipulation", task, env=env)
+        gerr, gworst, rest, rel, _ = phase_golden(
+            suite, linalg, f"manipulation_{asset}", "manipulation", task,
+            env=env)
         print(f"phase 9 golden: float64 {task} step on the card vs JAX "
               f"golden manipulation_{asset} (reset and later states), max "
               f"|d| {gerr:.3e} ({gworst}); gate: all but qacc_warmstart "
@@ -1513,8 +1821,9 @@ def phase_locomotion(suite, linalg, solver, card):
     for asset in LOCO_GOLDENS:
         env = locomotion_env(asset, torch.float64, autoreset=False)
         check(env.model.device.type == "cuda", "the env left the card")
-        gerr, gworst, rest, rel = phase_golden(
-            suite, f"locomotion_{asset}", "locomotion", asset, env=env)
+        gerr, gworst, rest, rel, _ = phase_golden(
+            suite, linalg, f"locomotion_{asset}", "locomotion", asset,
+            env=env)
         print(f"phase 10 golden: float64 {asset} (nv={env.model.nv}) step "
               f"on the card vs JAX golden locomotion_{asset} (reset and "
               f"later states), max |d| {gerr:.3e} ({gworst}); gate: all but "
@@ -1636,7 +1945,7 @@ def phase_recipe(linalg):
     check(physics.model.qpos0.device.type == "cuda",
           "Physics.from_xml_string left the card")
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     physics.step(RECIPE_STEPS)
     torch.cuda.synchronize()
@@ -1670,14 +1979,16 @@ def phase_compile(suite, linalg, solver, card):
           f"{task}({kwargs}): nv {env.model.nv}")
     run = phase_main(suite, linalg, solver, domain, task, batch, env=env,
                      profile=True)
+    run.pop("env")
+    run.pop("after_warmup")
     run.update(task=f"{task}({kwargs})", nv=env.model.nv)
-    per_step = (run["launches"] - run["reset_launches"]) / MAIN_STEPS
+    check(run["fast"], f"{task}({kwargs}): not on the fused fast path")
     print(f"phase 11 main path: {domain}:{task} num_poles="
           f"{kwargs['num_poles']} (nv={env.model.nv}, no reference file) "
           f"B={batch} float32, reset {run['reset_s']:.2f} s, {MAIN_STEPS} "
           f"steps: {run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
-          f"chol_solve launches {per_step:.1f} a control step (>= "
-          f"{run['min_solves']} x {run['substeps'] // MAIN_STEPS} substeps), "
+          f"fused-step launches {run['fast_per_step']:.1f} a control step, "
+          f"chol_solve launches {run['launches']}, "
           f"step ms {[round(t, 1) for t in run['step_ms']]}, one profiled "
           f"control step: {run['kernels_per_step']} device kernels, busy "
           f"{run['busy_ms']:.3f} ms, idle share {run['idle_share']:.4f} "
@@ -1837,7 +2148,7 @@ def phase_host_rate(manipulation, linalg, card):
 
     with host_counters() as counts:
         torch.cuda.synchronize()
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         t0 = time.perf_counter()
         ts = env.reset()
         torch.cuda.synchronize()
@@ -1998,7 +2309,7 @@ def phase_loco_goldens(linalg, card, names=LOCO_HOST_GOLDENS, phase=13):
         check(env.physics.model.device.type == "cuda",
               f"host golden {name}: the environment left the card")
         torch.cuda.synchronize()
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         t0 = time.perf_counter()
         errs = golden.host_episode_errors(env, gold)
         seconds = time.perf_counter() - t0
@@ -2086,7 +2397,7 @@ def phase_loco_rate(linalg):
     steps = LOCO_RATE_STEPS
     with host_counters() as counts:
         torch.cuda.synchronize()
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         t0 = time.perf_counter()
         ts = env.reset()
         torch.cuda.synchronize()
@@ -2253,7 +2564,7 @@ def phase_examples_rate(linalg, name, build=None):
             for v in ts.observation.values()))
 
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     ts = env.reset()
     torch.cuda.synchronize()
@@ -2459,7 +2770,7 @@ def phase_walkers_selfcheck(linalg):
     held = {}
 
     def kernel_step():  # a retry of the profile steps and counts anew
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         held["kernel"] = _step_from(env, state, action, False, linalg)
 
     events, wall = profiled(kernel_step, "walker selfcheck's kernel step")
@@ -2492,7 +2803,7 @@ def phase_large_match(linalg):
     """Phase 15 (d): ``LARGE_MATCH`` in float64 on the card: a reset and
     one control step, finite, every launch on the branch its nv names."""
     env = _soccer_env(LARGE_MATCH, torch.float64)
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     ts = env.reset()
     spec = env.action_spec()
@@ -2687,7 +2998,7 @@ def phase_render_pixels(linalg, item):
     spec = env.action_spec()
     rng = np.random.RandomState(1)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     steps = [env.reset()]
     for _ in range(RENDER_STEPS):
@@ -2770,7 +3081,7 @@ def phase_render_soccer(linalg, item):
     spec = env.action_spec()
     rng = np.random.RandomState(1)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     env.reset()
     frames = [cam.render()]
@@ -2812,7 +3123,7 @@ def phase_render_viewer(linalg, item):
     app = viewer.Application(width=320, height=240)
     app.set_frame_callback(on_frame)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     app.launch(env, max_episodes=1)
     seconds = time.perf_counter() - t0
@@ -2970,7 +3281,7 @@ def phase_mocap_rate(linalg, written, clips):
     high = np.minimum(spec.maximum, 1.0)
     rng = np.random.RandomState(1)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     ts = env.reset()
     torch.cuda.synchronize()
@@ -3027,7 +3338,7 @@ def phase_mocap_selfcheck(linalg):
                                                       dtype=torch.float64)
         spec = env.action_spec()
         rng = np.random.RandomState(2)
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         with linalg.reference_solves() if plain else contextlib.nullcontext():
             out = [env.reset()]
             for _ in range(MOCAP_SELFCHECK_STEPS):
@@ -3075,7 +3386,7 @@ def phase_ppo_tracking(linalg):
           "ppo_tracking left the card")
     before = [p.detach().clone() for p in trainer.policy.parameters()]
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     (stats,) = trainer.train()
     launches = linalg.chol_solve.launches
     branch_launches = dict(linalg.chol_solve.branch_launches)
@@ -3108,7 +3419,7 @@ def phase_vec_env(linalg):
     venv = TorchVecEnv(env.model, env.task, VEC_ENV_BATCH, seed=0,
                        time_limit=VEC_ENV_EPISODE * dt, control_timestep=dt)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     obs = venv.reset()
     check(obs.shape == (VEC_ENV_BATCH, 3) and obs.dtype == np.float32,
@@ -3130,8 +3441,12 @@ def phase_vec_env(linalg):
     branch_launches = dict(linalg.chol_solve.branch_launches)
     check_branch(linalg, "TorchVecEnv pendulum:swingup", env.model,
                  launches, branch_launches)
-    check(launches > 0, "TorchVecEnv: no chol_solve launch")
-    return dict(task="pendulum:swingup", launches=launches,
+    check(venv._env._fast is not None,
+          "TorchVecEnv: pendulum off the fused fast path")
+    fast = check_fast(linalg, "TorchVecEnv pendulum:swingup",
+                      fast_launches(), VEC_ENV_EPISODE + 1)
+    return dict(task="pendulum:swingup", launches=launches, fast=True,
+                fast_launches=fast,
                 branch_launches=branch_launches, wall_s=wall,
                 env_steps_per_s=VEC_ENV_BATCH * len(times[1:])
                 / sum(times[1:]))
@@ -3201,7 +3516,8 @@ def phase_mocap(linalg, card):
           f"float32: episodes of {VEC_ENV_EPISODE} control steps end "
           f"together and start anew at the next step, "
           f"{vec['env_steps_per_s']:.1f} env-steps/s after the first, "
-          f"chol_solve launches {vec['launches']} (by branch "
+          f"fused-step launches {vec['fast_launches']} (one a control "
+          f"step), chol_solve launches {vec['launches']} (by branch "
           f"{vec['branch_launches']}); phase 17 in "
           f"{time.perf_counter() - t17:.1f} s | {card}", flush=True)
     return rate, selfcheck, train, vec
@@ -3240,7 +3556,7 @@ def phase_cem_rate(linalg):
     check(model.device.type == "cuda", "CEM: the model left the card")
     segments = -(-CEM_STEPS // solver.segment_length)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     actions = solver.solve(env.physics.data, CEM_STEPS, seed=0)
     torch.cuda.synchronize()
@@ -3284,7 +3600,7 @@ def phase_cem_humanoid(linalg):
     solver = CEMSolver.for_environment(
         env, n_iterations=1, segment_length=CEM_HUMANOID_STEPS)
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     _, ret = solver.solve_segment(
         env.physics.data,
@@ -3304,11 +3620,11 @@ def phase_cem_humanoid(linalg):
         (check64.population, CEM_SELFCHECK_STEPS, check64.model.nu),
         generator=gen, device=check64.model.device, dtype=torch.float64),
         check64._lo, check64._hi)
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     kernel = check64.batch_returns(env64.physics.data, cands)
     n_k, b_k = counted(linalg, "CEM selfcheck humanoid:walk float64",
                        check64.model)
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     with linalg.reference_solves():
         plain = check64.batch_returns(env64.physics.data, cands)
     check(linalg.chol_solve.launches == 0,
@@ -3354,7 +3670,7 @@ def phase_bc_dataset(linalg, directory, actions):
     else:
         written = True
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     make_env = lambda path: cartpole_env()  # noqa: E731
     if written:
         path = os.path.join(directory, "trajectory_dataset.hdf5")
@@ -3509,7 +3825,7 @@ def phase_bc_eval(linalg, train, actions, recorded):
     check(next(model.parameters()).is_cuda, "load_model left the card")
     env = cartpole_env()
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     out = evaluate.evaluate(env, model, config, reference_actions=actions,
                             context_steps=BC_CONTEXT_STEPS)
@@ -3536,17 +3852,25 @@ def phase_ppo_box2d(linalg):
     check(not ppo_box2d._gym_available(),
           "ppo_box2d: gym imports here; the suite smoke would not run")
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     rewards = ppo_box2d.main(list(PPO_BOX2D_ARGS))
     wall = time.perf_counter() - t0
-    launches, branch_launches = counted(
-        linalg, "ppo_box2d cartpole:swingup",
-        types.SimpleNamespace(nv=2, dtype=torch.float32))
+    launches = linalg.chol_solve.launches
+    branch_launches = dict(linalg.chol_solve.branch_launches)
+    check_branch(linalg, "ppo_box2d cartpole:swingup",
+                 types.SimpleNamespace(nv=2, dtype=torch.float32), launches,
+                 branch_launches)
+    # cartpole's BatchEnv takes the fused fast path: a launch a control
+    # step of the rollouts and the evaluations, chol_solve none
+    fast = fast_launches()
+    check(launches == 0 and fast > 0,
+          f"ppo_box2d: {fast} fused-step launches, {launches} chol_solve")
     check(len(rewards) == 3 and np.isfinite(rewards).all(),
           f"ppo_box2d: mean rewards {rewards}")
     return dict(rewards=rewards, wall_s=wall, launches=launches,
-                branch_launches=branch_launches)
+                branch_launches=branch_launches, fast=True,
+                fast_launches=fast)
 
 
 def phase_bc(linalg, card):
@@ -3630,7 +3954,8 @@ def phase_bc(linalg, card):
     print(f"phase 18 (f) ppo_box2d suite smoke cartpole:swingup B=256 "
           f"float32: 3 updates in {box['wall_s']:.2f} s, mean reward "
           + " -> ".join(f"{r:.5f}" for r in box["rewards"])
-          + f", chol_solve launches {box['launches']} (by branch "
+          + f", fused-step launches {box['fast_launches']}, chol_solve "
+          f"launches {box['launches']} (by branch "
           f"{box['branch_launches']}); {lap()}; phase 18 in "
           f"{time.perf_counter() - t18:.1f} s | {card}", flush=True)
     return cem, hum, data, ev, box
@@ -3667,7 +3992,7 @@ def phase_features_golden(linalg, gold):
     from dm_control_torch.rl import golden
 
     out = {"gate": [], "selfcheck": 0.0}
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     for prefix in golden.FEATURES_PREFIXES:
         m = golden.features_model(ROOT, prefix, "cuda", torch.float64)
         check(m.device.type == "cuda", "features: the model left the card")
@@ -3722,7 +4047,7 @@ def phase_features_rate(linalg):
     action = torch.zeros(MAIN_BATCH, m.nu, device=m.device)
     state, ts = env.step(state, action)  # warm-up
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     for i in range(FEATURES_STEPS):
         action = torch.rand(MAIN_BATCH, m.nu, generator=gen,
@@ -3744,7 +4069,7 @@ def phase_features_rate(linalg):
     check(physics.model.device.type == "cuda", "features Physics left the "
                                                "card")
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t1 = time.perf_counter()
     physics.step(FEATURES_PHYSICS_STEPS)
     torch.cuda.synchronize()
@@ -3808,10 +4133,13 @@ def phase_mesh(linalg):
               and dist.get_backend() == "nccl", f"mesh {mesh}")
         env = suite.load_batch("cartpole", "swingup", dtype=torch.float32)
         plain, _, plain_s, _ = _mesh_ppo(ppo, env, None)
-        linalg.reset_launch_counts()
+        reset_counts(linalg)
         meshed, metrics, mesh_s, train_step = _mesh_ppo(ppo, env, mesh)
-        launches, branch_launches = counted(
-            linalg, "mesh ppo cartpole:swingup", env.model)
+        launches = linalg.chol_solve.launches
+        branch_launches = dict(linalg.chol_solve.branch_launches)
+        check(takes_fast(env), "mesh ppo: cartpole off the fused fast path")
+        fast = check_fast(linalg, "mesh ppo cartpole:swingup",
+                          fast_launches(), 16)
         err = 0.0
         for k, v in plain.module.state_dict().items():
             w = meshed.module.state_dict()[k]
@@ -3847,7 +4175,8 @@ def phase_mesh(linalg):
     finally:
         dist.destroy_process_group()
     return dict(task="cartpole:swingup", launches=launches,
-                branch_launches=branch_launches, err=err, plain_s=plain_s,
+                branch_launches=branch_launches, fast=True,
+                fast_launches=fast, err=err, plain_s=plain_s,
                 mesh_s=mesh_s, env_kernels=len(events), gather_ms=gather_ms,
                 bc_err=bc_err, mean_reward=float(metrics["mean_reward"]))
 
@@ -3885,7 +4214,7 @@ def phase_duplo(linalg, gold):
     from dm_control_torch.entities.props.duplo import utils
 
     torch.cuda.synchronize()
-    linalg.reset_launch_counts()
+    reset_counts(linalg)
     t0 = time.perf_counter()
     force = utils.measure_separation_force(duplo.Duplo(), duplo.Duplo(),
                                            **DUPLO_ARGS)
@@ -3959,8 +4288,10 @@ def phase_features(linalg, card):
           f"cartpole:swingup B={MESH_PPO_BATCH} T=16 float32 one train step "
           f"with the mesh ({mesh['mesh_s']:.2f} s) vs without "
           f"({mesh['plain_s']:.2f} s): max |d| params, qpos "
-          f"{mesh['err']:.3e} <= {MESH_TOL:g}; chol_solve launches "
-          f"{mesh['launches']} (by branch {mesh['branch_launches']}); the "
+          f"{mesh['err']:.3e} <= {MESH_TOL:g}; fused-step launches "
+          f"{mesh['fast_launches']} (one a control step), chol_solve "
+          f"launches {mesh['launches']} (by branch "
+          f"{mesh['branch_launches']}); the "
           f"mesh's env step profiled: {mesh['env_kernels']} device events, "
           f"none NCCL; a train step's gathers (8 all_gather_rows) "
           f"{mesh['gather_ms']:.4f} ms by CUDA events; Trainer(mesh=) "
@@ -3997,7 +4328,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from dm_control_torch import manipulation, suite
     from dm_control_torch.ops import _cuda_build, linalg
-    from dm_control_torch.physics import engine, solver
+    from dm_control_torch.physics import engine, fastpath, solver
     from dm_control_torch.physics.model import make_data
     from dm_control_torch.rl import ppo
 
@@ -4010,10 +4341,25 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
+    # the two sources build at once, one nvcc each
     t0 = time.perf_counter()
-    linalg.build()
-    build_s = time.perf_counter() - t0
+    builds = {}
+
+    def build(name, fn):
+        fn()
+        builds[name] = time.perf_counter() - t0
+
+    workers = [threading.Thread(target=build, args=item) for item in (
+        ("chol_solve.cu", linalg.build), ("fastpath_step.cu", fastpath.build))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    check(len(builds) == 2, f"a build failed: built {sorted(builds)}")
+    build_s = builds["chol_solve.cu"]
     ptxas = ptxas_kernels(_cuda_build.ptxas_report.get("chol_solve.cu", ""))
+    fast_ptxas = ptxas_kernels(_cuda_build.ptxas_report.get(
+        "fastpath_step.cu", ""))
     ctas = {dtype: linalg.cluster_ctas(dtype, 1)
             for dtype in (torch.float32, torch.float64)}
     held = {dtype: linalg.global_active_clusters(dtype, c)
@@ -4025,6 +4371,11 @@ def main() -> int:
           f"{ctas[torch.float32]}), {held[torch.float64]} of them on the "
           f"card at once in float64 ({held[torch.float32]} in float32)",
           flush=True)
+    print(f"phase 2 build: fastpath_step.cu in "
+          f"{builds['fastpath_step.cu']:.2f} s (nvcc "
+          f"{_cuda_build.build_seconds.get('fastpath_step.cu', 0.0):.2f} s, "
+          f"beside chol_solve.cu's); ptxas: {' | '.join(fast_ptxas)}; "
+          f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     t3 = time.perf_counter()
     worst = phase_kernel(linalg)
@@ -4058,19 +4409,64 @@ def main() -> int:
                          for name, v in k["runs"].items())
               + f") | {card}", flush=True)
 
+    t4 = time.perf_counter()
+    golden_fast = {}
     for golden_name, domain, task in GOLDENS:
-        gerr, gworst, rest, rel = phase_golden(suite, golden_name, domain,
-                                               task)
-        print(f"phase 4 golden: float64 {domain}:{task} step on the card vs "
-              f"JAX golden {golden_name} (reset and later states), max |d| "
-              f"{gerr:.3e} ({gworst}); gate: all but qacc_warmstart "
-              f"{rest:.3e} <= 1e-9, qacc_warmstart {rel:.3e} of its scale "
-              f"<= 1e-12", flush=True)
+        gerr, gworst, rest, rel, n_fast = phase_golden(
+            suite, linalg, golden_name, domain, task)
+        through = (f"through the fused-step kernel ({n_fast} launches)"
+                   if n_fast else "through engine.step")
+        if n_fast:
+            golden_fast[f"golden {golden_name}"] = n_fast
+        check(bool(n_fast) == (domain in FAST_DOMAINS),
+              f"golden {golden_name}: {n_fast} fused-step launches")
+        print(f"phase 4 golden: float64 {domain}:{task} step on the card "
+              f"{through} vs JAX golden {golden_name} (reset and later "
+              f"states), max |d| {gerr:.3e} ({gworst}); gate: all but "
+              f"qacc_warmstart {rest:.3e} <= 1e-9, qacc_warmstart "
+              f"{rel:.3e} of its scale <= 1e-12", flush=True)
+    print(f"phase 4 in {time.perf_counter() - t4:.1f} s", flush=True)
 
-    runs = []
+    t5 = time.perf_counter()
+    runs, fast_checks, fast_timed = [], {}, {}
     for domain, task, batch in MAIN_PATHS:
-        run = phase_main(suite, linalg, solver, domain, task, batch)
+        run = phase_main(suite, linalg, solver, domain, task, batch,
+                         profile=domain in FAST_DOMAINS)
+        env, warm_state = run.pop("env"), run.pop("after_warmup")
         runs.append(run)
+        if run["fast"]:
+            c = phase_fast_check(suite, fastpath, domain, task, env,
+                                 warm_state)
+            fast_checks[f"{domain}:{task}"] = c
+            timed = ""
+            if (domain, task) in FAST_TIMED:
+                t1 = time.perf_counter()
+                t = time_fast(fastpath, engine, env, warm_state)
+                t["seconds"] = time.perf_counter() - t1
+                fast_timed[f"{domain}:{task}"] = t
+                timed = (f"; timed: kernel {1e3 * t['ms']:.1f} us a launch "
+                         f"(device {1e3 * t['device_ms']:.1f} us by "
+                         f"torch.profiler), bound {1e3 * t['bound_ms']:.3f} "
+                         f"us by {t['bound_by']} ({t['ops']:.3e} operations "
+                         f"on this run's {t['newton_iterations']:.2f} Newton "
+                         f"iterations an environment: "
+                         f"{1e3 * t['flop_ms']:.3f} us; {t['bytes']} bytes: "
+                         f"{1e3 * t['byte_ms']:.3f} us), plain version "
+                         f"{t['plain_ms']:.2f} ms, engine.step for the same "
+                         f"{t['substeps']} substeps {t['engine_step_ms']:.2f} "
+                         f"ms, no library call; the timing "
+                         f"{t['seconds']:.1f} s")
+            print(f"phase 5 fused step: {domain}:{task} one control step "
+                  f"from the state after the warm-up step, kernel vs plain "
+                  f"called directly: float32 B={batch} largest deviation "
+                  f"{c['err32']:.3e} of the scale (<= 2e-4 in "
+                  f"{batch - c['coarse']} environments; in {c['coarse']} "
+                  f"where float32 itself is off the float64 step by more, "
+                  f"kernel/plain distance to it {c['coarse_ratio']:.2f} "
+                  f"<= {FAST_F32_FACTOR}; plain float32 vs float64 "
+                  f"{c['plain32_vs_64']:.3e}), float64 B={FAST_B64} "
+                  f"{c['err64']:.3e} of the scale (<= 1e-10); the check "
+                  f"{c['seconds']:.1f} s{timed} | {card}", flush=True)
         drop = "" if run["drop_rounds"] is None else \
             f", {run['drop_rounds']} rounds of _drop_to_ground"
         if run["rejection_rounds"]:
@@ -4081,17 +4477,35 @@ def main() -> int:
         if run["noslip_slots_per_substep"] is not None:
             extra += (f", noslip sweep {run['noslip_slots_per_substep']:.1f}"
                       f" contacts a substep (gathered K over its spans)")
+        if run["fast"]:
+            launched = (
+                f"fused-step launches {run['fast_reset_launches']} in the "
+                f"reset and {run['fast_per_step']:.1f} a control step, "
+                f"chol_solve launches {run['launches']}")
+        else:
+            launched = (f"chol_solve launches {run['launches']} (>= "
+                        f"{run['min_solves']} a substep)")
+        if "kernels_per_step" in run:
+            extra += (f", one profiled control step: "
+                      f"{run['kernels_per_step']} device kernels, busy "
+                      f"{run['busy_ms']:.3f} ms of {run['profiled_ms']:.1f} "
+                      f"ms, idle share "
+                      f"{run['idle_share']:.4f} (of the unprofiled median "
+                      f"{run['idle_share_unprofiled']:.4f})")
         print(f"phase 5 main path: {domain}:{task} B={batch} float32, reset "
               f"{run['reset_s']:.2f} s ({run['reset_launches']} chol_solve "
               f"launches{drop}), {MAIN_STEPS} steps ({run['substeps']} "
-              f"substeps), "
-              f"chol_solve launches {run['launches']} (>= "
-              f"{run['min_solves']} a substep), "
+              f"substeps), {launched}, "
               f"{run['env_steps_per_s']:.1f} env-steps/s after warm-up, "
               f"diverged share {run['diverged_share']:.4f}, mean reward "
               f"{run['mean_reward']:.4f}, step ms "
               f"{[round(t, 1) for t in run['step_ms']]}{extra} | {card}",
               flush=True)
+    check(set(fast_checks) == {f"{d}:{t}" for d, t, _ in MAIN_PATHS
+                               if d in FAST_DOMAINS},
+          f"the fused step ran on {sorted(fast_checks)}, not on the six "
+          f"domains {FAST_DOMAINS}")
+    print(f"phase 5 in {time.perf_counter() - t5:.1f} s", flush=True)
 
     dq = phase_selfcheck(suite, linalg, engine, make_data)
     print(f"phase 6 selfcheck: humanoid B=256, 5 engine.steps, kernel vs "
@@ -4108,18 +4522,24 @@ def main() -> int:
               f"({run['warm_s']:.2f} s; init_train_state "
               f"{run['init_s']:.2f} s), rollout ms "
               f"{[round(t, 1) for t in run['rollout_ms']]}, update ms "
-              f"{[round(t, 1) for t in run['update_ms']]}, chol_solve "
-              f"launches {run['per_step']:.1f} a train step (>= "
-              f"{run['min_solves']} x {run['substeps']} substeps; "
-              f"{run['launches']} in the path), pi_loss "
+              f"{[round(t, 1) for t in run['update_ms']]}, "
+              + (f"fused-step launches {run['per_step']:.1f} a train step "
+                 f"of {steps} control steps ({run['fast_launches']} in the "
+                 f"path), chol_solve launches {run['launches']}"
+                 if run["fast"] else
+                 f"chol_solve launches {run['per_step']:.1f} a train step "
+                 f"(>= {run['min_solves']} x {run['substeps']} substeps; "
+                 f"{run['launches']} in the path)")
+              + f", pi_loss "
               f"{run['pi_loss']:.4e} v_loss {run['v_loss']:.4e} approx_kl "
               f"{run['approx_kl']:.4e} mean_reward {run['mean_reward']:.4f}, "
               f"parameters changed, peak {run['peak_gb']:.2f} GB | {card}",
               flush=True)
     dp, dobs, n_k = phase_train_selfcheck(suite, linalg, ppo)
     print(f"phase 7 train selfcheck: pendulum:swingup B=64 T=8 float64, one "
-          f"train step from one saved state, kernel ({n_k} launches) vs "
-          f"reference_solves(): max |dparams| {dp:.3e} <= 1e-8, max |dobs| "
+          f"train step from one saved state, fused-step kernel ({n_k} "
+          f"launches) vs its plain version: max |dparams| {dp:.3e} <= 1e-8, "
+          f"max |dobs| "
           f"{dobs:.3e} <= 1e-9 | {card}", flush=True)
 
     for domain, task in ENV_GOLDENS:
@@ -4227,6 +4647,24 @@ def main() -> int:
                        for name, n in launches.items()})
     block64 = linalg._BLOCK_MAX_N[torch.float64]
     block32 = linalg._BLOCK_MAX_N[torch.float32]
+    fast_counts = {name: r["fast_launches"] for name, r in paths.items()
+                   if r.get("fast")}
+    fast_counts.update(golden_fast)
+    head = fast_timed["cartpole:swingup"]
+    fast_entry = {
+        "name": "fastpath_step", "route": "cuda",
+        "source": "dm_control_torch/csrc/fastpath_step.cu",
+        "replaces": "dm_control_tpu/physics/fastpath.py:190 (XLA-fused; no "
+                    "Pallas kernel)",
+        "launches": fast_counts["cartpole:swingup"],
+        "launches_by_path": fast_counts,
+        "max_abs_err": fast_checks["cartpole:swingup"]["max_abs_err"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "device_ms": head["device_ms"],
+        "engine_step_ms": head["engine_step_ms"], "ptxas": fast_ptxas,
+        "checks": fast_checks,
+        "shapes": [dict(path=name, **t) for name, t in fast_timed.items()]}
     print(json.dumps({"kernels": [{
         "name": "chol_solve", "route": "cuda",
         "source": "dm_control_torch/csrc/chol_solve.cu",
@@ -4251,7 +4689,7 @@ def main() -> int:
         "library_cholesky_ms": k["library_cholesky_ms"],
         "device_ms": k["device_ms"],
         "shapes": [{key: x[key] for key in shape_keys}
-                   for x in shapes + singles]}]}))
+                   for x in shapes + singles]}, fast_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,11 +7,16 @@ loops: the substep ``fori_loop`` a Python loop, the reset rejection
 ``while_loop`` a loop over a mask that ends when no environment is
 rejected, and the autoreset ``cond`` a branch on ``needs_reset.any()``.
 
-The JAX package routes small scalar-joint models (cartpole, acrobot,
-pendulum, reacher, walker, cheetah) through
-``physics/fastpath.py::build_step``, a fused step that matches
-``engine.step``.  That fast path is not ported: every model here runs
-``engine.step``, which gives the same dynamics.
+Where the JAX package takes its fused fast path, so does this one: a
+model that ``physics/fastpath.py::build_step`` accepts (pendulum,
+cartpole, acrobot, reacher, walker and cheetah among the suite's), under a
+task whose per-episode model diff touches only ``DIFF_SAFE_FIELDS``
+(reacher's target position), runs a control step's substeps and a reset's
+settle steps as one call of the fused step: one kernel launch on the card,
+the plain version on the CPU.  After it the Data holds the new state and
+the template's values in every derived field, as in the JAX package; the
+observation then recomputes what it reads (through ``FastStep.fk_fields``
+for a model without sensors).  Every other model runs ``engine.step``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from dm_control_torch.physics import actuation as act_mod
 from dm_control_torch.physics import collision
 from dm_control_torch.physics import engine
+from dm_control_torch.physics import fastpath
 from dm_control_torch.physics import kinematics as kin
 from dm_control_torch.physics import sensors as sens
 from dm_control_torch.physics.model import Data, Model, make_data
@@ -83,6 +89,11 @@ class BatchEnv:
         self._state_fields = tuple(f for f in _STATE_FIELDS
                                    if getattr(one, f)[0].numel() > 0)
         self._templates: Dict[int, Data] = {}
+        # the fused fast path, where the JAX package takes its own: the
+        # model qualifies and the task's diff moves only geoms and sites
+        self._fast = None
+        if set(task.initial_model_diff(model)) <= fastpath.DIFF_SAFE_FIELDS:
+            self._fast = fastpath.build_step(model)
         #: rounds the last reset's rejection loop took (for profiles)
         self.last_rejection_rounds = 0
 
@@ -158,8 +169,14 @@ class BatchEnv:
                     d = d.replace(act=torch.where(r1, act, d.act))
                 tries = tries + redo.to(torch.int32)
         if task.settle_steps:
-            for _ in range(task.settle_steps):
-                d = engine.step(mm, d)
+            if self._fast is not None:
+                qpos, qvel, warm = self._fast(d.qpos, d.qvel,
+                                              d.qacc_warmstart, d.ctrl,
+                                              task.settle_steps)
+                d = d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=warm)
+            else:
+                for _ in range(task.settle_steps):
+                    d = engine.step(mm, d)
             d = d.replace(time=torch.zeros_like(d.time))
         return EnvState(data=d, model_diff=diff, rng=generator,
                         step_count=torch.zeros(batch, dtype=torch.int32,
@@ -169,6 +186,11 @@ class BatchEnv:
 
     def _observe(self, state: EnvState):
         m = apply_model_diff(self.model, state.model_diff)
+        if self._fast is not None and self._fast.fk_observe_ok:
+            # no sensors: the FK fields are all an observation reads
+            d = state.data.replace(**self._fast.fk_fields(
+                state.data.qpos, state.model_diff))
+            return state.replace(data=d), self.task.observation(m, d)
         if self.task.observation_stages == "vel":
             # position/velocity-stage observables only: skip CRB,
             # collision, RNE and the acceleration-stage sensors
@@ -213,8 +235,15 @@ class BatchEnv:
         m = apply_model_diff(self.model, state.model_diff)
         task = self.task
         d = task.before_step(m, self._unstrip(state.data), action)
-        for _ in range(self.n_sub_steps):
-            d = engine.step(m, d)
+        if self._fast is not None:
+            qpos, qvel, warm = self._fast(d.qpos, d.qvel, d.qacc_warmstart,
+                                          d.ctrl, self.n_sub_steps)
+            # the time advances by n h at once, as in the JAX package
+            d = d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=warm,
+                          time=d.time + self.n_sub_steps * m.opt.timestep)
+        else:
+            for _ in range(self.n_sub_steps):
+                d = engine.step(m, d)
         state = state.replace(data=d, step_count=state.step_count + 1)
         state, obs = self._observe(state)
         d = state.data

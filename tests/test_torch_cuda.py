@@ -14,6 +14,8 @@ also held to its own bits over 20 calls (a race between a cluster's CTAs
 would show there).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,8 @@ from _torch_helpers import (
 )
 from dm_control_torch import manipulation, suite
 from dm_control_torch.ops import linalg
+from dm_control_torch.physics import fastpath
+from dm_control_torch.rl.control import apply_model_diff
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
@@ -490,3 +494,141 @@ def test_walker_match_runs_on_the_card(cuda, walker_type, nv, dtype):
     counts = linalg.chol_solve.branch_launches
     assert counts[branch] == linalg.chol_solve.launches
     assert counts[branch] >= 2 * env._n_sub_steps
+
+
+# -- the fused fast path's kernel (physics/fastpath.py) ----------------------
+
+FAST_TASKS = (("pendulum", "swingup"), ("cartpole", "swingup"),
+              ("acrobot", "swingup"), ("reacher", "easy"), ("walker", "run"),
+              ("cheetah", "run"))
+FAST_NAMES = tuple(f"{d}:{t}" for d, t in FAST_TASKS) + ("colliders",)
+
+
+def _colliders_model(dtype, device):
+    from dm_control_torch import mjcf
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_fastpath_colliders.xml")) as f:
+        return mjcf.compile_xml_string(f.read(), device=device, dtype=dtype)
+
+
+def _fast_inputs(name, dtype, device, batch=64):
+    """(FastStep, its inputs for one control step, substeps): a suite path
+    after its reset and one control step, its next control step's inputs;
+    or the inline collider model near qpos0."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    if name == "colliders":
+        m = _colliders_model(dtype, device)
+        qpos = m.qpos0 + 0.005 * torch.randn(batch, m.nq, generator=gen,
+                                             device=device, dtype=dtype)
+        qvel = 0.2 * torch.randn(batch, m.nv, generator=gen, device=device,
+                                 dtype=dtype)
+        ctrl = 2 * torch.rand(batch, m.nu, generator=gen, device=device,
+                              dtype=dtype) - 1
+        return fastpath.build_step(m), [qpos, qvel, torch.zeros_like(qvel),
+                                        ctrl], 1
+    domain, task = name.split(":")
+    env = suite.load_batch(domain, task, device=device, dtype=dtype)
+    state, _ = env.reset(batch, gen)
+
+    def action():
+        return 2 * torch.rand(batch, env.model.nu, generator=gen,
+                              device=device, dtype=dtype) - 1
+
+    state, _ = env.step(state, action())
+    d = env.task.before_step(
+        apply_model_diff(env.model, state.model_diff),
+        env._unstrip(state.data), action())
+    return env._fast, [x.contiguous() for x in (
+        d.qpos, d.qvel, d.qacc_warmstart, d.ctrl)], env.n_sub_steps
+
+
+def _env_dev(got, ref, scale):
+    return torch.stack([((g - r).abs().amax(-1)
+                         / max(1.0, float(c.abs().max()))).double()
+                        for g, r, c in zip(got, ref, scale)]).amax(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FAST_NAMES)
+def test_fastpath_kernel_matches_plain_version(cuda, name, dtype):
+    """One control step through the kernel and through the plain version
+    from the same state.  float64: within 1e-10 of max(1, each field's
+    largest entry).  float32: each environment within 2e-4 of that scale,
+    or, where float32 itself is further than that from the float64 step of
+    the same state (stiff contacts), no further from it than twice the
+    plain float32 version (chip_smoke.py's phase 5 gate)."""
+    fast, args, n = _fast_inputs(name, dtype, cuda)
+    before = fastpath.fastpath_step_cuda.launches
+    got = fastpath.fastpath_step_cuda(fast, *args, n)
+    torch.cuda.synchronize()
+    assert fastpath.fastpath_step_cuda.launches == before + 1
+    ref = fast.plain(*args, n)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    dev = _env_dev(got, ref, ref)
+    if dtype == torch.float64:
+        assert float(dev.max()) <= TOL[dtype], float(dev.max())
+        return
+    fast64, args64, _ = _fast_inputs(name, torch.float64, cuda)
+    ref64 = fast64.plain(*[a.double() for a in args], n)
+    dev_plain = _env_dev(ref, ref64, ref64)
+    dev_kernel = _env_dev(got, ref64, ref64)
+    held = (dev <= TOL[dtype]) | ((dev_plain > TOL[dtype])
+                                  & (dev_kernel <= 2 * dev_plain))
+    assert bool(held.all()), (float(dev.max()), int((~held).sum()))
+
+
+@pytest.mark.parametrize("domain,task", FAST_TASKS)
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_fastpath_golden_step_through_the_kernel(cuda, domain, task, prefix):
+    """The float64 golden control step of the six fast-path domains
+    through the kernel: the golden gate, one launch, no chol_solve."""
+    env = suite.load_batch(domain, task, device=cuda, dtype=torch.float64,
+                           autoreset=False)
+    assert env._fast is not None
+    linalg.reset_launch_counts()
+    fastpath.reset_launch_count()
+    assert_step_matches_golden(env, golden(domain), prefix)
+    assert fastpath.fastpath_step_cuda.launches == 1
+    assert linalg.chol_solve.launches == 0
+
+
+def test_fastpath_kernel_raises_and_never_falls_back(cuda):
+    """A CUDA tensor launches the kernel or raises: a wrong device, type,
+    shape (another model's plan) or layout raises; nothing runs the plain
+    version instead."""
+    fast, (qpos, qvel, warm, ctrl), _ = _fast_inputs("cartpole:swingup",
+                                                     torch.float32, cuda, 4)
+    before = fastpath.fastpath_step_cuda.launches
+    with pytest.raises(TypeError):
+        fast(qpos, qvel.double(), warm, ctrl)
+    with pytest.raises(TypeError):
+        fast(qpos.half(), qvel.half(), warm.half(), ctrl.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        fast(qpos, qvel.cpu(), warm, ctrl)
+    with pytest.raises(ValueError, match="contiguous"):
+        fast(qpos, qvel.t().contiguous().t(), warm, ctrl)
+    pendulum = suite.load_batch("pendulum", "swingup", device=cuda,
+                                dtype=torch.float32)._fast
+    with pytest.raises(ValueError, match="shape"):
+        pendulum(qpos, qvel, warm, ctrl)  # cartpole's state, pendulum's plan
+    with pytest.raises(ValueError, match="n_steps"):
+        fast(qpos, qvel, warm, ctrl, -1)
+    assert fastpath.fastpath_step_cuda.launches == before
+    fast(qpos, qvel, warm, ctrl)
+    assert fastpath.fastpath_step_cuda.launches == before + 1
+
+
+def test_fastpath_cpu_route_leaves_the_counter(cuda):
+    """The CPU route runs the plain version: the launch count stays; the
+    same BatchEnv on the card launches once a control step and once a
+    reset that settles (cheetah's 200 steps)."""
+    fastpath.reset_launch_count()
+    for device in ("cpu", cuda):
+        env = suite.load_batch("cheetah", "run", device=device,
+                               dtype=torch.float32)
+        state, _ = env.reset(2, torch.Generator(device=device).manual_seed(0))
+        env.step(state, torch.zeros(2, env.model.nu, device=device))
+        if device == "cpu":
+            assert fastpath.fastpath_step_cuda.launches == 0
+    assert fastpath.fastpath_step_cuda.launches == 2

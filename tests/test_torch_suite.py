@@ -21,6 +21,7 @@ from dm_control_torch import suite as tsuite
 from dm_control_torch.ops import linalg as tlinalg
 from dm_control_torch.physics import constraints as tcons
 from dm_control_torch.physics import engine as tengine
+from dm_control_torch.physics import fastpath as tfastpath
 from dm_control_torch.physics.model import make_data
 from dm_control_torch.rl.control import FIRST
 from dm_control_torch.rl.golden import model_diff
@@ -222,12 +223,24 @@ def test_model_diff_refuses_other_fields():
 
 def test_cheetah_reset_settles_200_steps_and_zeroes_time(monkeypatch):
     env = _env("cheetah")
-    calls = []
+    # cheetah takes the fused fast path: the settle steps are steps of
+    # FastStep, none of engine.step
+    assert env._fast is not None
+    calls, engine_calls = [], []
+    real_plain = tfastpath.FastStep.plain
     real_step = tengine.step
+
+    def plain(self, qpos, qvel, warm, ctrl, n_steps=1):
+        calls.append(n_steps)
+        return real_plain(self, qpos, qvel, warm, ctrl, n_steps)
+
+    monkeypatch.setattr(tfastpath.FastStep, "plain", plain)
     monkeypatch.setattr(tengine, "step",
-                        lambda m, d: calls.append(1) or real_step(m, d))
+                        lambda m, d: engine_calls.append(1)
+                        or real_step(m, d))
     state, ts = env.reset(2, _gen(1))
-    assert len(calls) == env.task.settle_steps == 200
+    assert sum(calls) == env.task.settle_steps == 200
+    assert not engine_calls
     assert torch.equal(state.data.time, torch.zeros(2, dtype=torch.float64))
     # settled: resting on the floor, nearly still
     d = tengine.fwd_position(env.model, env._unstrip(state.data))

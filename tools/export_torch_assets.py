@@ -12,7 +12,8 @@ imports ``dm_control_tpu`` and JAX.
 
 (``golden:NAME``, ``golden:quadruped_fetch`` say, writes that golden file
 alone, ``golden:features`` the engine-features recording,
-``duplo_golden`` the Duplo separation recording; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
+``duplo_golden`` the Duplo separation recording, ``fastpath_golden``
+the fused fast path's recording of the contact models; ``env_golden:NAME``, ``env_golden:cartpole_swingup`` say, one
 single-environment episode of ``ENV_GOLDENS``, and ``env_goldens`` all
 six; ``manipulation`` the four manipulation models and their goldens;
 ``manip_env_golden:NAME`` one host episode of ``MANIP_ENV_GOLDENS``, and
@@ -938,6 +939,58 @@ def features_stage_fields(engine, sensors, constraints, m, d):
     return out
 
 
+#: the fast path's recording (``fastpath_golden``): the contact models
+#: whose fused step is recorded, the golden states it starts from and the
+#: steps recorded from each
+FASTPATH_ASSETS = ("cheetah", "walker")
+FASTPATH_PREFIXES = ("reset", "contact")
+FASTPATH_STEPS = 10
+
+
+def fastpath_golden_path():
+    return os.path.join(ROOT, "tests", "data",
+                        "torch_fastpath_contacts_f64.npz")
+
+
+def make_fastpath_golden():
+    """The JAX package's ``fastpath.build_step`` of each of
+    ``FASTPATH_ASSETS`` (the checked-in asset held in a JAX ``Model``,
+    ``tests/_torch_helpers.py::jax_model_from_asset``), stepped
+    ``FASTPATH_STEPS`` times from each golden start state of
+    ``FASTPATH_PREFIXES`` (cheetah after its 200 settle steps and 10
+    control steps later, walker after its reset and 40 control steps later;
+    lying or standing on the floor) with the golden's actions held fixed:
+    ``<asset>_<prefix>_<field>`` (steps + 1, B, n) for qpos, qvel and the
+    warm start, and ``<asset>_<prefix>_ctrl`` (B, nu)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dm_control_tpu.physics import fastpath as jfastpath
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_helpers import jax_model_from_asset
+
+    out = {}
+    for asset in FASTPATH_ASSETS:
+        step = jax.jit(jax.vmap(jfastpath.build_step(
+            jax_model_from_asset(asset))))
+        with np.load(golden_path(asset)) as gold:
+            for prefix in FASTPATH_PREFIXES:
+                state = [jnp.asarray(gold[f"{prefix}_{f}"]) for f in (
+                    "qpos", "qvel", "qacc_warmstart")]
+                ctrl = jnp.asarray(gold[f"{prefix}_actions"])
+                rows = [state]
+                for _ in range(FASTPATH_STEPS):
+                    state = list(step(*state, ctrl))
+                    rows.append(state)
+                for k, f in enumerate(("qpos", "qvel", "warm")):
+                    out[f"{asset}_{prefix}_{f}"] = np.stack(
+                        [np.asarray(r[k]) for r in rows])
+                out[f"{asset}_{prefix}_ctrl"] = np.asarray(ctrl)
+        print("recorded", asset, flush=True)
+    return out
+
+
 #: ``measure_separation_force``'s arguments of the Duplo recording: five
 #: steps a probe, a bracket around the force such a short probe needs
 DUPLO_ARGS = dict(min_force=512.0, max_force=1024.0, tolerance=8.0,
@@ -1049,6 +1102,11 @@ def main(argv=None):
         if domain == "duplo_golden":
             np.savez(duplo_golden_path(), **make_duplo_golden())
             print("wrote", os.path.relpath(duplo_golden_path(), ROOT),
+                  flush=True)
+            continue
+        if domain == "fastpath_golden":
+            np.savez(fastpath_golden_path(), **make_fastpath_golden())
+            print("wrote", os.path.relpath(fastpath_golden_path(), ROOT),
                   flush=True)
             continue
         if domain == "golden:features":
