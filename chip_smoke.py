@@ -251,8 +251,12 @@ TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 FAST_B64 = 256
 FAST_F32_FACTOR = 2.0
 #: the main paths whose fused step is timed (``time_fast``): the JAX
-#: package's bench rungs
-FAST_TIMED = (("cartpole", "swingup"), ("cheetah", "run"))
+#: package's bench rungs, and walker (contact rows and 10 substeps)
+FAST_TIMED = (("cartpole", "swingup"), ("cheetah", "run"), ("walker", "run"))
+#: the timed shapes whose grid must give each of the card's 132 SMs at
+#: least 2 blocks and 8 warps (``time_fast``)
+FAST_GRID_CHECKED = (("cartpole", "swingup"), ("cheetah", "run"))
+SMS = 132
 #: the suite domains whose main path takes the fused fast path, as in the
 #: JAX package's BatchEnv
 FAST_DOMAINS = ("pendulum", "cartpole", "acrobot", "reacher", "walker",
@@ -514,8 +518,8 @@ def check(cond, msg):
 
 def ptxas_kernels(report: str) -> list:
     """Each kernel's registers, stack and spills from nvcc's ``-Xptxas -v``
-    report, named by branch (or ``fastpath_step``) and type
-    (``global<double>``)."""
+    report, named by branch (or ``fastpath_step``, with or without the
+    contact pairs' code) and type (``global<double>``)."""
     out, name = [], None
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
@@ -527,6 +531,8 @@ def ptxas_kernels(report: str) -> list:
             kind = "double" if "IdL" in mangled or "IdE" in mangled else \
                 "float"
             cols = "Li2E" in mangled and ", 2 columns" or ""
+            if "fastpath_step_kernel" in mangled:
+                cols = ", pairs" if "Lb1E" in mangled else ", no pairs"
             name, stack = f"{branch}<{kind}{cols}>", ""
         elif "bytes stack frame" in ln:
             stack = ln.strip()
@@ -534,6 +540,25 @@ def ptxas_kernels(report: str) -> list:
             regs = ln.split("Used", 1)[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {stack}")
             name = None
+    return out
+
+
+def fast_layouts(suite, fastpath) -> dict:
+    """The fused step's launch on each fast-path main path, in both types,
+    from its model on the host (``fastpath.launch_layout``): lanes an
+    environment, environments a block and shared bytes a block."""
+    out = {}
+    for domain, task, _ in MAIN_PATHS:
+        if domain not in FAST_DOMAINS:
+            continue
+        fast = suite.load_batch(domain, task, device="cpu",
+                                dtype=torch.float64,
+                                task_kwargs=TASK_KWARGS.get(domain))._fast
+        out[f"{domain}:{task}"] = {
+            str(dtype).replace("torch.", ""): dict(zip(
+                ("width", "envs_per_block", "shared_bytes"),
+                fastpath.launch_layout(fast, dtype)))
+            for dtype in (torch.float32, torch.float64)}
     return out
 
 
@@ -586,9 +611,10 @@ def randn(gen, shape, dtype):
                        device="cuda").to(dtype)
 
 
-def time_ms(fn, reps=30):
-    """Median milliseconds per call over ``reps`` CUDA-event timings."""
-    for _ in range(3):
+def time_ms(fn, reps=30, warmup=3):
+    """Median milliseconds per call over ``reps`` CUDA-event timings, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -1232,7 +1258,7 @@ def fast_ops(step, n_steps, newton_iterations):
         newton_iterations.sum())
 
 
-def time_fast(fastpath, engine, env, state):
+def time_fast(fastpath, engine, env, state, check_grid=False):
     """The fused-step kernel at one main path's shape, from ``state``: its
     time a launch by CUDA events (the median) and on the device
     (``torch.profiler``), beside its bound (the larger of the bytes it
@@ -1257,11 +1283,19 @@ def time_fast(fastpath, engine, env, state):
             dd = engine.step(env.model, dd)
         return dd
 
+    layout = fastpath.launch_layout(fast, args[0].dtype)
+    blocks, warps = fastpath.launch_grid(layout, B)
+    if check_grid:
+        check(blocks >= 2 * SMS and warps >= 8 * SMS,
+              f"the fused step at B={B}: {blocks} blocks and {warps} warps "
+              f"do not give each of {SMS} SMs 2 blocks and 8 warps")
     fast.plain(*args, n)
     iterations = fast.newton_iterations
     ms = time_ms(kernel)
-    plain_ms = time_ms(plain, reps=3)
-    engine_ms = time_ms(general, reps=3)
+    # the plain version and engine.step are context (walker's take 1-2 s a
+    # call): one warm-up and one timed call each
+    plain_ms = time_ms(plain, reps=1, warmup=1)
+    engine_ms = time_ms(general, reps=1, warmup=1)
     device = device_ms(kernel, f"the fused step at B={B}", calls=20)
     dtype = args[0].dtype
     width = torch.finfo(dtype).bits // 8
@@ -1277,7 +1311,8 @@ def time_fast(fastpath, engine, env, state):
                 flop_ms=flop_ms, ops=ops, bytes=nbytes,
                 newton_iterations=float(iterations.double().mean()),
                 bound_by="bytes" if byte_ms >= flop_ms else "operations",
-                library_ms=None)
+                library_ms=None, width=layout[0], envs_per_block=layout[1],
+                shared_bytes=layout[2], blocks=blocks, warps=warps)
 
 
 def phase_selfcheck(suite, linalg, engine, make_data, batch=256, steps=5):
@@ -4371,11 +4406,23 @@ def main() -> int:
           f"{ctas[torch.float32]}), {held[torch.float64]} of them on the "
           f"card at once in float64 ({held[torch.float32]} in float32)",
           flush=True)
+    check(len(fast_ptxas) == 4 and all(
+        "0 bytes spill stores" in x for x in fast_ptxas),
+          f"fastpath_step.cu spills: {fast_ptxas}")
+    layouts = fast_layouts(suite, fastpath)
     print(f"phase 2 build: fastpath_step.cu in "
           f"{builds['fastpath_step.cu']:.2f} s (nvcc "
           f"{_cuda_build.build_seconds.get('fastpath_step.cu', 0.0):.2f} s, "
           f"beside chol_solve.cu's); ptxas: {' | '.join(fast_ptxas)}; "
-          f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"both built in {time.perf_counter() - t0:.2f} s; lanes an "
+          f"environment, environments a block and dynamic shared bytes a "
+          f"block (float32 / float64): "
+          + "; ".join(f"{path} {v['float32']['width']} lanes, "
+                      f"{v['float32']['envs_per_block']} / "
+                      f"{v['float64']['envs_per_block']} a block, "
+                      f"{v['float32']['shared_bytes']} / "
+                      f"{v['float64']['shared_bytes']} bytes"
+                      for path, v in layouts.items()), flush=True)
 
     t3 = time.perf_counter()
     worst = phase_kernel(linalg)
@@ -4441,12 +4488,17 @@ def main() -> int:
             timed = ""
             if (domain, task) in FAST_TIMED:
                 t1 = time.perf_counter()
-                t = time_fast(fastpath, engine, env, warm_state)
+                t = time_fast(fastpath, engine, env, warm_state,
+                              (domain, task) in FAST_GRID_CHECKED)
                 t["seconds"] = time.perf_counter() - t1
                 fast_timed[f"{domain}:{task}"] = t
                 timed = (f"; timed: kernel {1e3 * t['ms']:.1f} us a launch "
                          f"(device {1e3 * t['device_ms']:.1f} us by "
-                         f"torch.profiler), bound {1e3 * t['bound_ms']:.3f} "
+                         f"torch.profiler; {t['width']} lanes an "
+                         f"environment, {t['envs_per_block']} a block, "
+                         f"{t['shared_bytes']} shared bytes a block, "
+                         f"{t['blocks']} blocks, {t['warps']} warps), bound "
+                         f"{1e3 * t['bound_ms']:.3f} "
                          f"us by {t['bound_by']} ({t['ops']:.3e} operations "
                          f"on this run's {t['newton_iterations']:.2f} Newton "
                          f"iterations an environment: "
@@ -4663,6 +4715,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "device_ms": head["device_ms"],
         "engine_step_ms": head["engine_step_ms"], "ptxas": fast_ptxas,
+        "width": head["width"], "shared_bytes": head["shared_bytes"],
+        "layouts": layouts,
         "checks": fast_checks,
         "shapes": [dict(path=name, **t) for name, t in fast_timed.items()]}
     print(json.dumps({"kernels": [{

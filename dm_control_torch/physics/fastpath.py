@@ -16,9 +16,10 @@ condim 1 or 3, Euler or RK4.
 
 ``build_step(m)`` returns a ``FastStep``: called with the state of B
 environments, it runs ``n_steps`` steps.  A CUDA tensor launches the
-kernel of ``csrc/fastpath_step.cu`` (one thread an environment runs all
-the steps: FK, smooth dynamics, the constraint rows, the projected Newton
-solve and the integrator, with no host sync); a CPU tensor takes
+kernel of ``csrc/fastpath_step.cu`` (a group of lanes an environment, its
+arrays in shared memory, runs all the steps: FK, smooth dynamics, the
+constraint rows, the projected Newton solve and the integrator, with no
+host sync; ``launch_layout`` sizes the launch); a CPU tensor takes
 ``FastStep.plain``, the plain PyTorch version of the same step.  The plain
 version holds the constraint rows as tensors (J (B, rows, nv), aref and D
 (B, rows)), keeps the JAX package's order along the tree's chains, in the
@@ -113,9 +114,9 @@ def _contact_pairs_static(m: Model):
 
 def applicable(m: Model) -> bool:
     """True when the fused step reproduces ``engine.step`` for ``m``: the
-    JAX package's rule, and every contact pair's collider one of
-    ``COLLIDERS`` (a model refused for its collider alone runs
-    ``engine.step``)."""
+    JAX package's rule, every contact pair's collider one of ``COLLIDERS``
+    (a model refused for its collider alone runs ``engine.step``), and
+    one environment's arrays within a block's shared memory in float64."""
     if m.njnt == 0 or m.nv != m.njnt or m.na != 0:
         return False
     if m.nv > 10 or m.ntendon != 0 or m.neq != 0:
@@ -127,8 +128,12 @@ def applicable(m: Model) -> bool:
     if pairs is None:
         return False
     # a condim 3 contact is 4 pyramidal solver rows
-    if sum(p["nrows"] * (1 if p["condim"] == 1 else 4)
-           for p in pairs) > _MAX_CONTACT_ROWS:
+    rows = sum(p["nrows"] * (1 if p["condim"] == 1 else 4) for p in pairs)
+    if rows > _MAX_CONTACT_ROWS:
+        return False
+    # the kernel holds an environment in a block's shared memory (float64)
+    rows += 2 * int(np.asarray(m.jnt_limited).sum())
+    if env_bytes(m.nbody, m.nv, rows, 8) > MAX_SHARED_BYTES:
         return False
     if any(int(t) in _ACC_STAGE_SENSORS for t in m.sensor_type):
         return False
@@ -1015,11 +1020,6 @@ class FastStep:
                                 device=device))
         return self._device_plans[key]
 
-    def scratch_elems(self) -> int:
-        """Scratch values a environment: the per-body, per-dof and per-row
-        arrays of the kernel (``fastpath_scratch_elems``)."""
-        return scratch_elems(self.nbody, self.nv, self.nrows)
-
     def __call__(self, qpos, qvel, warm, ctrl, n_steps: int = 1):
         if qpos.device.type == "cpu":
             return self.plain(qpos, qvel, warm, ctrl, n_steps)
@@ -1068,11 +1068,63 @@ _DTYPES = (torch.float32, torch.float64)
 _LIB = None
 
 
-def scratch_elems(nbody: int, nv: int, nrows: int) -> int:
-    """The kernel's scratch values a environment (its per-body, per-dof and
-    per-row arrays); the same count as the library's
-    ``fastpath_scratch_elems``."""
-    return nbody * 60 + nv * 18 + nrows * (nv + 4)
+#: the kernel's threads a block and a block's most dynamic shared memory
+#: on an H100 (``csrc/fastpath_step.cu``: kBlockThreads, kMaxSharedBytes)
+BLOCK_THREADS = 128
+MAX_SHARED_BYTES = 232448
+#: an environment's values in shared memory: per body, per dof, the
+#: nv-vectors of the step's type and the solver's nv-vectors of double
+#: (the kernel's kBodyW, kDofW, kVecs and kSolverVecs)
+_BODY_W, _DOF_W, _VECS, _SOLVER_VECS = 60, 18, 17, 10
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def env_bytes(nbody: int, nv: int, nrows: int, itemsize: int) -> int:
+    """Shared-memory bytes of one environment in the kernel: of the step's
+    type its per-body, per-dof and per-row arrays (J, aref, D), M and its
+    vectors; of double, the Newton solve's H, factor, vectors and each
+    row's jar and J p; then two lists of row indices (the rows that can
+    carry force, and those with force at the Newton iterate).  The same
+    count as the library's ``fastpath_env_bytes``."""
+    values = nbody * _BODY_W + nv * _DOF_W + nrows * (nv + 2) + nv * nv \
+        + _VECS * nv
+    solver = 2 * nv * nv + _SOLVER_VECS * nv + 2 * nrows
+    return _align16(values * itemsize) + _align16(8 * solver) \
+        + _align16(8 * nrows)
+
+
+def launch_layout(step, dtype: torch.dtype):
+    """The kernel's launch for ``step`` (a ``FastStep``, or anything with
+    its ``nbody``, ``nv``, ``nrows`` and ``pairs``) in ``dtype``: (group
+    width, environments a block, shared bytes a block).
+
+    The width is the lanes that run one environment: a warp where the model
+    has contact pairs (tens to hundreds of rows, whose sums and the
+    Hessian's entries spread over the lanes), else the smallest power of
+    two that is at least nv and 8 (a few rows at most: the lanes hold the
+    dofs).  A block holds ``BLOCK_THREADS / width`` environments, fewer
+    where their shared memory would pass ``MAX_SHARED_BYTES``.  Raises
+    where one environment does not fit a block."""
+    nv = step.nv
+    width = 32 if step.pairs else max(8, 1 << (nv - 1).bit_length())
+    each = env_bytes(step.nbody, nv, step.nrows,
+                     torch.empty((), dtype=dtype).element_size())
+    envs = min(BLOCK_THREADS // width, MAX_SHARED_BYTES // each)
+    if envs < 1:
+        raise ValueError(f"fastpath: an environment needs {each} bytes of "
+                         f"shared memory, a block has {MAX_SHARED_BYTES}")
+    return width, envs, envs * each
+
+
+def launch_grid(layout, B: int):
+    """(blocks, warps) of a launch at batch ``B`` with ``layout`` (from
+    ``launch_layout``)."""
+    width, envs, _ = layout
+    blocks = -(-B // envs)
+    return blocks, blocks * -(-(width * envs) // 32)
 
 
 def _load():
@@ -1085,12 +1137,13 @@ def _load():
         lib = _cuda_build.load_library("fastpath_step.cu")
         ptr = ctypes.c_void_p
         for fn in (lib.fastpath_step_f32, lib.fastpath_step_f64):
-            fn.argtypes = [ptr] * 10 + [ctypes.c_longlong, ctypes.c_int, ptr]
+            fn.argtypes = [ptr] * 9 + [ctypes.c_longlong] \
+                + [ctypes.c_int] * 7 + [ptr]
             fn.restype = ctypes.c_int
         lib.fastpath_layout_names.argtypes = []
         lib.fastpath_layout_names.restype = ctypes.c_char_p
-        lib.fastpath_scratch_elems.argtypes = [ctypes.c_int] * 3
-        lib.fastpath_scratch_elems.restype = ctypes.c_longlong
+        lib.fastpath_env_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fastpath_env_bytes.restype = ctypes.c_longlong
         lib.fastpath_error_string.argtypes = [ctypes.c_int]
         lib.fastpath_error_string.restype = ctypes.c_char_p
         want = ";".join(",".join(names) for names in (
@@ -1099,9 +1152,11 @@ def _load():
         if got != want:
             raise RuntimeError(f"fastpath_step.cu's plan layout {got!r} is "
                                f"not the module's {want!r}")
-        if lib.fastpath_scratch_elems(3, 2, 5) != scratch_elems(3, 2, 5):
-            raise RuntimeError("fastpath_step.cu's scratch count is not "
-                               "the module's")
+        for args in ((3, 2, 5, 4), (8, 9, 144, 8), (11, 10, 180, 8)):
+            if lib.fastpath_env_bytes(*args) != env_bytes(*args):
+                raise RuntimeError(f"fastpath_step.cu's shared bytes of an "
+                                   f"environment {args} are not the "
+                                   f"module's")
         _LIB = lib
     return _LIB
 
@@ -1113,10 +1168,11 @@ def build() -> None:
 
 def fastpath_step_cuda(step: FastStep, qpos, qvel, warm, ctrl,
                        n_steps: int = 1):
-    """Launches the fused-step kernel on the current stream: one thread an
-    environment runs all ``n_steps`` steps.  Raises on a tensor that is not
-    on one CUDA device, not float32 or float64, not contiguous or of the
-    wrong shape, and on a launch that is refused.  Counts the launch in
+    """Launches the fused-step kernel on the current stream: a group of
+    lanes an environment (``launch_layout``) runs all ``n_steps`` steps,
+    its arrays in shared memory.  Raises on a tensor that is not on one
+    CUDA device, not float32 or float64, not contiguous or of the wrong
+    shape, and on a launch that is refused.  Counts the launch in
     ``fastpath_step_cuda.launches``."""
     B, nv, nu = qpos.shape[0], step.nv, step.nu
     dev, dtype = qpos.device, qpos.dtype
@@ -1143,13 +1199,14 @@ def fastpath_step_cuda(step: FastStep, qpos, qvel, warm, ctrl,
            torch.empty_like(warm)]
     if B == 0:
         return tuple(out)
-    scratch = torch.empty(B * step.scratch_elems(), dtype=dtype, device=dev)
+    width, envs, _ = launch_layout(step, dtype)
     entry = lib.fastpath_step_f64 if dtype == torch.float64 \
         else lib.fastpath_step_f32
     args = (plan_i.data_ptr(), plan_f.data_ptr(), qpos.data_ptr(),
             qvel.data_ptr(), warm.data_ptr(), ctrl.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            scratch.data_ptr(), B, int(n_steps),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B,
+            int(n_steps), step.nbody, nv, step.nrows, len(step.pairs), width,
+            envs,
             torch.cuda.current_stream(dev).cuda_stream)
     if dev.index == torch.cuda.current_device():
         err = entry(*args)

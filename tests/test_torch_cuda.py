@@ -549,16 +549,13 @@ def _env_dev(got, ref, scale):
                         for g, r, c in zip(got, ref, scale)]).amax(0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", FAST_NAMES)
-def test_fastpath_kernel_matches_plain_version(cuda, name, dtype):
-    """One control step through the kernel and through the plain version
-    from the same state.  float64: within 1e-10 of max(1, each field's
-    largest entry).  float32: each environment within 2e-4 of that scale,
-    or, where float32 itself is further than that from the float64 step of
-    the same state (stiff contacts), no further from it than twice the
-    plain float32 version (chip_smoke.py's phase 5 gate)."""
-    fast, args, n = _fast_inputs(name, dtype, cuda)
+def _assert_kernel_matches_plain(cuda, name, dtype, fast, args, n):
+    """One launch of the kernel against the plain version from ``args``.
+    float64: within 1e-10 of max(1, each field's largest entry).  float32:
+    each environment within 2e-4 of that scale, or, where float32 itself
+    is further than that from the float64 step of the same state (stiff
+    contacts), no further from it than twice the plain float32 version
+    (chip_smoke.py's phase 5 gate)."""
     before = fastpath.fastpath_step_cuda.launches
     got = fastpath.fastpath_step_cuda(fast, *args, n)
     torch.cuda.synchronize()
@@ -569,13 +566,49 @@ def test_fastpath_kernel_matches_plain_version(cuda, name, dtype):
     if dtype == torch.float64:
         assert float(dev.max()) <= TOL[dtype], float(dev.max())
         return
-    fast64, args64, _ = _fast_inputs(name, torch.float64, cuda)
+    fast64, _, _ = _fast_inputs(name, torch.float64, cuda, 1)
     ref64 = fast64.plain(*[a.double() for a in args], n)
     dev_plain = _env_dev(ref, ref64, ref64)
     dev_kernel = _env_dev(got, ref64, ref64)
     held = (dev <= TOL[dtype]) | ((dev_plain > TOL[dtype])
                                   & (dev_kernel <= 2 * dev_plain))
     assert bool(held.all()), (float(dev.max()), int((~held).sum()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", FAST_NAMES)
+def test_fastpath_kernel_matches_plain_version(cuda, name, dtype):
+    """One control step through the kernel and through the plain version
+    from the same state, under ``_assert_kernel_matches_plain``'s gate."""
+    fast, args, n = _fast_inputs(name, dtype, cuda)
+    _assert_kernel_matches_plain(cuda, name, dtype, fast, args, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fastpath_kernel_groups_of_a_block_run_apart(cuda, dtype):
+    """cheetah with every other environment lifted 1 m: the four
+    environments of each block alternate between the air (one Newton
+    iteration) and the floor (more), so the groups of a block leave their
+    Newton loops at different times; the plain version's gate holds."""
+    fast, args, n = _fast_inputs("cheetah:run", dtype, cuda)
+    args[0] = args[0].clone()
+    args[0][::2, 1] += 1.0  # rootz
+    fast.plain(*args, n)
+    its = fast.newton_iterations
+    assert int(its[0::2].max()) < int(its[1::2].max()), its
+    _assert_kernel_matches_plain(cuda, "cheetah:run", dtype, fast, args, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("name", ["cartpole:swingup", "cheetah:run"])
+def test_fastpath_kernel_at_a_ragged_batch(cuda, name, batch, dtype):
+    """B = 1 and 37 fill no block (16 environments a block for cartpole, 4
+    for cheetah): the last block's spare groups leave at once."""
+    fast, args, n = _fast_inputs(name, dtype, cuda, batch)
+    _, envs, _ = fastpath.launch_layout(fast, dtype)
+    assert batch % envs != 0
+    _assert_kernel_matches_plain(cuda, name, dtype, fast, args, n)
 
 
 @pytest.mark.parametrize("domain,task", FAST_TASKS)
